@@ -1,0 +1,9 @@
+"""mamba2-370m — pure SSD (state-space duality) LM [arXiv:2405.21060]."""
+from repro_torch.models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="mamba2-370m", family="ssm",
+    n_layers=48, d_model=1024, n_heads=0, n_kv_heads=0,
+    d_ff=0, vocab=50280,
+    ssm_state=128, ssm_head_dim=64, ssm_expand=2, ssm_chunk=128,
+)

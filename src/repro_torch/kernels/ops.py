@@ -1,0 +1,85 @@
+"""Public kernel ops of the port: dispatch by the device of the inputs.
+
+Counterpart of ``repro/kernels/ops.py``.  Each op has two
+implementations with the same semantics:
+
+  * the hand-written CUDA kernel (``flash_attention.py``,
+    ``flash_decode.py``), taken for CUDA tensors;
+  * the plain PyTorch version (``ref.py``), taken for CPU tensors.
+
+``impl="auto"`` dispatches by device: a CUDA tensor gets the kernel or an
+exception (there is no fallback), a CPU tensor gets the plain version.
+``impl="ref"`` returns the plain version on either device; only the tests
+and ``chip_smoke.py`` ask for it, to get the value a kernel is held
+against.
+
+This differs from the JAX package, where ``"auto"`` means Pallas only on
+a TPU (``repro/kernels/ops.py:37-40``) and the models pass ``"ref"``
+unless ``ArchConfig.use_pallas`` is set (``repro/models/config.py:129``).
+The port's models always pass ``"auto"``: on the card the kernels run
+whatever ``use_pallas`` says.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import flash_attention as _fa
+from . import flash_decode as _fd
+from . import ref as _ref
+
+IMPLS = ("auto", "ref")
+
+
+def _plain(impl: str, t: torch.Tensor) -> bool:
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}; got {impl!r}")
+    return impl == "ref" or t.device.type == "cpu"
+
+
+def _repeat_kv(k: torch.Tensor, v: torch.Tensor, H: int):
+    Hkv = k.shape[1]
+    if H != Hkv:
+        k = k.repeat_interleave(H // Hkv, dim=1)
+        v = v.repeat_interleave(H // Hkv, dim=1)
+    return k, v
+
+
+# --------------------------------------------------------------------------
+# flash attention (prefill)
+# --------------------------------------------------------------------------
+
+
+def flash_attention(q, k, v, causal: bool = True,
+                    window: Optional[int] = None,
+                    sm_scale: Optional[float] = None,
+                    impl: str = "auto", **block_kw):
+    """q (B,H,S,D); k (B,Hkv,Sk,D); v (B,Hkv,Sk,Dv) -> (B,H,S,Dv)."""
+    if _plain(impl, q):
+        k, v = _repeat_kv(k, v, q.shape[1])
+        return _ref.flash_attention_ref(q, k, v, causal=causal,
+                                        window=window, sm_scale=sm_scale,
+                                        block_k=block_kw.get("block_k", 512))
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               sm_scale=sm_scale, **block_kw)
+
+
+# --------------------------------------------------------------------------
+# flash decode
+# --------------------------------------------------------------------------
+
+
+def flash_decode(q, k, v, kv_len=None, sm_scale: Optional[float] = None,
+                 return_lse: bool = False, impl: str = "auto", **block_kw):
+    """q (B,H,D); k (B,Hkv,S,D); v (B,Hkv,S,Dv) -> (B,H,Dv) [, lse]."""
+    if _plain(impl, q):
+        k, v = _repeat_kv(k, v, q.shape[1])
+        return _ref.flash_decode_ref(q, k, v, kv_len=kv_len,
+                                     sm_scale=sm_scale,
+                                     return_lse=return_lse)
+    return _fd.flash_decode(q, k, v, kv_len=kv_len, sm_scale=sm_scale,
+                            return_lse=return_lse, **block_kw)
+
+
+apply_activation = _ref.apply_activation

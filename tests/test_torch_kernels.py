@@ -1,0 +1,160 @@
+"""The port's kernels on the CPU (their plain PyTorch versions) against
+the JAX package's Pallas kernels in interpret mode, as
+``tests/test_kernels.py`` runs them.  Inputs come from numpy with a fixed
+seed.  Tolerance atol 2e-3 / rtol 1e-3 in float32: both sides stream the
+softmax in f32 but sum in different orders and block sizes."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import flash_attention as t_fa
+from repro_torch.kernels import flash_decode as t_fd
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+ATOL, RTOL = 2e-3, 1e-3
+
+
+def _normal(rng, *shape):
+    return rng.normal(size=shape).astype(np.float32)
+
+
+# --------------------------------------------------------------------------
+# flash attention (K2)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,Dv,causal,window", [
+    (1, 1, 1, 16, 8, 8, True, None),
+    (2, 4, 2, 100, 32, 32, True, None),        # GQA, ragged S
+    (2, 4, 2, 100, 32, 32, False, None),
+    (1, 4, 2, 77, 16, 16, True, 7),            # sliding window
+    (1, 2, 2, 90, 16, 16, True, 64),
+    (2, 4, 4, 48, 24, 16, True, None),         # Dv != D
+    (1, 6, 3, 40, 16, 8, False, None),         # GQA, Dv != D
+])
+def test_flash_attention_matches_pallas(B, H, Hkv, S, D, Dv, causal,
+                                        window):
+    rng = np.random.default_rng(S * 7 + D)
+    q, k, v = (_normal(rng, B, H, S, D), _normal(rng, B, Hkv, S, D),
+               _normal(rng, B, Hkv, S, Dv))
+    want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=causal,
+                                window=window, impl="pallas", block_q=32,
+                                block_k=32)
+    got = tops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), causal=causal,
+                               window=window)
+    assert got.shape == (B, H, S, Dv) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=RTOL)
+
+
+def test_flash_attention_ref_block_size_invariant():
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(_normal(rng, 1, 2, 70, 16))
+               for _ in range(3))
+    a = tref.flash_attention_ref(q, k, v, block_k=512)
+    b = tref.flash_attention_ref(q, k, v, block_k=16)
+    torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# flash decode (K3)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,Dv,kv_len,return_lse", [
+    (3, 4, 2, 50, 32, 32, (1, 17, 50), True),   # GQA, kv_len per lane
+    (3, 4, 2, 50, 32, 32, (1, 17, 50), False),
+    (2, 4, 4, 300, 16, 16, (1, 300), True),     # crosses a Pallas block
+    (2, 4, 2, 64, 24, 16, (40, 9), True),       # Dv != D
+    (2, 6, 2, 33, 8, 8, None, False),           # kv_len omitted
+])
+def test_flash_decode_matches_pallas(B, H, Hkv, S, D, Dv, kv_len,
+                                     return_lse):
+    # kv_len >= 1 throughout: at 0 the kernel gives 0 and the plain
+    # version the mean of v.
+    rng = np.random.default_rng(S + D)
+    q, k, v = (_normal(rng, B, H, D), _normal(rng, B, Hkv, S, D),
+               _normal(rng, B, Hkv, S, Dv))
+    lens = None if kv_len is None else np.asarray(kv_len, np.int32)
+    want = jops.flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             kv_len=None if lens is None
+                             else jnp.asarray(lens),
+                             return_lse=return_lse, impl="pallas")
+    got = tops.flash_decode(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v),
+                            kv_len=None if lens is None
+                            else torch.from_numpy(lens),
+                            return_lse=return_lse)
+    if return_lse:
+        (got, got_lse), (want, want_lse) = got, want
+        assert got_lse.shape == (B, H) and got_lse.dtype == torch.float32
+        np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse),
+                                   atol=ATOL, rtol=RTOL)
+    assert got.shape == (B, H, Dv)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=RTOL)
+
+
+def test_flash_decode_ref_matches_jax_ref_bf16():
+    rng = np.random.default_rng(5)
+    q, k, v = (_normal(rng, 2, 4, 32), _normal(rng, 2, 4, 40, 32),
+               _normal(rng, 2, 4, 40, 32))
+    lens = np.asarray([7, 40], np.int32)
+    want = jref.flash_decode_ref(jnp.asarray(q, jnp.bfloat16),
+                                 jnp.asarray(k, jnp.bfloat16),
+                                 jnp.asarray(v, jnp.bfloat16),
+                                 kv_len=jnp.asarray(lens))
+    got = tref.flash_decode_ref(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+        kv_len=torch.from_numpy(lens))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=2e-2,
+                               rtol=2e-2)
+
+
+# --------------------------------------------------------------------------
+# activations and dispatch
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "relu6", "silu", "gelu",
+                                 "sigmoid", "sqrelu", "mish"])
+def test_apply_activation_matches_jax(act):
+    x = _normal(np.random.default_rng(1), 64, 33) * 4
+    want = jref.apply_activation(jnp.asarray(x), act)
+    got = tref.apply_activation(torch.from_numpy(x), act)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_activation_names_match_jax():
+    assert tref.ACTIVATIONS == jref.ACTIVATIONS
+    with pytest.raises(ValueError):
+        tref.apply_activation(torch.zeros(2), "swish")
+
+
+@pytest.mark.parametrize("wrapper,args", [
+    (t_fa.flash_attention, ((1, 2, 8, 16), (1, 2, 8, 16), (1, 2, 8, 16))),
+    (t_fd.flash_decode, ((1, 2, 16), (1, 2, 8, 16), (1, 2, 8, 16))),
+])
+def test_kernel_wrappers_refuse_cpu_tensors(wrapper, args):
+    """A kernel wrapper launches its kernel or raises: it never computes
+    the plain version itself, and counts no launch when it raises."""
+    before = (t_fa.launches, t_fd.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        wrapper(*(torch.zeros(s) for s in args))
+    assert (t_fa.launches, t_fd.launches) == before
+
+
+def test_ops_reject_unknown_impl():
+    q = torch.zeros(1, 2, 16)
+    k = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="impl"):
+        tops.flash_decode(q, k, k, impl="pallas")
