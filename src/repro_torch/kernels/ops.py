@@ -4,7 +4,7 @@ Counterpart of ``repro/kernels/ops.py``.  Each op has two
 implementations with the same semantics:
 
   * the hand-written CUDA kernel (``flash_attention.py``,
-    ``flash_decode.py``), taken for CUDA tensors;
+    ``flash_decode.py``, ``ssd_scan.py``), taken for CUDA tensors;
   * the plain PyTorch version (``ref.py``), taken for CPU tensors.
 
 ``impl="auto"`` dispatches by device: a CUDA tensor gets the kernel or an
@@ -28,6 +28,7 @@ import torch
 from . import flash_attention as _fa
 from . import flash_decode as _fd
 from . import ref as _ref
+from . import ssd_scan as _ssd
 
 IMPLS = ("auto", "ref")
 
@@ -82,4 +83,20 @@ def flash_decode(q, k, v, kv_len=None, sm_scale: Optional[float] = None,
                             return_lse=return_lse, **block_kw)
 
 
+# --------------------------------------------------------------------------
+# Mamba2 SSD scan
+# --------------------------------------------------------------------------
+
+
+def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 64, init_state=None,
+             impl: str = "auto"):
+    """Full chunked SSD: the intra-chunk kernel (K4) and the cross-chunk
+    recurrence in torch.  x (B,S,H,P); dt (B,S,H); A (H,); Bm/Cm (B,S,N).
+    Returns (y (B,S,H,P), final_state (B,H,P,N)) in x's dtype."""
+    chunk_fn = _ref.ssd_chunk_ref if _plain(impl, x) else _ssd.ssd_chunk
+    return _ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,
+                             init_state=init_state, chunk_fn=chunk_fn)
+
+
+ssd_step = _ref.ssd_step_ref          # O(1) decode step (plain torch)
 apply_activation = _ref.apply_activation

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels of the serving slice.
+"""Plain PyTorch versions of the kernels of the serving slices.
 
 Counterpart of ``repro/kernels/ref.py``.  These are the semantics of the
 hand-written CUDA kernels: the CPU path of ``ops.py``, and the value
@@ -8,7 +8,7 @@ card.  They run on whatever device their inputs lie on.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -120,3 +120,111 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lse = m[..., 0] + torch.log(torch.clamp(l, min=1e-30))
         return o, lse
     return o
+
+
+# --------------------------------------------------------------------------
+# Mamba2 SSD (state-space duality) chunked scan
+# --------------------------------------------------------------------------
+
+
+def ssd_chunk_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  Bm: torch.Tensor, Cm: torch.Tensor, chunk: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """Intra-chunk SSD, the four outputs of ``repro/kernels/ssd_scan.py``'s
+    ``ssd_chunk``.  x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,N); S a
+    multiple of `chunk`.
+
+    Returns, all f32: y_intra (B,S,H,P), the chunk state contributions
+    contrib (B,nc,H,P,N), the chunk decays total (B,nc,H) and the
+    inclusive cumsum of dt*A within each chunk, seg (B,S,H)."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if S % chunk:
+        raise ValueError(f"S={S} is not a multiple of chunk={chunk}")
+    nc, L = S // chunk, chunk
+    xc = x.reshape(Bsz, nc, L, H, P).float()
+    dtc = dt.reshape(Bsz, nc, L, H).float()
+    Bc = Bm.reshape(Bsz, nc, L, N).float()
+    Cc = Cm.reshape(Bsz, nc, L, N).float()
+    seg = torch.cumsum(dtc * A.float(), dim=2)              # (B,nc,L,H)
+    # y[t] = sum_{s<=t} C[t].B[s] exp(seg[t]-seg[s]) dt[s] x[s]; above the
+    # diagonal the exponent is positive and may overflow, so it is masked
+    # to -inf before the exp
+    cb = torch.einsum("bcln,bcmn->bclm", Cc, Bc)            # (B,nc,L,L)
+    decay = seg[:, :, :, None, :] - seg[:, :, None, :, :]   # (B,nc,L,L,H)
+    tri = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
+    gate = torch.exp(decay.masked_fill(~tri[:, :, None], -math.inf))
+    scores = cb[..., None] * gate * dtc[:, :, None]
+    y = torch.einsum("bclmh,bcmhp->bclhp", scores, xc)
+    # contribution of the chunk to the state after it:
+    # sum_s exp(seg[L-1]-seg[s]) dt[s] x[s] (x) B[s]
+    w = torch.exp(seg[:, :, -1:, :] - seg) * dtc            # (B,nc,L,H)
+    contrib = torch.einsum("bclhp,bcln->bchpn", xc * w[..., None], Bc)
+    total = torch.exp(seg[:, :, -1, :])                     # (B,nc,H)
+    return (y.reshape(Bsz, S, H, P), contrib, total,
+            seg.reshape(Bsz, S, H))
+
+
+ChunkFn = Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor]]
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, chunk: int = 64,
+                 init_state: Optional[torch.Tensor] = None,
+                 chunk_fn: ChunkFn = ssd_chunk_ref
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD forward (Mamba2, arXiv:2405.21060 §6).
+
+    x (B,S,H,P); dt (B,S,H) softplus-activated step sizes (> 0); A (H,)
+    negative decay rates; Bm/Cm (B,S,N) (single group); init_state
+    (B,H,P,N) or None.  Returns (y (B,S,H,P), final state (B,H,P,N)), both
+    in x's dtype.
+
+    S is padded with zeros to a multiple of `chunk` (dt = 0 there, so the
+    padded rows change no state); `chunk_fn` computes the intra-chunk part
+    (``ssd_chunk_ref`` or the CUDA kernel, ``ops.ssd_scan``); the O(S/L)
+    recurrence across chunks and its contribution to y run here."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    nc = math.ceil(S / chunk)
+    pad = nc * chunk - S
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+    y_in, contrib, total, seg = chunk_fn(x, dt, A, Bm, Cm, chunk)
+    s = (init_state.float() if init_state is not None
+         else torch.zeros((Bsz, H, P, N), dtype=torch.float32,
+                          device=x.device))
+    s_prevs = []
+    for c in range(nc):                 # the state entering each chunk
+        s_prevs.append(s)
+        s = s * total[:, c, :, None, None] + contrib[:, c]
+    s_prevs = torch.stack(s_prevs, dim=1)                   # (B,nc,H,P,N)
+    L = chunk
+    Cc = Cm.reshape(Bsz, nc, L, N).float()
+    decay_in = torch.exp(seg.reshape(Bsz, nc, L, H))
+    # y[t] += exp(seg[t]) C[t] . S_prev
+    y_out = torch.einsum("bcln,bchpn->bclhp", Cc, s_prevs) \
+        * decay_in[..., None]
+    y = (y_in.reshape(Bsz, nc, L, H, P) + y_out).reshape(
+        Bsz, nc * L, H, P)[:, :S]
+    return y.to(x.dtype), s.to(x.dtype)
+
+
+def ssd_step_ref(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
+                 A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-token SSD recurrence (decode).  state (B,H,P,N); x (B,H,P);
+    dt (B,H); Bm/Cm (B,N).  Returns y (B,H,P) in x's dtype and the new
+    state in the state's dtype (a bf16 state is rounded every step, as in
+    the JAX package)."""
+    dtf = dt.float()
+    da = torch.exp(dtf * A.float()[None, :])                # (B,H)
+    upd = torch.einsum("bh,bn,bhp->bhpn", dtf, Bm.float(), x.float())
+    new = state.float() * da[..., None, None] + upd
+    y = torch.einsum("bn,bhpn->bhp", Cm.float(), new)
+    return y.to(x.dtype), new.to(state.dtype)

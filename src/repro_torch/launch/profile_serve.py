@@ -1,7 +1,7 @@
 """Where a decode step of the serving slice spends its time.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-        --arch minitron-4b --no-smoke --batch 4 --prompt-len 100
+        --arch zamba2-2.7b --no-smoke --batch 4 --prompt-len 200
 
 Replays a random prompt through ``decode_step`` (warm-up), times
 ``--steps`` further steps on the host clock around

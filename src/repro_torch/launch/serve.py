@@ -6,8 +6,10 @@
 Counterpart of ``repro/launch/serve.py``: random prompts from
 ``np.random.default_rng(seed)``, random weights from the seed, prefill by
 replaying the prompt through decode steps (one token for the whole batch
-against the KV cache, through the flash-decode kernel), then greedy
-decoding.  ``--smoke`` (the default) serves the reduced config;
+against the decode caches: the KV cache through the flash-decode kernel,
+the SSM state through ``ssd_step``), then greedy decoding.  Every family
+of ``lm.check_supported`` is served: dense (minitron-4b), ssm
+(mamba2-370m) and hybrid (zamba2-2.7b).  ``--smoke`` (the default) serves the reduced config;
 ``--no-smoke`` serves the full width.  Runs on CUDA unless ``--device``
 says otherwise.
 """

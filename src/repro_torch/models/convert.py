@@ -2,10 +2,18 @@
 
 ``params_from_numpy(cfg, tree, device)`` takes the tree that
 ``repro.models.lm.init_params`` returns, as nested dicts of numpy arrays
-(``jax.tree_util.tree_map(np.asarray, params)``), with the leading layer
-axis of the stacked layers: ``tree["layers"]["attn"]["wq"]`` has shape
-(L, d, Hp*hd).  Weights keep the JAX layout, so ``x @ w`` is the same
-product on both sides.
+(``jax.tree_util.tree_map(np.asarray, params)``), with the leading axes
+of the stacked layers:
+
+    dense   layers.{norm1, norm2, attn.*, mlp.*}   stacked over (L,)
+    ssm     layers.{norm, ssm.*}                   stacked over (L,)
+    hybrid  groups.ssm.{norm, ssm.*}               stacked over (G, R)
+            groups.lora.{q_a, q_b, in_a, in_b}     stacked over (G,)
+            shared.{norm1, norm2, attn.*, mlp.*}   one block
+
+so ``tree["layers"]["attn"]["wq"]`` has shape (L, d, Hp*hd).  Weights
+keep the JAX layout, so ``x @ w`` is the same product on both sides.  A
+leaf whose shape or dtype does not fit raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -16,6 +24,9 @@ import torch
 
 from .config import ArchConfig
 from .lm import LM
+
+_SSM_LEAVES = ("ssm_in", "conv_w", "A_log", "D", "dt_bias", "gnorm",
+               "ssm_out")
 
 
 def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
@@ -50,15 +61,35 @@ def params_from_numpy(cfg: ArchConfig, tree: Dict, device) -> LM:
     put(model.final_norm, tree["final_norm"], "final_norm")
     if model.lm_head is not None:
         put(model.lm_head, tree["lm_head"], "lm_head")
-    layers = tree["layers"]
-    for i, layer in enumerate(model.layers):
-        put(layer.norm1, layers["norm1"][i], f"layers.{i}.norm1")
-        put(layer.norm2, layers["norm2"][i], f"layers.{i}.norm2")
+
+    def decoder_layer(layer, src, idx, name):
+        put(layer.norm1, src["norm1"][idx], f"{name}.norm1")
+        put(layer.norm2, src["norm2"][idx], f"{name}.norm2")
         for w in ("wq", "wk", "wv", "wo"):
-            put(getattr(layer.attn, w), layers["attn"][w][i],
-                f"layers.{i}.attn.{w}")
+            put(getattr(layer.attn, w), src["attn"][w][idx],
+                f"{name}.attn.{w}")
         for w in ("w_in", "w_out", "w_gate"):
             if getattr(layer.mlp, w) is not None:
-                put(getattr(layer.mlp, w), layers["mlp"][w][i],
-                    f"layers.{i}.mlp.{w}")
+                put(getattr(layer.mlp, w), src["mlp"][w][idx],
+                    f"{name}.mlp.{w}")
+
+    def ssm_layer(layer, src, idx, name):
+        put(layer.norm, src["norm"][idx], f"{name}.norm")
+        for w in _SSM_LEAVES:
+            put(getattr(layer.ssm, w), src["ssm"][w][idx], f"{name}.ssm.{w}")
+
+    if cfg.family == "hybrid":
+        groups = tree["groups"]
+        for g, group in enumerate(model.groups):
+            for r, layer in enumerate(group.ssm):
+                ssm_layer(layer, groups["ssm"], (g, r),
+                          f"groups.{g}.ssm.{r}")
+            for w in ("q_a", "q_b", "in_a", "in_b"):
+                put(getattr(group.lora, w), groups["lora"][w][g],
+                    f"groups.{g}.lora.{w}")
+        decoder_layer(model.shared, tree["shared"], (), "shared")
+    else:
+        layer_fn = ssm_layer if cfg.family == "ssm" else decoder_layer
+        for i, layer in enumerate(model.layers):
+            layer_fn(layer, tree["layers"], i, f"layers.{i}")
     return model

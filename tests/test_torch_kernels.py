@@ -13,6 +13,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import flash_decode as t_fd
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ssd_scan as t_ssd
 from repro_torch.kernels import ref as tref
 
 ATOL, RTOL = 2e-3, 1e-3
@@ -140,17 +141,20 @@ def test_activation_names_match_jax():
         tref.apply_activation(torch.zeros(2), "swish")
 
 
-@pytest.mark.parametrize("wrapper,args", [
-    (t_fa.flash_attention, ((1, 2, 8, 16), (1, 2, 8, 16), (1, 2, 8, 16))),
-    (t_fd.flash_decode, ((1, 2, 16), (1, 2, 8, 16), (1, 2, 8, 16))),
+@pytest.mark.parametrize("wrapper,args,kw", [
+    (t_fa.flash_attention, ((1, 2, 8, 16), (1, 2, 8, 16), (1, 2, 8, 16)),
+     {}),
+    (t_fd.flash_decode, ((1, 2, 16), (1, 2, 8, 16), (1, 2, 8, 16)), {}),
+    (t_ssd.ssd_chunk, ((1, 32, 3, 16), (1, 32, 3), (3,), (1, 32, 8),
+                       (1, 32, 8)), dict(chunk=16)),
 ])
-def test_kernel_wrappers_refuse_cpu_tensors(wrapper, args):
+def test_kernel_wrappers_refuse_cpu_tensors(wrapper, args, kw):
     """A kernel wrapper launches its kernel or raises: it never computes
     the plain version itself, and counts no launch when it raises."""
-    before = (t_fa.launches, t_fd.launches)
+    before = (t_fa.launches, t_fd.launches, t_ssd.launches)
     with pytest.raises(ValueError, match="CUDA"):
-        wrapper(*(torch.zeros(s) for s in args))
-    assert (t_fa.launches, t_fd.launches) == before
+        wrapper(*(torch.zeros(s) for s in args), **kw)
+    assert (t_fa.launches, t_fd.launches, t_ssd.launches) == before
 
 
 def test_ops_reject_unknown_impl():
