@@ -9,8 +9,10 @@ each of which ends the run with a nonzero exit and no result on failure:
 1. the card's name and power limit, torch and CUDA versions, and the
    build of every CUDA kernel from the sources in this checkout;
 2. every kernel on the card against its plain PyTorch version, at the
-   shapes each serving path gives it (bf16) and at small ragged cases
-   (f32), timed with CUDA events beside its plain version, one PyTorch
+   shapes each serving path gives it (bf16; int8 for K1 at the vision
+   plans' shapes, compared for equality) and at small ragged cases (f32;
+   K1 also in its Pallas contract: f32, bf16, int8 requant, per-channel
+   scale), timed with CUDA events beside its plain version, one PyTorch
    library call for the same function where there is one, and its
    bound;
 3. minitron-4b served at full width (32 layers, d_model 3072) through
@@ -18,13 +20,20 @@ each of which ends the run with a nonzero exit and no result on failure:
 4. zamba2-2.7b at full width (54 SSD layers, d_model 2560, the shared
    attention block 9 times), the same way;
 5. mamba2-370m at full width (48 SSD layers, d_model 1024), the same
-   way.
+   way;
+6. the int8 vision plan replay of mobilenet_v2 and resnet50_v1 at 224
+   through ``serve_vision``: every conv and fc on K1 ``neutron_matmul``
+   (exactly 36 and 54 launches per replay), the stored output integers
+   equal to the port's plain path on the CPU (batch 1 and a ragged 5 in
+   an 8-plan for mobilenet_v2, batch 1 for resnet50_v1; on a mismatch the
+   first op whose integers differ is named), and the decoded outputs
+   within the calibrated ``float_tolerance`` of the float32 oracle.
 
 For the two SSM paths the prefill-vs-replay agreement is held in
 float32 at full width (TF32 off) and reported in bf16, beside how far
 bf16 moves each path's logits from float32 (see ``ZAMBA`` below).
 
-In phases 3-5 the weights are random from the seed.  Each path runs
+In phases 3-6 the weights are random from the seed.  Each path runs
 with the launch counters set to 0 just before it and read just after,
 and must launch each kernel exactly as often as its layers say.  The
 decode replay and the prefill must agree at the last prompt position,
@@ -38,6 +47,7 @@ path), and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -53,6 +63,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_S = 3.35e12       # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12,   # dense tensor-core rate
+              "int8": 1979e12,      # dense tensor-core rate (K1's bound)
               "float32": 67e12}     # outside the tensor cores
 
 SEED = 0
@@ -61,10 +72,11 @@ TOL = {"float32": (2e-3, 1e-3), "bfloat16": (2e-2, 2e-2)}
 
 class ServingPath(NamedTuple):
     """A serving path at full width: its shapes, the launches of
-    (flash_attention, flash_decode, ssd_chunk) that `serve` and `prefill`
-    must make, the reduced config held against the CPU, and the limit on
-    max|d|/max|logit| between prefill and the decode replay in bf16; with
-    None, that comparison is held in float32 at full width instead."""
+    (flash_attention, flash_decode, ssd_chunk, neutron_matmul) that
+    `serve` and `prefill` must make, the reduced config held against the
+    CPU, and the limit on max|d|/max|logit| between prefill and the
+    decode replay in bf16; with None, that comparison is held in float32
+    at full width instead."""
     arch: str
     batch: int
     prompt_len: int
@@ -82,7 +94,7 @@ class ServingPath(NamedTuple):
 # of 54 SSD layers; mamba2-370m runs K4 in each of 48 layers.  Serving
 # replays the prompt through decode steps, which run no K2 or K4.
 MINITRON = ServingPath("minitron-4b", 4, 100, 16, (32, 3072),
-                       serve=(0, 32 * 116, 0), prefill=(32, 0, 0),
+                       serve=(0, 32 * 116, 0, 0), prefill=(32, 0, 0, 0),
                        small=dict(n_heads=3, n_kv_heads=1, d_head=32,
                                   tp_pad=4))
 # At 48-54 layers of random weights, bf16 rounding alone moves the logits
@@ -91,11 +103,49 @@ MINITRON = ServingPath("minitron-4b", 4, 100, 16, (32, 3072),
 # chunked scan's; so the two SSM paths hold prefill against the decode
 # replay in float32 at full width, and report it in bf16.
 ZAMBA = ServingPath("zamba2-2.7b", 4, 200, 16, (54, 2560),
-                    serve=(0, 9 * 216, 0), prefill=(9, 0, 54), small={},
+                    serve=(0, 9 * 216, 0, 0), prefill=(9, 0, 54, 0),
+                    small={},
                     bf16_limit=None)
 MAMBA = ServingPath("mamba2-370m", 4, 200, 8, (48, 1024),
-                    serve=(0, 0, 0), prefill=(0, 0, 48), small={},
+                    serve=(0, 0, 0, 0), prefill=(0, 0, 48, 0), small={},
                     bf16_limit=None)
+
+
+class VisionPath(NamedTuple):
+    """An int8 vision plan at 224: K1 launches per replay (one per conv
+    and fc) and the batches held against the plain path on the CPU."""
+    name: str
+    k1_per_replay: int
+    cpu_batches: Tuple[int, ...]
+
+
+# mobilenet_v2: 35 conv + 1 fc; resnet50_v1: 53 conv + 1 fc
+MOBILENET = VisionPath("mobilenet_v2", 36, (1, 5))
+RESNET = VisionPath("resnet50_v1", 54, (1,))
+VISION_BATCH = 8
+
+
+class K1Shape(NamedTuple):
+    """One of K1's GEMMs on a vision path: output rows per image, K, N
+    and the activation of its epilogue."""
+    path: str
+    what: str
+    rows: int
+    K: int
+    N: int
+    act: str
+
+
+K1_SHAPES = (
+    K1Shape("mobilenet_v2", "stem 3x3/2 conv (im2col)", 112 * 112, 27, 32,
+            "relu6"),
+    K1Shape("mobilenet_v2", "last 1x1 conv", 7 * 7, 320, 1280, "relu6"),
+    K1Shape("mobilenet_v2", "fc", 1, 1280, 1000, "none"),
+    K1Shape("resnet50_v1", "stem 7x7/2 conv (im2col)", 112 * 112, 147, 64,
+            "relu"),
+    K1Shape("resnet50_v1", "3x3 conv (im2col)", 56 * 56, 576, 64, "relu"),
+    K1Shape("resnet50_v1", "fc", 1, 2048, 1000, "none"),
+)
 
 
 def fail(msg: str) -> None:
@@ -330,6 +380,8 @@ def phase_kernels(torch, F, ops):
             plain_ms=time_ms(torch, lambda: ref.ssd_chunk_ref(*args, L)),
             bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
+    phase_k1(torch, ops, rows)
+
     for r in rows.values():
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f}"
@@ -340,14 +392,111 @@ def phase_kernels(torch, F, ops):
     return rows
 
 
+def int_mm_ms(torch, x2, w):
+    """The time of ``torch._int_mm`` (cuBLASLt int8 on the tensor cores:
+    the product alone, no epilogue) on x2 (M,K) @ w^T, where its shape
+    rules allow it (M > 16, K and N multiples of 8); else None."""
+    M, K = x2.shape
+    N = w.shape[0]
+    if M <= 16 or K % 8 or N % 8:
+        return None, (f"none: torch._int_mm needs M > 16 and K, N "
+                      f"multiples of 8 (M={M}, K={K}, N={N})")
+    wt = w.t()
+    return (time_ms(torch, lambda: torch._int_mm(x2, wt)),
+            "torch._int_mm, the product without the epilogue")
+
+
+def phase_k1(torch, ops, rows):
+    """K1 against its plain version: its Pallas contract at small ragged
+    cases, then the plan contract at the vision paths' shapes (batch 8),
+    where the int8 outputs must be equal."""
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def randint(lo, hi, *shape, dtype=torch.int8):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                             dtype=dtype)
+
+    for (M, K, N), dtype in (((8, 16, 8), "float32"),
+                             ((100, 300, 70), "float32"),
+                             ((33, 65, 129), "float32"),
+                             ((128, 512, 128), "bfloat16")):
+        dt = getattr(torch, dtype)
+        x, w, b = randn(M, K, dtype=dt), randn(K, N, dtype=dt), randn(N)
+        e = check_close(torch, f"neutron_matmul {dtype} ({M},{K},{N})",
+                        ops.neutron_matmul(x, w, bias=b, scale=0.5,
+                                           act="gelu"),
+                        ops.neutron_matmul(x, w, bias=b, scale=0.5,
+                                           act="gelu", impl="ref"), dtype)
+        print(f"  neutron_matmul (Pallas contract) {dtype} ({M},{K})x"
+              f"({K},{N}) scale, bias, gelu: max|err| {e:.3g}")
+    x, w = randint(-128, 128, 64, 256), randint(-128, 128, 256, 96)
+    got = ops.neutron_matmul(x, w, scale=0.02, act="relu", out_scale=0.7)
+    if not torch.equal(got, ops.neutron_matmul(x, w, scale=0.02, act="relu",
+                                               out_scale=0.7, impl="ref")):
+        fail("neutron_matmul int8 requant differs from its plain version")
+    x, w = randint(-64, 64, 16, 128), randint(-64, 64, 128, 32)
+    sc = torch.rand(32, generator=gen, device="cuda") * 0.1 + 1e-3
+    e = check_close(torch, "neutron_matmul per-channel scale",
+                    ops.neutron_matmul(x, w, scale=sc),
+                    ops.neutron_matmul(x, w, scale=sc, impl="ref"),
+                    "float32")
+    print(f"  neutron_matmul (Pallas contract) int8 (64,256)x(256,96) relu "
+          f"requant: equal; per-channel scale (16,128)x(128,32): max|err| "
+          f"{e:.3g}")
+
+    B = VISION_BATCH
+    for shp in K1_SHAPES:
+        M = B * shp.rows
+        x = randint(-128, 128, B, shp.rows, shp.K)
+        w = randint(-127, 128, shp.N, shp.K)
+        bias = randint(-20000, 20000, shp.N, dtype=torch.int32)
+        # rescale so that act(y) spans a few units: outputs fill the grid
+        sc = (torch.rand(shp.N, generator=gen, device="cuda") + 0.5) \
+            * (2.0 / (math.sqrt(shp.K) * 5461))
+        out = torch.empty((B, shp.rows, shp.N), dtype=torch.int8,
+                          device="cuda")
+        args = (x, w, bias, sc, shp.act, 0.05, -5, -128, 127)
+        ops.neutron_matmul_plan(*args, out)
+        want = ref.neutron_matmul_plan_ref(*args)
+        err = int((out.int() - want.int()).abs().max())
+        if err:
+            fail(f"neutron_matmul {shp.path} {shp.what}: the int8 plan "
+                 f"epilogue differs from its plain version by {err}")
+        lib_ms, lib = int_mm_ms(torch, x.view(M, shp.K), w)
+        b_ms, b_by = bound(nbytes(x, w, bias, sc, out),
+                           2 * M * shp.N * shp.K, "int8")
+        rows[("neutron_matmul", f"{shp.path}: {shp.what}")] = dict(
+            name="neutron_matmul", path=shp.path, route="cuda",
+            source="src/repro_torch/csrc/neutron_matmul.cu",
+            replaces="src/repro/kernels/neutron_matmul.py:137",
+            shape=f"{shp.what}: x ({B},{shp.rows},{shp.K}) int8, w "
+                  f"({shp.N},{shp.K}), {shp.act}, int8 plan epilogue "
+                  f"(library: {lib})",
+            max_abs_err=float(err),
+            ms=time_ms(torch, lambda: ops.neutron_matmul_plan(*args, out)),
+            plain_ms=time_ms(
+                torch, lambda: ref.neutron_matmul_plan_ref(*args)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
 # --------------------------------------------------------------------------
 # phases 3-5: the serving paths
 # --------------------------------------------------------------------------
 
 
+LAUNCH_NAMES = ("flash_attention", "flash_decode", "ssd_chunk",
+                "neutron_matmul")
+
+
 def launch_counters():
-    from repro_torch.kernels import flash_attention, flash_decode, ssd_scan
-    return (flash_attention, flash_decode, ssd_scan)
+    from repro_torch.kernels import (flash_attention, flash_decode,
+                                     neutron_matmul, ssd_scan)
+    return (flash_attention, flash_decode, ssd_scan, neutron_matmul)
 
 
 def reset_launches() -> None:
@@ -386,7 +535,7 @@ def phase_path(torch, rows, path, f32_last=None):
     from repro_torch.models import lm
     from repro_torch.models.registry import get_arch
 
-    names = ("flash_attention", "flash_decode", "ssd_chunk")
+    names = LAUNCH_NAMES
     reset_launches()
     served = serve(path.arch, batch=path.batch, prompt_len=path.prompt_len,
                    gen=path.gen, smoke=False, seed=SEED, device="cuda")
@@ -509,6 +658,97 @@ def phase_f32_agreement(torch, path):
     return rel, last.float().cpu()
 
 
+# --------------------------------------------------------------------------
+# phase 6: the int8 vision plans
+# --------------------------------------------------------------------------
+
+
+def first_divergence(torch, card_plan, cpu_plan, feed, n) -> str:
+    """The first op whose stored integers differ between the two plans,
+    replayed step by step on the same inputs."""
+    for (label, got), (_, want) in zip(card_plan.replay_steps(feed, n),
+                                       cpu_plan.replay_steps(feed, n)):
+        for name, w in want.items():
+            g = got[name].cpu()
+            if not torch.equal(g, w):
+                d = (g.int() - w.int()).abs()
+                return (f"{label}: {int((d > 0).sum())} of {d.numel()} "
+                        f"integers of {name} differ, by up to "
+                        f"{int(d.max())}")
+    return "no step differs when replayed step by step"
+
+
+def phase_vision(torch, rows, path):
+    from repro_torch.core.execplan import lower_plan
+    from repro_torch.launch.serve_vision import float_errors, serve_vision
+
+    reset_launches()
+    served = serve_vision(path.name, VISION_BATCH, device="cuda", seed=SEED,
+                          repeats=3)
+    launches = read_launches()
+    want = (0, 0, 0, path.k1_per_replay * served.replays)
+    if launches != want or served.k1_launches != path.k1_per_replay:
+        fail(f"{path.name}: launched {LAUNCH_NAMES} = {launches} over "
+             f"{served.replays} replays, expected {want}")
+    g, plan = served.graph, served.plan
+    if g.inputs[0].shape != (224, 224, 3):
+        fail(f"{path.name}: input {g.inputs[0].shape}, not 224 x 224")
+    for name, out in served.outputs.items():
+        if tuple(out.shape) != (VISION_BATCH,) + g.tensors[name].shape or \
+                not torch.isfinite(out).all():
+            fail(f"{path.name}: output {name} {tuple(out.shape)} not "
+                 f"finite or of the wrong shape")
+    inp = g.inputs[0].name
+
+    # batch 1 through the same 8-plan (a ragged batch)
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        plan.run({inp: served.images[:1]}, n=1)
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+    replay1_ms = statistics.median(times[1:]) * 1e3
+
+    # the same quantized model and images through the plain path on the CPU
+    cpu_plan = lower_plan(None, g, None, served.qm.weights_f, plan.semantics,
+                          capacity=VISION_BATCH, device="cpu")
+    for n in path.cpu_batches:
+        feed = {inp: served.images[:n]}
+        got = plan.run(feed, n=n, decode=False)
+        ref = cpu_plan.run(feed, n=n, decode=False)
+        for name, w in ref.items():
+            if not torch.equal(got[name].cpu(), w):
+                fail(f"{path.name} batch {n} in an 8-plan: the card's "
+                     f"stored integers differ from the CPU's; first at "
+                     f"{first_divergence(torch, plan, cpu_plan, feed, n)}")
+    errs = float_errors(served)
+    for name, (err, tol) in errs.items():
+        if not err <= tol:
+            fail(f"{path.name}: output {name} is {err:.4g} from the float32 "
+                 f"oracle, above the calibrated tolerance {tol:.4g}")
+    for r in rows.values():
+        if r["name"] == "neutron_matmul" and r["path"] == path.name:
+            r["launches"] = launches[3]
+    out = dict(ptq_s=served.ptq_s, lower_s=served.lower_s,
+               replay_ms_batch8=served.replay_ms,
+               images_s_batch8=served.images_s, replay_ms_batch1=replay1_ms,
+               images_s_batch1=1e3 / replay1_ms,
+               kernels_per_replay=len(plan.steps),
+               k1_per_replay=served.k1_launches,
+               arena_bytes=served.arena_bytes,
+               float_err={k: v[0] for k, v in errs.items()},
+               float_tol={k: v[1] for k, v in errs.items()})
+    print(f"  card ints equal the CPU's at batch {path.cpu_batches} (8-plan);"
+          f" decoded within float_tolerance of the float32 oracle "
+          f"({errs}); K1 {served.k1_launches} per replay; replay "
+          f"{served.replay_ms:.3f} ms at batch 8 ({served.images_s:.1f} "
+          f"images/s), {replay1_ms:.3f} ms at batch 1")
+    del served, plan, cpu_plan
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -541,6 +781,11 @@ def main() -> None:
         if f32 is not None:
             paths[path.arch]["prefill_vs_replay_f32"] = f32
         print(f"  {path.arch}: {json.dumps(paths[path.arch])}")
+    for path in (MOBILENET, RESNET):
+        print(f"== phase 6: {path.name} int8 plan at 224, batch "
+              f"{VISION_BATCH}")
+        paths[path.name] = phase_vision(torch, rows, path)
+        print(f"  {path.name}: {json.dumps(paths[path.name])}")
 
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

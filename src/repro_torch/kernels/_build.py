@@ -13,6 +13,12 @@ the flags, so an edited source is rebuilt and an unchanged one is not.
 
 Every launch function returns ``cudaGetLastError()``; ``check`` raises
 when that is not 0, naming the CUDA error.
+
+No source is built with ``--use_fast_math``: divisions stay correctly
+rounded.  nvcc still contracts ``a * b + c`` into one FMA by default;
+``neutron_matmul.cu``, whose int8 epilogue must round as numpy does,
+writes each rounding with ``__fmul_rn``/``__fadd_rn``/``__fdiv_rn``,
+which are never contracted.
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("flash_attention", "flash_decode", "ssd_chunk")
+SOURCES = ("flash_attention", "flash_decode", "neutron_matmul", "ssd_chunk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

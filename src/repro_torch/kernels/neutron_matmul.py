@@ -1,0 +1,189 @@
+"""Output-stationary fused matmul (K1) on the H100.
+
+Launch wrapper of the hand-written CUDA kernel ``csrc/neutron_matmul.cu``,
+which replaces the Pallas kernel of ``repro/kernels/neutron_matmul.py``.
+One int8 (or f32/bf16) GEMM body with two epilogues:
+
+  * :func:`neutron_matmul`, the Pallas kernel's contract:
+    ``y = requant(act(scale * (x @ w) + bias))`` on x (M,K), w (K,N);
+  * :func:`neutron_matmul_plan`, the int8 plan replay's contract:
+    ``q = clip(rint(act(f32(acc + bias) * sc) / s_out) + zp_out)`` with
+    strided, batched operands, so a conv reads its input slot of the
+    arena and writes its output slot in place.
+
+Their plain PyTorch versions are ``ref.neutron_matmul_ref`` and
+``ref.neutron_matmul_plan_ref``; ``ops`` chooses between kernel and plain
+version by the device of the inputs.
+
+``launches`` counts the kernel launches of this process (both
+contracts).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import _build
+from .ref import IR_ACTIVATIONS
+
+launches = 0
+
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
+             + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 3
+             + [ctypes.c_void_p])
+_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_PALLAS, _PLAN = 0, 1
+_MAX_ROW_TILES = 65535          # grid.y = ceil(M / 64)
+_ACT_CODES = {a: i for i, a in enumerate(IR_ACTIVATIONS)}
+
+
+def _act_code(act: Optional[str]) -> int:
+    act = "none" if act is None else act
+    if act not in _ACT_CODES:
+        raise ValueError(f"unknown activation {act!r}")
+    return _ACT_CODES[act]
+
+
+def _rows(x: torch.Tensor):
+    """(batch, M, K, batch stride, x_ow, x_sy, x_sx) of an operand of
+    shape (batch, M, K) or (batch, R, C, K) with unit stride along K."""
+    if x.dim() == 3:
+        B, M, K = x.shape
+        return B, M, K, x.stride(0), max(M, 1), 0, x.stride(1)
+    if x.dim() == 4:
+        B, R, C, K = x.shape
+        return B, R * C, K, x.stride(0), max(C, 1), x.stride(1), x.stride(2)
+    raise ValueError(f"x must be (batch, M, K) or (batch, R, C, K); got "
+                     f"{tuple(x.shape)}")
+
+
+def _launch(x, w, scale, bias, y, rows, N, ldy, y_bstride, out_code,
+            contract, act, scale_per_col, requant, out_scale, out_zp,
+            qmin, qmax) -> None:
+    global launches
+    B, M, K, xb, x_ow, x_sy, x_sx = rows
+    if -(-M // 64) > _MAX_ROW_TILES or B > 65535:
+        raise ValueError(f"neutron_matmul: M={M}, batch={B} exceed the "
+                         f"kernel's grid")
+    fn = _build.function("neutron_matmul", "neutron_matmul_launch",
+                         _ARGTYPES)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), w.data_ptr(),
+                scale.data_ptr() if scale is not None else None,
+                bias.data_ptr() if bias is not None else None,
+                y.data_ptr(), B, M, N, K, xb, x_ow, x_sy, x_sx, y_bstride,
+                ldy, _CODES[x.dtype], out_code, contract, act,
+                scale_per_col, requant, out_scale, out_zp, qmin, qmax,
+                _build.stream_of(x))
+    _build.check(rc, "neutron_matmul")
+    launches += 1
+
+
+def _check_cuda(*ts) -> None:
+    dev = ts[0].device
+    if dev.type != "cuda" or any(t is not None and t.device != dev
+                                 for t in ts):
+        raise ValueError("neutron_matmul's kernel takes CUDA tensors on one "
+                         "device")
+
+
+def neutron_matmul(x: torch.Tensor, w: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None, scale=None,
+                   act: str = "none", out_dtype: Optional[torch.dtype] = None,
+                   out_scale: Optional[float] = None,
+                   **block_kw) -> torch.Tensor:
+    """The Pallas contract: ``y[M,N] = requant(act(scale * (x @ w) +
+    bias))`` for x (M,K), w (K,N) of one dtype (int8: int32 accumulation;
+    float32/bfloat16: f32).  ``scale`` is a number or (N,); ``bias`` (N,);
+    ``out_scale`` requantizes to int8.  Block sizes (``block_kw``) are
+    accepted for the JAX API and ignored: the kernel's tile is fixed.
+    Launches on the current stream and never synchronises."""
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"x (M,K) and w (K,N) do not match: "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}")
+    if x.dtype not in _CODES or w.dtype != x.dtype:
+        raise TypeError(f"neutron_matmul takes int8, float32 or bfloat16 x "
+                        f"and w of one dtype; got {x.dtype}, {w.dtype}")
+    M, K = x.shape
+    N = w.shape[1]
+    if min(M, K, N) < 1:
+        raise ValueError(f"empty operand: {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}")
+    _check_cuda(x, w, bias)
+    dev = x.device
+    requant = out_scale is not None
+    if out_dtype is None:
+        out_dtype = torch.int8 if requant else (
+            torch.float32 if x.dtype == torch.int8 else x.dtype)
+    if out_dtype not in _CODES or (requant and out_dtype != torch.int8):
+        raise TypeError(f"out_dtype {out_dtype} is not one the kernel "
+                        f"writes")
+    sc = None
+    if scale is not None:
+        sc = torch.as_tensor(scale, dtype=torch.float32).to(dev).reshape(-1)
+        if sc.numel() not in (1, N):
+            raise ValueError(f"scale must be a number or ({N},); got "
+                             f"{tuple(sc.shape)}")
+        sc = sc.contiguous()
+    b = None
+    if bias is not None:
+        b = bias.to(dev, torch.float32).reshape(-1).contiguous()
+        if b.numel() != N:
+            raise ValueError(f"bias must be ({N},); got {tuple(bias.shape)}")
+    x = x.contiguous()
+    wt = w.t().contiguous()                 # (N, K), the kernel's layout
+    y = torch.empty((M, N), dtype=out_dtype, device=dev)
+    _launch(x[None], wt, sc, b, y, _rows(x[None]), N, N, M * N,
+            _CODES[out_dtype], _PALLAS, _act_code(act),
+            int(sc is not None and sc.numel() > 1), int(requant),
+            float(out_scale) if requant else 1.0, 0, -128, 127)
+    return y
+
+
+def neutron_matmul_plan(x: torch.Tensor, w: torch.Tensor,
+                        bias: Optional[torch.Tensor], sc: torch.Tensor,
+                        act: str, out_scale: float, out_zp: int, qmin: int,
+                        qmax: int, out: torch.Tensor) -> torch.Tensor:
+    """The plan contract, written into ``out`` in place:
+    ``out[b,m,n] = clip(rint(act(f32(sum_k x[b,m,k] w[n,k] + bias[n]) *
+    sc[n]) / out_scale) + out_zp, qmin, qmax)``.
+
+    x int8 (batch, M, K) or (batch, R, C, K) (M = R*C rows, e.g. a
+    strided view of an arena slot), unit stride along K; w int8 (N, K)
+    contiguous; bias int32 (N,) or None; sc float32 (N,) or (1,); out
+    int8 (batch, M, N) with unit stride along N and rows at a uniform
+    pitch (any batch stride).  The caller guarantees that the int32
+    accumulators cannot overflow."""
+    rows = _rows(x)
+    B, M, K = rows[:3]
+    if x.dtype != torch.int8 or w.dtype != torch.int8 or \
+            out.dtype != torch.int8:
+        raise TypeError(f"the plan contract takes int8 x, w and out; got "
+                        f"{x.dtype}, {w.dtype}, {out.dtype}")
+    N = w.shape[0]
+    if w.shape != (N, K) or not w.is_contiguous():
+        raise ValueError(f"w must be contiguous ({N}, {K}); got "
+                         f"{tuple(w.shape)}")
+    if x.stride(-1) != 1 or out.stride(-1) != 1:
+        raise ValueError("x and out need unit stride along their last axis")
+    if out.dim() != 3 or tuple(out.shape) != (B, M, N):
+        raise ValueError(f"out must be ({B}, {M}, {N}); got "
+                         f"{tuple(out.shape)}")
+    if sc.dtype != torch.float32 or sc.numel() not in (1, N) or \
+            not sc.is_contiguous():
+        raise TypeError(f"sc must be contiguous float32 (1,) or ({N},)")
+    if bias is not None and (bias.dtype != torch.int32
+                             or bias.shape != (N,)
+                             or not bias.is_contiguous()):
+        raise TypeError(f"bias must be contiguous int32 ({N},)")
+    if min(B, M, K, N) < 1:
+        raise ValueError("empty operand")
+    _check_cuda(x, w, sc, bias, out)
+    _launch(x, w, sc, bias, out, rows, N, out.stride(1), out.stride(0),
+            _CODES[torch.int8], _PLAN, _act_code(act), int(sc.numel() > 1),
+            1, float(out_scale), int(out_zp), int(qmin), int(qmax))
+    return out

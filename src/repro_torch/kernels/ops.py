@@ -3,8 +3,10 @@
 Counterpart of ``repro/kernels/ops.py``.  Each op has two
 implementations with the same semantics:
 
-  * the hand-written CUDA kernel (``flash_attention.py``,
-    ``flash_decode.py``, ``ssd_scan.py``), taken for CUDA tensors;
+  * the hand-written CUDA kernel, taken for CUDA tensors: K1
+    ``neutron_matmul.py`` (the int8 vision plan's conv and fc, and the
+    Pallas kernel's own contract), K2 ``flash_attention.py``, K3
+    ``flash_decode.py``, K4 ``ssd_scan.py``;
   * the plain PyTorch version (``ref.py``), taken for CPU tensors.
 
 ``impl="auto"`` dispatches by device: a CUDA tensor gets the kernel or an
@@ -18,6 +20,10 @@ a TPU (``repro/kernels/ops.py:37-40``) and the models pass ``"ref"``
 unless ``ArchConfig.use_pallas`` is set (``repro/models/config.py:129``).
 The port's models always pass ``"auto"``: on the card the kernels run
 whatever ``use_pallas`` says.
+
+On the card, ``chip_smoke.py`` phase 2 holds every kernel against its
+plain version at the shapes of its paths; phase 6 replays the int8
+vision plans (mobilenet_v2, resnet50_v1) with every conv and fc on K1.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import torch
 
 from . import flash_attention as _fa
 from . import flash_decode as _fd
+from . import neutron_matmul as _nm
 from . import ref as _ref
 from . import ssd_scan as _ssd
 
@@ -45,6 +52,36 @@ def _repeat_kv(k: torch.Tensor, v: torch.Tensor, H: int):
         k = k.repeat_interleave(H // Hkv, dim=1)
         v = v.repeat_interleave(H // Hkv, dim=1)
     return k, v
+
+
+# --------------------------------------------------------------------------
+# neutron_matmul (K1)
+# --------------------------------------------------------------------------
+
+
+def neutron_matmul(x, w, bias=None, scale=None, act: str = "none",
+                   out_dtype=None, out_scale: Optional[float] = None,
+                   impl: str = "auto", **block_kw):
+    """The Pallas kernel's contract: x (M,K) @ w (K,N) -> (M,N)."""
+    if _plain(impl, x):
+        return _ref.neutron_matmul_ref(x, w, bias=bias, scale=scale,
+                                       act=act, out_dtype=out_dtype,
+                                       out_scale=out_scale)
+    return _nm.neutron_matmul(x, w, bias=bias, scale=scale, act=act,
+                              out_dtype=out_dtype, out_scale=out_scale,
+                              **block_kw)
+
+
+def neutron_matmul_plan(x, w, bias, sc, act: str, out_scale: float,
+                        out_zp: int, qmin: int, qmax: int, out,
+                        impl: str = "auto"):
+    """The int8 plan's contract, written into ``out`` (batch, M, N) in
+    place; see ``neutron_matmul.neutron_matmul_plan``."""
+    if _plain(impl, x):
+        return out.copy_(_ref.neutron_matmul_plan_ref(
+            x, w, bias, sc, act, out_scale, out_zp, qmin, qmax))
+    return _nm.neutron_matmul_plan(x, w, bias, sc, act, out_scale, out_zp,
+                                   qmin, qmax, out)
 
 
 # --------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels of the serving slices.
+"""Plain PyTorch versions of the kernels of the port.
 
 Counterpart of ``repro/kernels/ref.py``.  These are the semantics of the
 hand-written CUDA kernels: the CPU path of ``ops.py``, and the value
@@ -44,6 +44,106 @@ def apply_activation(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
 
 ACTIVATIONS = ("none", "relu", "relu6", "silu", "gelu", "sigmoid",
                "sqrelu", "mish")
+
+#: the activations of the IR (``core/ir.py`` ACTIVATIONS), in the order of
+#: the codes K1 takes (``csrc/neutron_matmul.cu`` enum Act).
+IR_ACTIVATIONS = ("none", "relu", "relu6", "hswish", "hsigmoid", "silu",
+                  "sigmoid", "gelu", "mish", "sqrelu", "leaky")
+
+
+def ir_activation(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
+    """``core/ir.py:_apply_act`` on a float32 tensor, operation for
+    operation, on its device.  Divisions are by 0-d device tensors (on
+    CUDA a division by a Python number is a multiply by its reciprocal).
+    gelu returns float64, as numpy's does (its sqrt(2/pi) is a float64
+    scalar); the callers quantize, which rounds to float32 first."""
+    if act in ("none", None):
+        return x
+    if act == "relu":
+        return torch.clamp_min(x, 0)
+    if act == "relu6":
+        return torch.clamp(x, 0, 6)
+    six = torch.tensor(6.0, dtype=torch.float32, device=x.device)
+    if act == "hswish":
+        return x * torch.clamp(x + 3, 0, 6) / six
+    if act == "hsigmoid":
+        return torch.clamp(x + 3, 0, 6) / six
+    if act == "silu":
+        return x / (1 + torch.exp(-torch.clamp(x, -30, 30)))
+    if act == "sigmoid":
+        return 1 / (1 + torch.exp(-torch.clamp(x, -30, 30)))
+    if act == "gelu":
+        inner = (x + 0.044715 * x ** 3).double()
+        return (0.5 * x).double() * (1 + torch.tanh(
+            math.sqrt(2 / math.pi) * inner))
+    if act == "mish":
+        sp = torch.log1p(torch.exp(-x.abs())) + torch.clamp_min(x, 0)
+        return x * torch.tanh(sp)
+    if act == "sqrelu":
+        r = torch.clamp_min(x, 0)
+        return r * r
+    if act == "leaky":
+        return torch.where(x > 0, x, 0.1 * x)
+    raise ValueError(act)
+
+
+# --------------------------------------------------------------------------
+# neutron_matmul (K1): output-stationary matmul + fused epilogue
+# --------------------------------------------------------------------------
+
+
+def int_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact int32 product of integer operands x (..., K) @ w (K, N): the
+    float64 product is exact while K * 128 * 128 < 2^53, and runs on any
+    device (cuBLAS has no int32 GEMM)."""
+    return (x.double() @ w.double()).to(torch.int32)
+
+
+def neutron_matmul_ref(x: torch.Tensor, w: torch.Tensor,
+                       bias: Optional[torch.Tensor] = None, scale=None,
+                       act: str = "none",
+                       out_dtype: Optional[torch.dtype] = None,
+                       out_scale: Optional[float] = None) -> torch.Tensor:
+    """The Pallas contract: y = requant(act(scale * (x @ w) + bias)).
+
+    int8 inputs accumulate exactly (int32 semantics); float inputs in
+    float32.  ``scale`` is a number or (N,); ``out_scale`` requantizes
+    to int8 with ``clip(round(acc / out_scale), -128, 127)``."""
+    if x.dtype == torch.int8:
+        acc = int_dot(x, w).to(torch.float32)
+    else:
+        acc = x.float() @ w.float()
+    if scale is not None:
+        acc = acc * torch.as_tensor(scale, dtype=torch.float32).to(x.device)
+    if bias is not None:
+        acc = acc + bias.to(x.device, torch.float32)
+    acc = apply_activation(acc, act)
+    if out_scale is not None:
+        q = torch.round(acc / torch.tensor(float(out_scale),
+                                           dtype=torch.float32,
+                                           device=x.device))
+        return q.clamp_(-128, 127).to(torch.int8)
+    return acc.to(out_dtype or (x.dtype if x.dtype != torch.int8
+                                else torch.float32))
+
+
+def neutron_matmul_plan_ref(x: torch.Tensor, w: torch.Tensor,
+                            bias: Optional[torch.Tensor], sc: torch.Tensor,
+                            act: str, out_scale: float, out_zp: int,
+                            qmin: int, qmax: int) -> torch.Tensor:
+    """The plan contract on x int8 (batch, M, K) or (batch, R, C, K),
+    w int8 (N, K): ``clip(round(act(f32(x @ w^T + bias) * sc) / out_scale)
+    + out_zp, qmin, qmax)`` as int8 (batch, M, N).  The expression of
+    ``quant/execplan.py`` (accumulate, add the zero-point-folded bias,
+    rescale) followed by ``quantize``."""
+    x = x.reshape(x.shape[0], -1, x.shape[-1])
+    acc = int_dot(x, w.t())
+    if bias is not None:
+        acc = acc + bias
+    y = ir_activation(acc.to(torch.float32) * sc, act).to(torch.float32)
+    q = torch.round(y / torch.tensor(float(out_scale), dtype=torch.float32,
+                                     device=y.device)) + int(out_zp)
+    return q.clamp_(qmin, qmax).to(torch.int8)
 
 
 # --------------------------------------------------------------------------

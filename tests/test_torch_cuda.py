@@ -6,13 +6,16 @@ elsewhere.  On the GPU machine:
 
 Imports no JAX, so it runs where only PyTorch is installed.
 Tolerances: float32 atol 2e-3 / rtol 1e-3 (those of tests/test_kernels.py);
-bfloat16 atol/rtol 2e-2, since both sides round the output to bf16.
+bfloat16 atol/rtol 2e-2, since both sides round the output to bf16.  K1's
+int8 outputs are compared with torch.equal wherever its epilogue is
+piecewise linear.
 """
 import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import flash_decode as t_fd
+from repro_torch.kernels import neutron_matmul as t_k1
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as t_ssd
@@ -155,3 +158,141 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     bc = torch.zeros(1, 16, 4, device=dev)          # f32 while x is bf16
     with pytest.raises(TypeError):
         t_ssd.ssd_chunk(x, dt, A, bc, bc, 16)
+
+
+# --------------------------------------------------------------------------
+# K1 neutron_matmul
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("M,K,N,dtype", [
+    (8, 16, 8, torch.float32), (100, 300, 70, torch.float32),
+    (33, 65, 129, torch.float32), (128, 512, 128, torch.bfloat16),
+    (100, 300, 70, torch.bfloat16),
+])
+@pytest.mark.parametrize("act", ["none", "relu", "gelu", "mish"])
+def test_neutron_matmul_float_matches_plain(dev, M, K, N, dtype, act):
+    gen = torch.Generator(device=dev).manual_seed(M + K + N)
+    x = _randn(gen, (M, K), dtype, dev)
+    w = _randn(gen, (K, N), dtype, dev)
+    b = _randn(gen, (N,), torch.float32, dev)
+    n0 = t_k1.launches
+    got = ops.neutron_matmul(x, w, bias=b, scale=0.5, act=act)
+    want = ops.neutron_matmul(x, w, bias=b, scale=0.5, act=act, impl="ref")
+    torch.cuda.synchronize()
+    assert t_k1.launches == n0 + 1
+    assert got.dtype == dtype
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("M,K,N", [(64, 256, 96), (33, 27, 129),
+                                   (1, 1280, 1000)])
+def test_neutron_matmul_int8_requant_equal(dev, M, K, N):
+    gen = torch.Generator(device=dev).manual_seed(K)
+    x = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (K, N), generator=gen, device=dev,
+                      dtype=torch.int8)
+    sc = torch.rand((N,), generator=gen, device=dev) * 0.02 + 1e-3
+    got = ops.neutron_matmul(x, w, scale=sc, act="relu", out_scale=0.7)
+    want = ops.neutron_matmul(x, w, scale=sc, act="relu", out_scale=0.7,
+                              impl="ref")
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int8 and torch.equal(got, want)
+    got = ops.neutron_matmul(x, w, scale=0.02)          # f32 out, scalar
+    want = ops.neutron_matmul(x, w, scale=0.02, impl="ref")
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,R,C,K,N,stride,act", [
+    (3, 9, 9, 20, 12, 2, "relu"),       # strided 1x1 conv, in place
+    (2, 14, 14, 27, 32, 1, "relu6"),    # K = 27, the mobilenet stem
+    (1, 7, 7, 147, 64, 1, "none"),      # K = 147, the resnet50 stem
+    (5, 4, 4, 576, 70, 1, "hswish"),    # ragged N
+    (2, 3, 5, 4608, 130, 1, "leaky"),   # K = 4608
+    (2, 6, 6, 64, 24, 1, "silu"),
+])
+def test_neutron_matmul_plan_matches_plain(dev, B, R, C, K, N, stride, act):
+    """The plan contract: operands read through a strided view of a wider
+    buffer (the arena's row pitch), the output written in place into a
+    view of another; equal to the plain version (one step for silu)."""
+    gen = torch.Generator(device=dev).manual_seed(K + N)
+    pitch = R * C * K + 192
+    arena = torch.randint(-128, 128, (B, pitch), generator=gen, device=dev,
+                          dtype=torch.int8)
+    x = arena[:, 64:64 + R * C * K].view(B, R, C, K)[:, ::stride, ::stride]
+    Ro, Co = x.shape[1], x.shape[2]
+    w = torch.randint(-127, 128, (N, K), generator=gen, device=dev,
+                      dtype=torch.int8)
+    bias = torch.randint(-5000, 5000, (N,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    sc = torch.rand((N,), generator=gen, device=dev) * 1e-3 + 1e-5
+    out_arena = torch.zeros((B, Ro * Co * N + 128), device=dev,
+                            dtype=torch.int8)
+    out = out_arena[:, 64:64 + Ro * Co * N].view(B, Ro * Co, N)
+    n0 = t_k1.launches
+    ops.neutron_matmul_plan(x, w, bias, sc, act, 0.05, -3, -128, 127, out)
+    want = ops.neutron_matmul_plan(x, w, bias, sc, act, 0.05, -3, -128, 127,
+                                   torch.empty_like(out), impl="ref")
+    torch.cuda.synchronize()
+    assert t_k1.launches == n0 + 1
+    diff = (out.int() - want.int()).abs()
+    assert int(diff.max()) <= (1 if act == "silu" else 0)
+    assert not out_arena[:, :64].any() and not out_arena[:, -64:].any()
+
+
+def test_vision_plan_on_the_card_equals_cpu(dev):
+    """mobilenet_v2 at res_scale 0.25: the plan on the card stores the
+    same integers as the plain path on the CPU, at batch 1 and a ragged 5
+    in an 8-plan; every conv and fc (35 + 1) ran on K1."""
+    import numpy as np
+    from repro_torch.core.execplan import lower_plan
+    from repro_torch.frontends import vision
+    from repro_torch.quant import QuantSemantics
+
+    g, _, qm = vision.build_quantized("mobilenet_v2", res_scale=0.25)
+    plans = {d: lower_plan(None, g, None, qm.weights_f, QuantSemantics(qm),
+                           capacity=8, device=d) for d in ("cpu", dev)}
+    inp = g.inputs[0]
+    xs = np.random.default_rng(1).normal(
+        size=(5,) + inp.shape).astype(np.float32)
+    for n in (1, 5):
+        n0 = t_k1.launches
+        got = plans[dev].run({inp.name: xs[:n]}, n=n, decode=False)
+        torch.cuda.synchronize()
+        assert t_k1.launches == n0 + 36
+        want = plans["cpu"].run({inp.name: xs[:n]}, n=n, decode=False)
+        for name, w in want.items():
+            assert torch.equal(got[name].cpu(), w), (name, n)
+
+
+def test_plan_divisions_on_the_card_are_correctly_rounded(dev):
+    """Where a multiply by the float32 reciprocal of s_out would round
+    y / s_out to the other integer (a tenth of these columns), K1 and
+    quantize_t on the card give numpy's correctly rounded quotient."""
+    import numpy as np
+    from repro_torch.core.ir import QParams
+    from repro_torch.quant.qparams import quantize_t
+
+    rng = np.random.default_rng(0)
+    s_out = np.float32(0.037)
+    bias = rng.integers(1000, 100000, size=512).astype(np.int32)
+    k = rng.integers(-100, 100, size=512)
+    sc = ((k + 0.5) * float(s_out) / bias).astype(np.float32)
+    y = bias.astype(np.float32) * sc
+    want = np.clip(np.round(y / s_out), -128, 127).astype(np.int8)
+    assert (np.round(y / s_out) != np.round(y * (1 / s_out))).sum() > 10
+    n = len(bias)
+    out = torch.empty((1, 1, n), dtype=torch.int8, device=dev)
+    ops.neutron_matmul_plan(
+        torch.zeros((1, 1, 4), dtype=torch.int8, device=dev),
+        torch.zeros((n, 4), dtype=torch.int8, device=dev),
+        torch.from_numpy(bias).to(dev), torch.from_numpy(sc).to(dev),
+        "none", float(s_out), 0, -128, 127, out)
+    got = quantize_t(torch.from_numpy(y).to(dev),
+                     QParams(s_out, np.int64(0), bits=8))
+    torch.cuda.synchronize()
+    assert np.array_equal(out.cpu().numpy()[0, 0], want)
+    assert np.array_equal(got.cpu().numpy(), want)

@@ -62,7 +62,10 @@ def test_no_source_names_jax_or_repro(path):
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch):
+    from repro_torch.core.execplan import lower_plan
+    from repro_torch.core.ir import GraphBuilder
     from repro_torch.launch.serve import serve
+    from repro_torch.launch.serve_vision import serve_vision
     from repro_torch.models import lm
     from repro_torch.models.registry import get_arch
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -73,6 +76,12 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
         lm.init_params(cfg, 0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lm.init_cache(cfg, 1, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_vision("mobilenet_v2", batch=1, res_scale=0.25)
+    b = GraphBuilder("g")
+    b.mark_output(b.conv(b.input((4, 4, 3)), 4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lower_plan(None, b.build(), None, {}, None)
     assert repro_torch.resolve_device("cpu") == torch.device("cpu")
 
 
