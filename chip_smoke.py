@@ -6,15 +6,20 @@
 Needs one NVIDIA GPU (H100, sm_90a) and nvcc; imports no JAX.  Phases,
 each of which ends the run with a nonzero exit and no result on failure:
 
-1. the card's name and power limit, torch and CUDA versions, and the
-   build of every CUDA kernel from the sources in this checkout;
+1. the card's name and power limit, torch and CUDA versions, the build
+   of every CUDA kernel from the sources in this checkout (ptxas
+   registers and spills), and the count of tensor-core instructions
+   (HMMA/HGMMA) in each library's SASS, which must not be 0 in the bf16
+   flash_attention kernel;
 2. every kernel on the card against its plain PyTorch version, at the
    shapes each serving path gives it (bf16; int8 for K1 at the vision
    plans' shapes, compared for equality) and at small ragged cases (f32;
    K1 also in its Pallas contract: f32, bf16, int8 requant, per-channel
-   scale), timed with CUDA events beside its plain version, one PyTorch
-   library call for the same function where there is one, and its
-   bound;
+   scale), timed beside its plain version, one PyTorch library call for
+   the same function where there is one, and its bound.  `ms` and
+   `library_ms` are device time: the CUDA kernels one call launches,
+   from torch.profiler; `call_ms` (and `library_call_ms`, `plain_ms`)
+   the host-plus-device time of one call between CUDA events;
 3. minitron-4b served at full width (32 layers, d_model 3072) through
    ``serve``, then the full-sequence ``prefill`` on the same prompts;
 4. zamba2-2.7b at full width (54 SSD layers, d_model 2560, the shared
@@ -168,11 +173,24 @@ def gpu_line() -> str:
 # --------------------------------------------------------------------------
 
 
-def time_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
-    """Median device time of `fn` over `iters` launches, with the 50 MB
-    L2 cache flushed before each (the serving path finds it cold: every
-    layer has its own weights and cache)."""
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+_FLUSH = []
+
+
+def _flush(torch):
+    """A 64 MB buffer: writing all of it evicts the 50 MB L2 cache (the
+    serving path finds it cold: every layer has its own weights and
+    cache)."""
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(64 << 20, dtype=torch.uint8, device="cuda"))
+    return _FLUSH[0]
+
+
+def call_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
+    """Median host-plus-device time of one call of `fn` over `iters`
+    calls, between two CUDA events, the L2 flushed before each: where
+    the host takes longer to enqueue the call than the flush takes to
+    run, the enqueue lands in the reading."""
+    flush = _flush(torch)
     for _ in range(warmup):
         fn()
     times = []
@@ -188,6 +206,57 @@ def time_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
+    """Median over `iters` calls of the device time of the CUDA kernels
+    one call of `fn` launches (their durations summed), from
+    torch.profiler's kernel events, the L2 flushed before each call.
+    The flush is a bitwise_not of the 64 MB buffer, a kernel that no
+    timed call launches: in the device's order of kernels on the stream,
+    each flush starts the next call's kernels, and is not counted."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = _flush(torch)
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.bitwise_not_()
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted(
+        (e.time_range.start, e.name, e.time_range.elapsed_us())
+        for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False)
+        and not e.name.startswith(("Memcpy", "Memset")))
+    per_call, before = [], 0
+    for _, name, us in kernels:
+        if "bitwise_not" in name:
+            per_call.append([])
+        elif per_call:
+            per_call[-1].append(us)
+        else:
+            before += 1
+    if len(per_call) != iters or before or not all(per_call):
+        fail(f"the profiler saw {len(per_call)} flushes for {iters} calls, "
+             f"{before} kernels before the first, and "
+             f"{[len(k) for k in per_call]} kernels after each; the first: "
+             f"{[n[:60] for _, n, _ in kernels[:4]]}")
+    return statistics.median(sum(k) for k in per_call) / 1e3
+
+
+def timings(torch, kernel, plain, library=None) -> dict:
+    """A kernel row's times: the kernel's device time (`ms`) and call time
+    (`call_ms`), the plain version's call time (`plain_ms`) and, where one
+    PyTorch call computes the same function, its device and call times."""
+    return dict(ms=device_ms(torch, kernel), call_ms=call_ms(torch, kernel),
+                plain_ms=call_ms(torch, plain),
+                library_ms=None if library is None
+                else device_ms(torch, library),
+                library_call_ms=None if library is None
+                else call_ms(torch, library))
+
+
 def bound(nbytes: int, flops: int, dtype: str):
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -196,6 +265,23 @@ def bound(nbytes: int, flops: int, dtype: str):
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def phase_sass(_build) -> None:
+    """Tensor-core instructions (HMMA, HGMMA) in each library's SASS; the
+    bf16 flash_attention kernel must have them in every instance."""
+    for name in _build.SOURCES:
+        counts = _build.tensor_core_ops(name)
+        print(f"  {name}: {sum(counts.values())} HMMA/HGMMA instructions in "
+              f"{len(counts)} kernels")
+        if name == "flash_attention":
+            bf16 = {fn: n for fn, n in counts.items()
+                    if "flash_attention_bf16_kernel" in fn}
+            print(f"  flash_attention bf16 instances: "
+                  f"{sorted(bf16.values())}")
+            if not bf16 or not all(bf16.values()):
+                fail("the bf16 flash_attention kernel has no tensor-core "
+                     "instruction in its SASS")
 
 
 # --------------------------------------------------------------------------
@@ -314,14 +400,11 @@ def phase_kernels(torch, F, ops):
             source="src/repro_torch/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:116",
             shape=f"q,k,v ({B},{Hp},{S},{hd}) bf16 causal",
-            max_abs_err=err,
-            ms=time_ms(torch, lambda: ops.flash_attention(q, k, v)),
-            plain_ms=time_ms(torch, lambda: ops.flash_attention(
-                q, k, v, impl="ref")),
-            bound_ms=b_ms, bound_by=b_by,
-            library_ms=time_ms(
-                torch, lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True)))
+            max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+            **timings(torch, lambda: ops.flash_attention(q, k, v),
+                      lambda: ops.flash_attention(q, k, v, impl="ref"),
+                      lambda: F.scaled_dot_product_attention(
+                          q, k, v, is_causal=True)))
 
         # flash_decode at the decode shapes, the cache at its last step:
         # minitron-4b 24 query heads against 8 kv heads (group 3),
@@ -342,15 +425,13 @@ def phase_kernels(torch, F, ops):
             source="src/repro_torch/csrc/flash_decode.cu",
             replaces="src/repro/kernels/flash_decode.py:96",
             shape=f"q ({B},{H},{hd}) x cache ({B},{Hkv},{S},{hd}) bf16",
-            max_abs_err=err,
-            ms=time_ms(torch, lambda: ops.flash_decode(q, k, v,
-                                                       kv_len=kv_len)),
-            plain_ms=time_ms(torch, lambda: ops.flash_decode(
-                q, k, v, kv_len=kv_len, impl="ref")),
-            bound_ms=b_ms, bound_by=b_by,
-            library_ms=time_ms(
-                torch, lambda: F.scaled_dot_product_attention(
-                    q[:, :, None], k, v, enable_gqa=True)))
+            max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+            **timings(torch, lambda: ops.flash_decode(q, k, v,
+                                                      kv_len=kv_len),
+                      lambda: ops.flash_decode(q, k, v, kv_len=kv_len,
+                                               impl="ref"),
+                      lambda: F.scaled_dot_product_attention(
+                          q[:, :, None], k, v, enable_gqa=True)))
 
     # ssd_chunk at the prefill shapes: the prompt of 200 padded to 256
     print("  ssd_chunk: library_ms is null; no single PyTorch call computes "
@@ -375,34 +456,34 @@ def phase_kernels(torch, F, ops):
             replaces="src/repro/kernels/ssd_scan.py:93",
             shape=f"x ({B},{S},{H},{P}) bf16, N={N}, chunk {L}, "
                   f"{S - path.prompt_len} zero rows",
-            max_abs_err=err,
-            ms=time_ms(torch, lambda: ssd_scan.ssd_chunk(*args, L)),
-            plain_ms=time_ms(torch, lambda: ref.ssd_chunk_ref(*args, L)),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+            **timings(torch, lambda: ssd_scan.ssd_chunk(*args, L),
+                      lambda: ref.ssd_chunk_ref(*args, L)))
 
     phase_k1(torch, ops, rows)
 
     for r in rows.values():
         lib = "none" if r["library_ms"] is None else \
-            f"{r['library_ms']:.4f}"
-        print(f"  {r['name']} [{r['path']}] {r['shape']}: {r['ms']:.4f} ms "
-              f"(plain {r['plain_ms']:.4f}, library {lib}, bound "
+            f"{r['library_ms']:.4f} (call {r['library_call_ms']:.4f})"
+        print(f"  {r['name']} [{r['path']}] {r['shape']}: device "
+              f"{r['ms']:.4f} ms, call {r['call_ms']:.4f} (plain "
+              f"{r['plain_ms']:.4f}, library {lib}, bound "
               f"{r['bound_ms']:.5f} by {r['bound_by']}), max|err| "
               f"{r['max_abs_err']:.3g}")
     return rows
 
 
-def int_mm_ms(torch, x2, w):
-    """The time of ``torch._int_mm`` (cuBLASLt int8 on the tensor cores:
-    the product alone, no epilogue) on x2 (M,K) @ w^T, where its shape
-    rules allow it (M > 16, K and N multiples of 8); else None."""
+def int_mm(torch, x2, w):
+    """``torch._int_mm`` (cuBLASLt int8 on the tensor cores: the product
+    alone, no epilogue) on x2 (M,K) @ w^T, where its shape rules allow it
+    (M > 16, K and N multiples of 8), else None; and what it is."""
     M, K = x2.shape
     N = w.shape[0]
     if M <= 16 or K % 8 or N % 8:
         return None, (f"none: torch._int_mm needs M > 16 and K, N "
                       f"multiples of 8 (M={M}, K={K}, N={N})")
     wt = w.t()
-    return (time_ms(torch, lambda: torch._int_mm(x2, wt)),
+    return (lambda: torch._int_mm(x2, wt),
             "torch._int_mm, the product without the epilogue")
 
 
@@ -467,7 +548,7 @@ def phase_k1(torch, ops, rows):
         if err:
             fail(f"neutron_matmul {shp.path} {shp.what}: the int8 plan "
                  f"epilogue differs from its plain version by {err}")
-        lib_ms, lib = int_mm_ms(torch, x.view(M, shp.K), w)
+        lib_fn, lib = int_mm(torch, x.view(M, shp.K), w)
         b_ms, b_by = bound(nbytes(x, w, bias, sc, out),
                            2 * M * shp.N * shp.K, "int8")
         rows[("neutron_matmul", f"{shp.path}: {shp.what}")] = dict(
@@ -477,11 +558,9 @@ def phase_k1(torch, ops, rows):
             shape=f"{shp.what}: x ({B},{shp.rows},{shp.K}) int8, w "
                   f"({shp.N},{shp.K}), {shp.act}, int8 plan epilogue "
                   f"(library: {lib})",
-            max_abs_err=float(err),
-            ms=time_ms(torch, lambda: ops.neutron_matmul_plan(*args, out)),
-            plain_ms=time_ms(
-                torch, lambda: ref.neutron_matmul_plan_ref(*args)),
-            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            max_abs_err=float(err), bound_ms=b_ms, bound_by=b_by,
+            **timings(torch, lambda: ops.neutron_matmul_plan(*args, out),
+                      lambda: ref.neutron_matmul_plan_ref(*args), lib_fn))
 
 
 # --------------------------------------------------------------------------
@@ -769,6 +848,7 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    phase_sass(_build)
 
     print("== phase 2: kernels against their plain versions")
     rows = phase_kernels(torch, F, ops)
@@ -788,8 +868,8 @@ def main() -> None:
         print(f"  {path.name}: {json.dumps(paths[path.name])}")
 
     keys = ("name", "path", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_call_ms")
     print(f"total wall time {time.monotonic() - T0:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

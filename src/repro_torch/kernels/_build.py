@@ -25,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -97,6 +98,28 @@ def build_all() -> float:
     return time.monotonic() - t0
 
 
+def tensor_core_ops(name: str) -> Dict[str, int]:
+    """The tensor-core instructions (``HMMA``, ``HGMMA``) in the SASS of
+    each kernel of library ``name``, by mangled kernel name, read with
+    ``cuobjdump -sass`` from the toolkit beside nvcc.  Builds first."""
+    so = _library_path(name)
+    if not so.exists():
+        build_all()
+    out = subprocess.run([str(Path(_nvcc()).with_name("cuobjdump")), "-sass",
+                          str(so)], capture_output=True, text=True,
+                         check=True).stdout
+    counts: Dict[str, int] = {}
+    fn = None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and re.search(r"\bHG?MMA\b", line):
+            counts[fn] += 1
+    return counts
+
+
 def _library(name: str) -> ctypes.CDLL:
     if name not in _libs:
         so = _library_path(name)
@@ -126,6 +149,13 @@ def check(rc: int, lib: str) -> None:
         msg = _library(lib).rt_error_string(rc).decode()
         raise RuntimeError(f"{lib} kernel launch failed: CUDA error {rc} "
                            f"({msg})")
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous, with its data 16-byte aligned (for 16-byte
+    loads); copied only where it is not already both."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -4,9 +4,13 @@ Launch wrapper of the hand-written CUDA kernel
 ``csrc/flash_attention.cu``, which replaces the Pallas kernel of
 ``repro/kernels/flash_attention.py``.  Softmax statistics and the output
 accumulator stay on chip while key tiles stream through shared memory;
-no (S x S) score matrix reaches device memory.  Its plain PyTorch
-version is ``ref.flash_attention_ref``; ``ops.flash_attention`` chooses
-between the two by the device of the inputs.
+no (S x S) score matrix reaches device memory.  bfloat16 inputs run on
+the tensor cores (``mma.sync`` bf16, 128 query rows per block, K/V tiles
+copied with double-buffered ``cp.async``; P is rounded to bf16 for the
+P V product, as PyTorch's flash SDPA does); float32 inputs run a scalar
+f32 body.  Its plain PyTorch version is ``ref.flash_attention_ref``;
+``ops.flash_attention`` chooses between the two by the device of the
+inputs.
 
 ``launches`` counts the kernel launches of this process.
 """
@@ -36,10 +40,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Returns o (B,H,S,Dv) in q's dtype.  Query head h reads kv head
     h // (H // Hkv).  ``block_q``/``block_k`` are accepted for the JAX
-    API and ignored: the kernel's tiles are fixed.  Launches on the
-    current stream and never synchronises.  Raises on inputs the kernel
-    does not take: tensors off CUDA, dtypes other than float32/bfloat16,
-    D or Dv above 256 or not a multiple of 8, a window below 1."""
+    API and ignored: the kernel's tiles are fixed (128 query rows and 64
+    keys in bf16, 32 keys above head dim 128; 16 rows and 64 keys in
+    f32).  q, k and v are made contiguous and 16-byte aligned (copied
+    only where they are not).  Launches on the current stream and never
+    synchronises.  Raises on inputs the kernel does not take: tensors
+    off CUDA, dtypes other than float32/bfloat16, D or Dv above 256 or
+    not a multiple of 8, a window below 1."""
     global launches
     B, H, S, D = q.shape
     if k.dim() != 4 or v.dim() != 4:
@@ -71,7 +78,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"v of one dtype; got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
     sm_scale = sm_scale or 1.0 / math.sqrt(D)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_build.aligned(t) for t in (q, k, v))
     out = torch.empty((B, H, S, Dv), dtype=q.dtype, device=dev)
     fn = _build.function("flash_attention", "flash_attention_launch",
                          _ARGTYPES)

@@ -10,6 +10,8 @@ bfloat16 atol/rtol 2e-2, since both sides round the output to bf16.  K1's
 int8 outputs are compared with torch.equal wherever its epilogue is
 piecewise linear.
 """
+import math
+
 import pytest
 import torch
 
@@ -45,7 +47,19 @@ def _randn(gen, shape, dtype, dev):
     (1, 4, 2, 77, 16, 16, True, 7, torch.float32),
     (2, 6, 3, 130, 64, 32, True, 40, torch.float32),
     (1, 2, 1, 33, 256, 256, True, None, torch.float32),
-    (2, 4, 4, 48, 24, 16, False, None, torch.bfloat16),
+    (2, 4, 4, 48, 24, 16, False, None, torch.bfloat16),  # zero-fill to 16
+    # bf16 on the tensor cores: query and key tile edges (64), GQA group 3,
+    # Dv != D, windows, head dim 256 (32-key tiles)
+    (2, 6, 2, 1, 128, 128, True, None, torch.bfloat16),
+    (2, 6, 2, 63, 128, 128, True, None, torch.bfloat16),
+    (2, 6, 2, 64, 128, 128, True, None, torch.bfloat16),
+    (2, 6, 2, 65, 128, 128, True, None, torch.bfloat16),
+    (2, 6, 2, 65, 128, 128, False, None, torch.bfloat16),
+    (2, 6, 2, 130, 64, 32, True, 40, torch.bfloat16),
+    (2, 3, 1, 130, 80, 80, True, 7, torch.bfloat16),
+    (1, 4, 2, 77, 16, 16, True, 7, torch.bfloat16),
+    (1, 2, 1, 130, 256, 256, True, None, torch.bfloat16),
+    (1, 2, 2, 100, 256, 256, False, None, torch.bfloat16),
 ])
 def test_flash_attention_kernel_matches_plain(dev, B, H, Hkv, S, D, Dv,
                                               causal, window, dtype):
@@ -65,17 +79,29 @@ def test_flash_attention_kernel_matches_plain(dev, B, H, Hkv, S, D, Dv,
                                rtol=rtol)
 
 
-@pytest.mark.parametrize("B,H,Hkv,S,D,Dv,lens,dtype", [
-    (4, 24, 8, 116, 128, 128, (116, 116, 116, 116), torch.bfloat16),
-    (4, 24, 8, 116, 128, 128, (1, 50, 100, 116), torch.bfloat16),
-    (4, 32, 32, 216, 80, 80, (216, 216, 216, 216), torch.bfloat16),  # zamba2
-    (2, 4, 4, 150, 80, 80, (150, 3), torch.float32),
-    (3, 4, 2, 300, 32, 32, (1, 129, 300), torch.float32),
-    (2, 4, 2, 64, 24, 16, (40, 9), torch.float32),
-    (2, 8, 1, 513, 256, 256, (513, 257), torch.float32),
+# num_splits gives 1 split at minitron-4b's shape (B 4, Hkv 8, S 116), 2
+# at zamba2-2.7b's (bounds 0, 108, 216) and 15 at (2, 2, 1000) (66, 133,
+# ...); kv_len sits on both sides of those boundaries.  D = 12 takes the
+# body's element-wise loads, the others its 16-byte loads.
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,Hkv,S,D,Dv,lens", [
+    (4, 24, 8, 116, 128, 128, (116, 116, 116, 116)),   # minitron-4b
+    (4, 24, 8, 116, 128, 128, (1, 63, 64, 65)),
+    (4, 24, 8, 116, 128, 128, (1, 50, 100, 116)),
+    (4, 32, 32, 216, 80, 80, (216, 216, 216, 216)),    # zamba2-2.7b
+    (4, 32, 32, 216, 80, 80, (107, 108, 109, 1)),
+    (2, 6, 2, 1000, 128, 128, (66, 67)),
+    (2, 6, 2, 1000, 128, 128, (65, 1000)),
+    (2, 4, 4, 150, 80, 80, (150, 3)),
+    (3, 4, 2, 300, 32, 32, (1, 129, 300)),
+    (2, 4, 2, 64, 24, 16, (40, 9)),
+    (2, 4, 2, 70, 12, 20, (70, 33)),
+    (2, 8, 1, 513, 256, 256, (513, 257)),              # group 8: 2 blocks
 ])
 def test_flash_decode_kernel_matches_plain(dev, B, H, Hkv, S, D, Dv, lens,
                                            dtype):
+    """Against the plain version; then a second call on the same split
+    scratch gives the same bits (the kernel leaves its tickets at 0)."""
     gen = torch.Generator(device=dev).manual_seed(S + D)
     q = _randn(gen, (B, H, D), dtype, dev)
     k = _randn(gen, (B, Hkv, S, D), dtype, dev)
@@ -91,6 +117,38 @@ def test_flash_decode_kernel_matches_plain(dev, B, H, Hkv, S, D, Dv, lens,
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
     torch.testing.assert_close(lse, want_lse, atol=2e-3, rtol=1e-3)
+    again, again_lse = ops.flash_decode(q, k, v, kv_len=kv_len,
+                                        return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got) and torch.equal(again_lse, lse)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,Hkv,S", [(4, 24, 8, 116), (2, 6, 2, 1000)])
+def test_flash_decode_kernel_empty_cache(dev, B, H, Hkv, S, dtype):
+    """kv_len = 0 gives the Pallas kernel's result (the plain version
+    gives the mean of v there): output 0 and lse -1e30 + log(1e-30), in
+    every split; the other lanes still match the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(S)
+    q = _randn(gen, (B, H, 128), dtype, dev)
+    k = _randn(gen, (B, Hkv, S, 128), dtype, dev)
+    v = _randn(gen, (B, Hkv, S, 128), dtype, dev)
+    lens = [0, S] * (B // 2)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got, lse = ops.flash_decode(q, k, v, kv_len=kv_len, return_lse=True)
+    want, want_lse = ops.flash_decode(q, k, v, kv_len=kv_len,
+                                      return_lse=True, impl="ref")
+    torch.cuda.synchronize()
+    empty = kv_len == 0
+    assert torch.equal(got[empty], torch.zeros_like(got[empty]))
+    lse_empty = torch.tensor(-1e30, dtype=torch.float32) + math.log(1e-30)
+    assert torch.equal(lse[empty].cpu(),
+                       lse_empty.expand(int(empty.sum()), H))
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got[~empty].float(), want[~empty].float(),
+                               atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse[~empty], want_lse[~empty], atol=2e-3,
+                               rtol=1e-3)
 
 
 def _ssd_inputs(gen, dev, B, S, H, P, N, dtype):

@@ -157,6 +157,62 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper, args, kw):
     assert (t_fa.launches, t_fd.launches, t_ssd.launches) == before
 
 
+@pytest.mark.parametrize("wrapper,shapes,kw,match", [
+    (t_fa.flash_attention, ((1, 2, 8, 16), (2, 8, 16), (1, 2, 8, 16)), {},
+     r"k, v must be \(B,Hkv,Sk,D\)"),
+    (t_fa.flash_attention, ((1, 2, 8, 16), (1, 2, 8, 16), (1, 2, 9, 16)),
+     {}, "do not match"),
+    (t_fa.flash_attention, ((1, 3, 8, 16), (1, 2, 8, 16), (1, 2, 8, 16)),
+     {}, "H=3 is not a multiple of Hkv=2"),
+    (t_fa.flash_attention, ((1, 2, 0, 16), (1, 2, 8, 16), (1, 2, 8, 16)),
+     {}, "nonempty B, H, S, Sk"),
+    (t_fa.flash_attention, ((1, 2, 8, 12), (1, 2, 8, 12), (1, 2, 8, 12)),
+     {}, "multiples of 8 up to 256"),
+    (t_fa.flash_attention, ((1, 2, 8, 264), (1, 2, 8, 264),
+                            (1, 2, 8, 264)), {}, "multiples of 8 up to 256"),
+    (t_fa.flash_attention, ((1, 2, 8, 16), (1, 2, 8, 16), (1, 2, 8, 16)),
+     dict(window=0), "window must be >= 1"),
+    (t_fd.flash_decode, ((1, 2, 16), (2, 8, 16), (1, 2, 8, 16)), {},
+     r"k, v must be \(B,Hkv,S,D\)"),
+    (t_fd.flash_decode, ((1, 2, 16), (1, 2, 8, 16), (1, 2, 9, 16)), {},
+     "do not match"),
+    (t_fd.flash_decode, ((1, 3, 16), (1, 2, 8, 16), (1, 2, 8, 16)), {},
+     "H=3 is not a multiple of Hkv=2"),
+    (t_fd.flash_decode, ((1, 2, 300), (1, 2, 8, 300), (1, 2, 8, 300)), {},
+     "flash_decode takes 1 <= D, Dv <= 256"),
+    (t_fd.flash_decode, ((1, 2, 16), (1, 2, 0, 16), (1, 2, 0, 16)), {},
+     "nonempty B, H, S"),
+])
+def test_kernel_wrappers_refuse_bad_shapes(wrapper, shapes, kw, match):
+    """Shapes the kernels do not take are refused, with the reason, before
+    the device is looked at; no launch is counted."""
+    before = (t_fa.launches, t_fd.launches)
+    with pytest.raises(ValueError, match=match):
+        wrapper(*(torch.zeros(s) for s in shapes), **kw)
+    assert (t_fa.launches, t_fd.launches) == before
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 116, 216, 1000, 8192])
+@pytest.mark.parametrize("Hkv", [1, 8, 32])
+@pytest.mark.parametrize("B", [1, 4, 16])
+def test_flash_decode_split_plan(B, Hkv, S):
+    """K3's key ranges cover every key once, keep at least 64 keys each
+    when there are several, and fill the H100's 132 SMs with B * Hkv *
+    splits blocks wherever S allows it (else take as many as it does)."""
+    splits = t_fd.num_splits(B, Hkv, S)
+    assert splits >= 1
+    bounds = t_fd.split_bounds(S, splits)
+    assert len(bounds) == splits
+    assert [k for lo, hi in bounds for k in range(lo, hi)] == list(range(S))
+    if splits > 1:
+        assert min(hi - lo for lo, hi in bounds) >= 64
+    need = -(-132 // (B * Hkv))
+    if S // 64 >= need:
+        assert B * Hkv * splits >= 132
+    else:
+        assert splits == max(1, S // 64)
+
+
 def test_ops_reject_unknown_impl():
     q = torch.zeros(1, 2, 16)
     k = torch.zeros(1, 2, 8, 16)
