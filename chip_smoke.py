@@ -9,14 +9,17 @@ each of which ends the run with a nonzero exit and no result on failure:
 1. the card's name and power limit, torch and CUDA versions, the build
    of every CUDA kernel from the sources in this checkout (ptxas
    registers and spills), and the count of tensor-core instructions
-   (HMMA/HGMMA) in each library's SASS, which must not be 0 in the bf16
-   flash_attention kernel;
+   (HMMA/HGMMA, IMMA/IGMMA) in each library's SASS, which must not be 0
+   in any instance of the bf16 flash_attention and ssd_chunk kernels or
+   of the int8 neutron_matmul kernel;
 2. every kernel on the card against its plain PyTorch version, at the
    shapes each serving path gives it (bf16; int8 for K1 at the vision
    plans' shapes, compared for equality) and at small ragged cases (f32;
-   K1 also in its Pallas contract: f32, bf16, int8 requant, per-channel
-   scale), timed beside its plain version, one PyTorch library call for
-   the same function where there is one, and its bound.  `ms` and
+   K4 also bf16 with N, P not multiples of 16; K1 also in its Pallas
+   contract: f32, bf16, int8 requant, per-channel scale), timed beside its
+   plain version, one PyTorch library call for the same function where
+   there is one (for K1 `torch._int_mm`, on zero-padded copies where its
+   shape rules refuse the shape), and its bound.  `ms` and
    `library_ms` are device time: the CUDA kernels one call launches,
    from torch.profiler; `call_ms` (and `library_call_ms`, `plain_ms`)
    the host-plus-device time of one call between CUDA events;
@@ -206,43 +209,50 @@ def call_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
+def device_ms(torch, fn, iters: int = 30, warmup: int = 3,
+              attempts: int = 3) -> float:
     """Median over `iters` calls of the device time of the CUDA kernels
     one call of `fn` launches (their durations summed), from
     torch.profiler's kernel events, the L2 flushed before each call.
     The flush is a bitwise_not of the 64 MB buffer, a kernel that no
     timed call launches: in the device's order of kernels on the stream,
-    each flush starts the next call's kernels, and is not counted."""
+    each flush starts the next call's kernels, and is not counted.  A
+    profiling session whose events are incomplete (the profiler has been
+    seen to return none in a process's first session, or to drop the
+    first flush) is run again, up to `attempts` sessions."""
     from torch.profiler import ProfilerActivity, profile
     flush = _flush(torch)
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.bitwise_not_()
-            fn()
-        torch.cuda.synchronize()
-    kernels = sorted(
-        (e.time_range.start, e.name, e.time_range.elapsed_us())
-        for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and not getattr(e, "is_user_annotation", False)
-        and not e.name.startswith(("Memcpy", "Memset")))
-    per_call, before = [], 0
-    for _, name, us in kernels:
-        if "bitwise_not" in name:
-            per_call.append([])
-        elif per_call:
-            per_call[-1].append(us)
-        else:
-            before += 1
-    if len(per_call) != iters or before or not all(per_call):
-        fail(f"the profiler saw {len(per_call)} flushes for {iters} calls, "
-             f"{before} kernels before the first, and "
-             f"{[len(k) for k in per_call]} kernels after each; the first: "
-             f"{[n[:60] for _, n, _ in kernels[:4]]}")
-    return statistics.median(sum(k) for k in per_call) / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # one call more than is counted: the kernels before the
+            # second flush are discarded
+            for _ in range(iters + 1):
+                flush.bitwise_not_()
+                fn()
+            torch.cuda.synchronize()
+        kernels = sorted(
+            (e.time_range.start, e.name, e.time_range.elapsed_us())
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith(("Memcpy", "Memset")))
+        per_call = []
+        for _, name, us in kernels:
+            if "bitwise_not" in name:
+                per_call.append([])
+            elif per_call:
+                per_call[-1].append(us)
+        per_call = per_call[-iters:]
+        if len(per_call) == iters and all(per_call) and \
+                len({len(k) for k in per_call}) == 1:
+            return statistics.median(sum(k) for k in per_call) / 1e3
+    fail(f"the profiler saw {len(per_call)} of {iters} calls in each of "
+         f"{attempts} sessions, the last with {[len(k) for k in per_call]} "
+         f"kernels after each flush; the first: "
+         f"{[n[:60] for _, n, _ in kernels[:4]]}")
 
 
 def timings(torch, kernel, plain, library=None) -> dict:
@@ -267,21 +277,34 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+# The kernels whose every instance must carry tensor-core instructions of
+# the given kinds: (library, mangled-name part, mnemonics, what it is).
+TENSOR_CORE_KERNELS = (
+    ("flash_attention", "flash_attention_bf16_kernel", ("HMMA", "HGMMA"),
+     "the bf16 flash_attention kernel"),
+    ("neutron_matmul", "neutron_matmul_i8", ("IMMA", "IGMMA"),
+     "the int8 neutron_matmul kernel"),
+    ("ssd_chunk", "ssd_chunk_bf16_kernel", ("HMMA", "HGMMA"),
+     "the bf16 ssd_chunk kernel"),
+)
+
+
 def phase_sass(_build) -> None:
-    """Tensor-core instructions (HMMA, HGMMA) in each library's SASS; the
-    bf16 flash_attention kernel must have them in every instance."""
-    for name in _build.SOURCES:
-        counts = _build.tensor_core_ops(name)
-        print(f"  {name}: {sum(counts.values())} HMMA/HGMMA instructions in "
-              f"{len(counts)} kernels")
-        if name == "flash_attention":
-            bf16 = {fn: n for fn, n in counts.items()
-                    if "flash_attention_bf16_kernel" in fn}
-            print(f"  flash_attention bf16 instances: "
-                  f"{sorted(bf16.values())}")
-            if not bf16 or not all(bf16.values()):
-                fail("the bf16 flash_attention kernel has no tensor-core "
-                     "instruction in its SASS")
+    """Tensor-core instructions (HMMA/HGMMA, IMMA/IGMMA) in each library's
+    SASS; every instance of the bf16 flash_attention and ssd_chunk kernels
+    and of the int8 neutron_matmul kernel must have them."""
+    counts = {name: _build.tensor_core_ops(name) for name in _build.SOURCES}
+    for name, per_fn in counts.items():
+        total = {op: sum(c[op] for c in per_fn.values())
+                 for op in _build.TENSOR_CORE_OPS}
+        print(f"  {name}: {total} tensor-core instructions in "
+              f"{len(per_fn)} kernels")
+    for name, part, ops, what in TENSOR_CORE_KERNELS:
+        found = [sum(c[op] for op in ops)
+                 for fn, c in counts[name].items() if part in fn]
+        print(f"  {what}: {'/'.join(ops)} per instance {sorted(found)}")
+        if not found or not all(found):
+            fail(f"{what} has no {'/'.join(ops)} instruction in its SASS")
 
 
 # --------------------------------------------------------------------------
@@ -357,17 +380,27 @@ def phase_kernels(torch, F, ops):
           f"+lse: max|err| {e:.3g}")
 
     # ssd_chunk (f32): the sweep of tests/test_kernels.py, zero padded
-    # rows, H = 3 with N != P, the largest tile; ops.ssd_scan at a ragged S
-    for B, S, H, P, N, L, pad in ((1, 32, 1, 8, 4, 8, 0),
-                                  (2, 128, 3, 16, 8, 32, 28),
-                                  (2, 96, 3, 24, 40, 32, 0),
-                                  (1, 256, 2, 128, 128, 128, 0)):
-        args = ssd_inputs(torch, randn, B, S, H, P, N, f32, pad)
-        e = max(check_close(torch, f"ssd_chunk f32 {i}", g, w, "float32")
+    # rows, H = 3 with N != P, the largest tile; in bf16 (the tensor-core
+    # body, outputs f32) N and P not multiples of 16 and head groups of
+    # 3 and 5; ops.ssd_scan at a ragged S
+    for B, S, H, P, N, L, pad, dt in ((1, 32, 1, 8, 4, 8, 0, f32),
+                                      (2, 128, 3, 16, 8, 32, 28, f32),
+                                      (2, 96, 3, 24, 40, 32, 0, f32),
+                                      (1, 256, 2, 128, 128, 128, 0, f32),
+                                      (2, 96, 3, 24, 40, 32, 0,
+                                       torch.bfloat16),
+                                      (2, 128, 5, 24, 40, 32, 28,
+                                       torch.bfloat16),
+                                      (1, 256, 2, 128, 128, 128, 0,
+                                       torch.bfloat16)):
+        args = ssd_inputs(torch, randn, B, S, H, P, N, dt, pad)
+        name = str(dt).replace("torch.", "")
+        e = max(check_close(torch, f"ssd_chunk {name} {i}", g, w,
+                            "float32")
                 for i, (g, w) in enumerate(zip(
                     ssd_scan.ssd_chunk(*args, L),
                     ref.ssd_chunk_ref(*args, L))))
-        print(f"  ssd_chunk f32 x ({B},{S},{H},{P}) N={N} chunk={L} "
+        print(f"  ssd_chunk {name} x ({B},{S},{H},{P}) N={N} chunk={L} "
               f"zero rows {pad}: max|err| {e:.3g}")
     for S, L in ((100, 32), (37, 16)):
         args = ssd_inputs(torch, randn, 2, S, 3, 16, 8, f32)
@@ -475,16 +508,25 @@ def phase_kernels(torch, F, ops):
 
 def int_mm(torch, x2, w):
     """``torch._int_mm`` (cuBLASLt int8 on the tensor cores: the product
-    alone, no epilogue) on x2 (M,K) @ w^T, where its shape rules allow it
-    (M > 16, K and N multiples of 8), else None; and what it is."""
+    alone, no epilogue) on x2 (M,K) @ w^T, and what it is.  Where its
+    shape rules (M > 16; K and N multiples of 8) refuse the shape, it runs
+    on copies zero-padded to M >= 32 and K, N multiples of 8, made here,
+    outside the timed call, and is labelled "padded"."""
     M, K = x2.shape
     N = w.shape[0]
-    if M <= 16 or K % 8 or N % 8:
-        return None, (f"none: torch._int_mm needs M > 16 and K, N "
-                      f"multiples of 8 (M={M}, K={K}, N={N})")
-    wt = w.t()
-    return (lambda: torch._int_mm(x2, wt),
-            "torch._int_mm, the product without the epilogue")
+    if M > 16 and K % 8 == 0 and N % 8 == 0:
+        wt = w.t()
+        return (lambda: torch._int_mm(x2, wt),
+                "torch._int_mm, the product without the epilogue")
+    Mp, Kp, Np = max(M, 32), -(-K // 8) * 8, -(-N // 8) * 8
+    xp = torch.zeros((Mp, Kp), dtype=torch.int8, device=x2.device)
+    wp = torch.zeros((Np, Kp), dtype=torch.int8, device=w.device)
+    xp[:M, :K] = x2
+    wp[:N, :K] = w
+    wpt = wp.t()
+    return (lambda: torch._int_mm(xp, wpt),
+            f"torch._int_mm padded to ({Mp},{Kp}) x ({Kp},{Np}), the "
+            f"product without the epilogue")
 
 
 def phase_k1(torch, ops, rows):

@@ -98,25 +98,32 @@ def build_all() -> float:
     return time.monotonic() - t0
 
 
-def tensor_core_ops(name: str) -> Dict[str, int]:
-    """The tensor-core instructions (``HMMA``, ``HGMMA``) in the SASS of
-    each kernel of library ``name``, by mangled kernel name, read with
-    ``cuobjdump -sass`` from the toolkit beside nvcc.  Builds first."""
+TENSOR_CORE_OPS = ("HMMA", "HGMMA", "IMMA", "IGMMA")
+
+
+def tensor_core_ops(name: str) -> Dict[str, Dict[str, int]]:
+    """The tensor-core instructions in the SASS of each kernel of library
+    ``name``, by mangled kernel name and mnemonic (``HMMA``/``HGMMA`` for
+    bf16 and f16, ``IMMA``/``IGMMA`` for int8), read with ``cuobjdump
+    -sass`` from the toolkit beside nvcc.  Builds first."""
     so = _library_path(name)
     if not so.exists():
         build_all()
     out = subprocess.run([str(Path(_nvcc()).with_name("cuobjdump")), "-sass",
                           str(so)], capture_output=True, text=True,
                          check=True).stdout
-    counts: Dict[str, int] = {}
+    pattern = re.compile(r"\b(" + "|".join(TENSOR_CORE_OPS) + r")\b")
+    counts: Dict[str, Dict[str, int]] = {}
     fn = None
     for line in out.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            counts[fn] = 0
-        elif fn is not None and re.search(r"\bHG?MMA\b", line):
-            counts[fn] += 1
+            counts[fn] = dict.fromkeys(TENSOR_CORE_OPS, 0)
+        elif fn is not None:
+            op = pattern.search(line)
+            if op:
+                counts[fn][op.group(1)] += 1
     return counts
 
 

@@ -15,13 +15,17 @@ Their plain PyTorch versions are ``ref.neutron_matmul_ref`` and
 ``ref.neutron_matmul_plan_ref``; ``ops`` chooses between kernel and plain
 version by the device of the inputs.
 
+The int8 body runs on the tensor cores; its load width, span mode and
+k-split come from :func:`plan`, a pure function of the shapes, strides
+and base addresses.  The split scratch is kept per (device, stream).
+
 ``launches`` counts the kernel launches of this process (both
 contracts).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -33,12 +37,96 @@ launches = 0
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
              + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                 ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
-             + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 3
-             + [ctypes.c_void_p])
+             + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 5
+             + [ctypes.c_void_p] * 3)
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _PALLAS, _PLAN = 0, 1
-_MAX_ROW_TILES = 65535          # grid.y = ceil(M / 64)
+_MAX_ROW_TILES = 65535          # float bodies: grid.y = ceil(M / 64)
 _ACT_CODES = {a: i for i, a in enumerate(IR_ACTIVATIONS)}
+
+SMS = 132                 # streaming multiprocessors of an H100 SXM
+TILE = 64                 # the int8 body's output tile is TILE x TILE
+RING_BK = 64              # bytes of K per stage of its cp.async ring
+SPAN_MAX_K = 160          # span mode takes the whole K in one tile
+MIN_SPLIT_KTILES = 2      # no k-split gets fewer k-tiles than this
+SPAN = 0                  # the load mode of span mode
+
+
+class K1Plan(NamedTuple):
+    """How the int8 body runs one call: ``load`` is the width of its
+    staging copies in bytes (16, 8, 4; 1 for plain byte loads) or SPAN,
+    and the grid is (row_tiles, col_tiles, splits)."""
+    load: int
+    row_tiles: int
+    col_tiles: int
+    splits: int
+
+
+def load_width(K: int, strides: Tuple[int, ...], ptrs: Tuple[int, ...]
+               ) -> int:
+    """The widest copy, 16, 8 or 4 bytes, that divides K, every stride
+    (in bytes) and every base address; 1 where none does."""
+    bits = K
+    for v in (*strides, *ptrs):
+        bits |= v
+    for w in (16, 8, 4):
+        if bits % w == 0:
+            return w
+    return 1
+
+
+def rows_contiguous(batch: int, M: int, K: int, x_bstride: int, x_ow: int,
+                    x_sy: int, x_sx: int) -> bool:
+    """Whether row r of x (over batch * M) starts at r * K: one tile of
+    rows is then one contiguous span."""
+    return (x_sx == K and (x_ow >= M or x_sy == x_ow * K)
+            and (batch == 1 or x_bstride == M * K))
+
+
+def num_splits(tiles: int, K: int) -> int:
+    """How many k-ranges each output tile is split into: enough that
+    ``tiles * splits`` blocks fill the SMS SMs, as far as every range
+    keeps MIN_SPLIT_KTILES k-tiles of RING_BK bytes; at least 1."""
+    if tiles >= SMS:
+        return 1
+    k_tiles = -(-K // RING_BK)
+    return max(1, min(-(-SMS // tiles), k_tiles // MIN_SPLIT_KTILES))
+
+
+def plan(batch: int, M: int, N: int, K: int, x_bstride: int, x_ow: int,
+         x_sy: int, x_sx: int, x_ptr: int, w_ptr: int) -> K1Plan:
+    """The int8 body's plan for x rows (batch * M of K bytes, strides in
+    bytes) and w (N, K) at the given base addresses.  Span mode where the
+    rows are contiguous, K is at most SPAN_MAX_K and 16-byte copies of
+    rows are not possible; else the ring at ``load_width``, split along K
+    where the tile grid leaves SMs idle."""
+    row_tiles, col_tiles = -(-batch * M // TILE), -(-N // TILE)
+    load = load_width(K, (x_bstride, x_sy, x_sx), (x_ptr, w_ptr))
+    if load < 16 and K <= SPAN_MAX_K and rows_contiguous(
+            batch, M, K, x_bstride, x_ow, x_sy, x_sx):
+        return K1Plan(SPAN, row_tiles, col_tiles, 1)
+    return K1Plan(load, row_tiles, col_tiles,
+                  num_splits(row_tiles * col_tiles, K))
+
+
+# Per (device index, stream handle): the int32 partial sums of split
+# tiles and their tickets, which the kernel leaves at 0.
+_scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scratch_for(dev: torch.device, stream: int, tiles: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split scratch of (device, stream), grown to ``tiles`` tiles;
+    zeroed when allocated, reset to 0 by the kernel after each use."""
+    key = (dev.index, stream)
+    part, tickets = _scratch.get(key, (None, None))
+    if part is None or part.numel() < tiles * TILE * TILE:
+        part = torch.zeros(tiles * TILE * TILE, dtype=torch.int32,
+                           device=dev)
+    if tickets is None or tickets.numel() < tiles:
+        tickets = torch.zeros(tiles, dtype=torch.int32, device=dev)
+    _scratch[key] = (part, tickets)
+    return part, tickets
 
 
 def _act_code(act: Optional[str]) -> int:
@@ -66,7 +154,19 @@ def _launch(x, w, scale, bias, y, rows, N, ldy, y_bstride, out_code,
             qmin, qmax) -> None:
     global launches
     B, M, K, xb, x_ow, x_sy, x_sx = rows
-    if -(-M // 64) > _MAX_ROW_TILES or B > 65535:
+    stream = _build.stream_of(x)
+    load, splits, part, tickets = 1, 1, None, None
+    if x.dtype == torch.int8:
+        if B * M > 1 << 30 or -(-N // TILE) > 65535:
+            raise ValueError(f"neutron_matmul: batch * M = {B * M}, N={N} "
+                             f"exceed the kernel's grid")
+        pl = plan(B, M, N, K, xb, x_ow, x_sy, x_sx, x.data_ptr(),
+                  w.data_ptr())
+        load, splits = pl.load, pl.splits
+        if splits > 1:
+            part, tickets = _scratch_for(x.device, stream,
+                                         pl.row_tiles * pl.col_tiles)
+    elif -(-M // 64) > _MAX_ROW_TILES or B > 65535:
         raise ValueError(f"neutron_matmul: M={M}, batch={B} exceed the "
                          f"kernel's grid")
     fn = _build.function("neutron_matmul", "neutron_matmul_launch",
@@ -78,7 +178,10 @@ def _launch(x, w, scale, bias, y, rows, N, ldy, y_bstride, out_code,
                 y.data_ptr(), B, M, N, K, xb, x_ow, x_sy, x_sx, y_bstride,
                 ldy, _CODES[x.dtype], out_code, contract, act,
                 scale_per_col, requant, out_scale, out_zp, qmin, qmax,
-                _build.stream_of(x))
+                load, splits,
+                part.data_ptr() if part is not None else None,
+                tickets.data_ptr() if tickets is not None else None,
+                stream)
     _build.check(rc, "neutron_matmul")
     launches += 1
 

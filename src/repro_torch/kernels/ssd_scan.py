@@ -6,7 +6,9 @@ which replaces the Pallas kernel of ``repro/kernels/ssd_scan.py``.  Per
 the chunk, the chunk's contribution to the state and its total decay; the
 O(S/L) recurrence across chunks runs in PyTorch (``ref.ssd_scan_ref``).
 Its plain PyTorch version is ``ref.ssd_chunk_ref``; ``ops.ssd_scan``
-chooses between the two by the device of the inputs.
+chooses between the two by the device of the inputs.  In bfloat16 the
+kernel runs on the tensor cores, one block per (batch, chunk, group of
+heads) computing C·Bᵀ once for the group; ``head_group`` picks the group.
 
 ``launches`` counts the kernel launches of this process.
 """
@@ -21,8 +23,24 @@ from . import _build
 
 launches = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 MAX_DIM = 128               # chunk, N and P are at most this
+SMS = 132                   # streaming multiprocessors of an H100 SXM
+MAX_GROUP = 8               # heads a block of the bf16 body takes at most
+MIN_WAVES = 1.5             # head_group keeps at least this many waves
+
+
+def head_group(pairs: int, H: int) -> int:
+    """Heads per block of the bf16 body for ``pairs`` (batch, chunk)
+    pairs of H heads: the largest group, up to MAX_GROUP, whose grid of
+    ``pairs * ceil(H / group)`` blocks still makes MIN_WAVES waves of the
+    SMS SMs; 1 where even one head a block does not.  A block computes
+    C·Bᵀ once for its group but runs the group's heads one after another,
+    so a larger group trades C·Bᵀ products for fewer blocks in flight."""
+    for group in range(min(MAX_GROUP, H), 1, -1):
+        if pairs * -(-H // group) >= MIN_WAVES * SMS:
+            return group
+    return 1
 
 
 def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -33,10 +51,11 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     of `chunk`.
 
     Returns (y_intra (B,S,H,P), contrib (B,nc,H,P,N), total (B,nc,H),
-    seg (B,S,H)), all f32, as ``ref.ssd_chunk_ref``.  Launches on the
-    current stream and never synchronises.  Raises on inputs the kernel
-    does not take: tensors off CUDA, x/Bm/Cm other than one float32 or
-    bfloat16 dtype, dt or A not float32, chunk, N or P above 128."""
+    seg (B,S,H)), all f32, as ``ref.ssd_chunk_ref``.  The bf16 body takes
+    ``head_group`` heads a block.  Launches on the current stream and
+    never synchronises.  Raises on inputs the kernel does not take:
+    tensors off CUDA, x/Bm/Cm other than one float32 or bfloat16 dtype, dt
+    or A not float32, chunk, N or P above 128."""
     global launches
     if x.dim() != 4 or Bm.dim() != 3:
         raise ValueError(f"x must be (B,S,H,P) and Bm (B,S,N); got "
@@ -77,7 +96,8 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                 Cm.data_ptr(), y.data_ptr(), contrib.data_ptr(),
                 total.data_ptr(), seg.data_ptr(), Bsz, S, H, P, N, chunk,
-                _build.DTYPE_CODES[x.dtype], _build.stream_of(x))
+                head_group(Bsz * nc, H), _build.DTYPE_CODES[x.dtype],
+                _build.stream_of(x))
     _build.check(rc, "ssd_chunk")
     launches += 1
     return y, contrib, total, seg

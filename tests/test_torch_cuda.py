@@ -354,3 +354,130 @@ def test_plan_divisions_on_the_card_are_correctly_rounded(dev):
     torch.cuda.synchronize()
     assert np.array_equal(out.cpu().numpy()[0, 0], want)
     assert np.array_equal(got.cpu().numpy(), want)
+
+
+# --------------------------------------------------------------------------
+# K1's int8 body on the tensor cores: load widths, span mode, split-K
+# --------------------------------------------------------------------------
+
+
+def _k1_plan_of(x, w):
+    B, M, K, xb, x_ow, x_sy, x_sx = t_k1._rows(x)
+    return t_k1.plan(B, M, w.shape[0], K, xb, x_ow, x_sy, x_sx,
+                     x.data_ptr(), w.data_ptr())
+
+
+def _k1_case(dev, gen, B, R, C, K, N, stride, fill=None):
+    """x as a strided view of an arena slot of B rows at a 64-byte
+    aligned pitch (R x C positions of K channels, every `stride`-th),
+    w (N, K), bias, sc and an output view into another arena."""
+    pitch = -(-(R * C * K + 128) // 64) * 64
+    arena = torch.randint(-128, 128, (B, pitch), generator=gen, device=dev,
+                          dtype=torch.int8)
+    if fill is not None:
+        arena.fill_(fill)
+    x = arena[:, 64:64 + R * C * K].view(B, R, C, K)[:, ::stride, ::stride]
+    w = torch.randint(-127, 128, (N, K), generator=gen, device=dev,
+                      dtype=torch.int8)
+    if fill is not None:
+        w.fill_(fill)
+    Ro, Co = x.shape[1], x.shape[2]
+    bias = torch.randint(-5000, 5000, (N,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    # rescale so that act(y) spans a few output steps: with every operand
+    # -128 the accumulators are K * 16384, else about sqrt(K) * 5461
+    sc = (torch.rand((N,), generator=gen, device=dev) + 0.5) \
+        * (0.2 / (K * 16384) if fill is not None
+           else 2.0 / (math.sqrt(K) * 5461))
+    out = torch.zeros((B, Ro * Co * N + 128), device=dev, dtype=torch.int8)
+    return x, w, bias, sc, out[:, 64:64 + Ro * Co * N].view(B, Ro * Co, N)
+
+
+@pytest.mark.parametrize("B,R,C,K,N,stride,act,fill,load,split", [
+    # mobilenet_v2's strided 1x1 over C = 24: rows 48 bytes apart
+    (8, 14, 14, 24, 32, 2, "relu6", None, 8, False),
+    (8, 28, 28, 24, 144, 2, "none", None, 8, False),
+    # a batch-8 fc, M = 1 per image: one 8-row product, split along K
+    (8, 1, 1, 1280, 1000, 1, "none", None, 16, True),
+    (8, 1, 1, 2048, 1000, 1, "none", None, 16, True),
+    # resnet50_v1's M = 49 convs, K = 2304 and 4608: split-K
+    (8, 7, 7, 2304, 256, 1, "relu", None, 16, True),
+    (8, 7, 7, 4608, 512, 1, "relu", None, 16, True),
+    # N not a multiple of 8, K = 20 (4-byte copies), K odd (byte loads)
+    (8, 7, 7, 576, 70, 1, "hswish", None, 16, True),
+    (3, 9, 9, 20, 12, 2, "leaky", None, 4, False),
+    (2, 5, 5, 33, 19, 2, "relu", None, 1, False),
+    # the largest accumulator: every operand -128 at K = 4608
+    (8, 7, 7, 4608, 64, 1, "none", -128, 16, True),
+])
+def test_neutron_matmul_plan_tensor_core_cases(dev, B, R, C, K, N, stride,
+                                               act, fill, load, split):
+    """The int8 body at the load width, span mode and split its plan
+    picks for each layout, equal to the plain version; a second call on
+    the same split scratch gives the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(K + N + R)
+    x, w, bias, sc, out = _k1_case(dev, gen, B, R, C, K, N, stride, fill)
+    pl = _k1_plan_of(x, w)
+    assert pl.load == load and (pl.splits > 1) == split
+    args = (x, w, bias, sc, act, 0.05, -3, -128, 127)
+    n0 = t_k1.launches
+    ops.neutron_matmul_plan(*args, out)
+    want = ops.neutron_matmul_plan(*args, torch.empty_like(out), impl="ref")
+    torch.cuda.synchronize()
+    assert t_k1.launches == n0 + 1
+    assert torch.equal(out, want)
+    again = torch.zeros_like(out)
+    ops.neutron_matmul_plan(*args, again)
+    torch.cuda.synchronize()
+    assert torch.equal(again, out)
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 27, 32), (200, 147, 64),
+                                   (64, 160, 40), (33, 24, 17)])
+def test_neutron_matmul_span_mode_matches_plain(dev, M, K, N):
+    """Contiguous rows of K <= 160 not a multiple of 16 (the stems' im2col
+    buffers) go through span mode, in both contracts."""
+    gen = torch.Generator(device=dev).manual_seed(M + K)
+    x = torch.randint(-128, 128, (2, M, K), generator=gen, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (N, K), generator=gen, device=dev,
+                      dtype=torch.int8)
+    assert _k1_plan_of(x, w).load == t_k1.SPAN or K % 16 == 0
+    bias = torch.randint(-5000, 5000, (N,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    sc = torch.rand((N,), generator=gen, device=dev) * 1e-3 + 1e-5
+    out = torch.empty((2, M, N), dtype=torch.int8, device=dev)
+    args = (x, w, bias, sc, "relu", 0.05, 2, -128, 127)
+    ops.neutron_matmul_plan(*args, out)
+    want = ops.neutron_matmul_plan(*args, torch.empty_like(out), impl="ref")
+    x2, w2 = x[0], w.t().contiguous()
+    got2 = ops.neutron_matmul(x2, w2, scale=0.01, act="relu", out_scale=0.5)
+    want2 = ops.neutron_matmul(x2, w2, scale=0.01, act="relu", out_scale=0.5,
+                               impl="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and torch.equal(got2, want2)
+
+
+@pytest.mark.parametrize("B,H,group", [(2, 3, 1), (2, 5, 1), (100, 3, 2),
+                                       (66, 5, 2), (100, 5, 4)])
+@pytest.mark.parametrize("pad", [0, 20])
+def test_ssd_chunk_bf16_small_matches_plain(dev, B, H, group, pad):
+    """The bf16 tensor-core body at L = 32, N = 40, P = 24 (zero-filled to
+    48 and 32 in shared memory), one chunk of 32 per sequence; enough
+    sequences that ``head_group`` gives groups of 2 and 4 heads, which do
+    not divide H; outputs f32 within atol 2e-3 / rtol 1e-3."""
+    S, P, N, chunk = 32, 24, 40, 32
+    assert t_ssd.head_group(B, H) == group
+    gen = torch.Generator(device=dev).manual_seed(B + H + pad)
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, dev, B, S, H, P, N, torch.bfloat16)
+    if pad:
+        for t in (x, dt, Bm, Cm):
+            t[:, S - pad:] = 0
+    n0 = t_ssd.launches
+    got = t_ssd.ssd_chunk(x, dt, A, Bm, Cm, chunk)
+    want = ref.ssd_chunk_ref(x, dt, A, Bm, Cm, chunk)
+    torch.cuda.synchronize()
+    assert t_ssd.launches == n0 + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        torch.testing.assert_close(g, w, atol=2e-3, rtol=1e-3)

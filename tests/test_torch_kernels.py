@@ -12,6 +12,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import flash_decode as t_fd
+from repro_torch.kernels import neutron_matmul as t_k1
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ssd_scan as t_ssd
 from repro_torch.kernels import ref as tref
@@ -218,3 +219,137 @@ def test_ops_reject_unknown_impl():
     k = torch.zeros(1, 2, 8, 16)
     with pytest.raises(ValueError, match="impl"):
         tops.flash_decode(q, k, k, impl="pallas")
+
+
+# --------------------------------------------------------------------------
+# the kernels' launch plans (pure functions, so they are tested here)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("K", [24, 320, 1280, 2048, 2304, 4608])
+@pytest.mark.parametrize("tiles", [1, 7, 16, 56, 131, 132, 1568])
+def test_neutron_matmul_split_plan(tiles, K):
+    """K1's k-split: none where the tiles fill the 132 SMs; else enough
+    that tiles * splits blocks fill them, as far as every split keeps at
+    least two k-tiles of 64 bytes; the splits' k-tile ranges (balanced, as
+    the kernel computes them) cover every k-tile once."""
+    splits = t_k1.num_splits(tiles, K)
+    k_tiles = -(-K // 64)
+    assert splits >= 1
+    if tiles >= 132:
+        assert splits == 1
+    elif k_tiles // 2 >= -(-132 // tiles):
+        assert tiles * splits >= 132
+    else:
+        assert splits == max(1, k_tiles // 2)
+    bounds = [(s * k_tiles // splits, (s + 1) * k_tiles // splits)
+              for s in range(splits)]
+    assert [k for lo, hi in bounds for k in range(lo, hi)] == \
+        list(range(k_tiles))
+    if splits > 1:
+        assert min(hi - lo for lo, hi in bounds) >= 2
+
+
+@pytest.mark.parametrize("K,strides,ptrs,width", [
+    (1280, (1344, 0, 1280), (0, 512), 16),
+    (24, (56 * 56 * 24, 2 * 56 * 24, 48), (64, 512), 8),   # C = 24, stride 2
+    (24, (56 * 56 * 24, 56 * 24, 24), (64, 512), 8),
+    (20, (1812, 360, 40), (64, 512), 4),
+    (27, (12544 * 27, 0, 27), (0, 512), 1),
+    (576, (3136 * 576, 0, 576), (8, 512), 8),                # base 8 aligned
+    (576, (3136 * 576, 0, 576), (0, 4), 4),
+    (4608, (49 * 4608, 0, 4608), (2, 0), 1),
+])
+def test_neutron_matmul_load_width(K, strides, ptrs, width):
+    """K1's copies are as wide as K, every stride and both base addresses
+    allow: 16, 8 or 4 bytes, else byte loads."""
+    assert t_k1.load_width(K, strides, ptrs) == width
+
+
+@pytest.mark.parametrize("shape,plan", [
+    # (batch, M, N, K, x_bstride, x_ow, x_sy, x_sx) -> (load, splits)
+    ((8, 12544, 32, 27, 12544 * 27, 12544, 0, 27), (t_k1.SPAN, 1)),
+    ((8, 12544, 64, 147, 12544 * 147, 12544, 0, 147), (t_k1.SPAN, 1)),
+    ((8, 3136, 64, 576, 3136 * 576, 3136, 0, 576), (16, 1)),
+    ((8, 49, 1280, 320, 49 * 320, 49, 0, 320), (16, 1)),
+    ((8, 1, 1000, 1280, 1344, 1, 0, 1280), (16, 9)),          # the fc
+    ((8, 1, 1000, 2048, 2112, 1, 0, 2048), (16, 9)),
+    ((8, 49, 512, 4608, 49 * 4608, 49, 0, 4608), (16, 3)),
+    ((8, 196, 32, 24, 112 * 112 * 24, 14, 2 * 112 * 24, 48), (8, 1)),
+    ((2, 200, 64, 147, 200 * 147 + 64, 200, 0, 147), (1, 1)),  # gapped
+    ((1, 100, 70, 300, 30000, 100, 0, 300), (4, 2)),
+])
+def test_neutron_matmul_plan_at_path_shapes(shape, plan):
+    """The stems' contiguous im2col rows take span mode; a batch stride
+    that breaks the span falls back to the ring at the width it allows;
+    the fc and the M = 49 convs of K >= 2304 split along K."""
+    pl = t_k1.plan(*shape, 0, 512)
+    assert (pl.load, pl.splits) == plan
+    B, M, N = shape[:3]
+    assert pl.row_tiles == -(-B * M // 64) and pl.col_tiles == -(-N // 64)
+
+
+@pytest.mark.parametrize("args,contiguous", [
+    ((8, 12544, 27, 12544 * 27, 12544, 0, 27), True),
+    ((1, 12544, 27, 999, 12544, 0, 27), True),          # one image
+    ((8, 12544, 27, 12544 * 27 + 64, 12544, 0, 27), False),
+    ((8, 196, 24, 196 * 24, 14, 14 * 24, 24), True),     # (R, C, K) dense
+    ((8, 196, 24, 196 * 24, 14, 28 * 24, 24), False),    # every 2nd row
+    ((8, 196, 24, 196 * 24, 14, 14 * 48, 48), False),    # stride 2
+])
+def test_neutron_matmul_rows_contiguous(args, contiguous):
+    assert t_k1.rows_contiguous(*args) == contiguous
+
+
+@pytest.mark.parametrize("pairs,H,group", [
+    (8, 80, 3),      # zamba2-2.7b prefill: 216 blocks
+    (8, 32, 1),      # mamba2-370m: 256 blocks
+    (2, 3, 1), (8, 5, 1), (64, 80, 8), (33, 8, 1), (66, 8, 3), (198, 4, 4),
+    (1, 1, 1),
+])
+def test_ssd_chunk_head_group(pairs, H, group):
+    """K4's bf16 blocks take the largest group of heads (up to 8) whose
+    grid still makes 1.5 waves of the 132 SMs, else one head."""
+    assert t_ssd.head_group(pairs, H) == group
+    if group > 1:
+        assert pairs * -(-H // group) >= 198
+        if group < min(8, H):
+            assert pairs * -(-H // (group + 1)) < 198
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda: t_k1.neutron_matmul(torch.zeros(4, 8), torch.zeros(8, 3)),
+     "CUDA"),
+    (lambda: t_k1.neutron_matmul(torch.zeros(4, 8), torch.zeros(9, 3)),
+     "do not match"),
+    (lambda: t_k1.neutron_matmul_plan(
+        torch.zeros(2, 3, 8, dtype=torch.int8),
+        torch.zeros(5, 8, dtype=torch.int8), None, torch.ones(5),
+        "relu", 0.1, 0, -128, 127,
+        torch.zeros(2, 3, 5, dtype=torch.int8)), "CUDA"),
+    (lambda: t_k1.neutron_matmul_plan(
+        torch.zeros(2, 3, 8, dtype=torch.int8),
+        torch.zeros(5, 7, dtype=torch.int8), None, torch.ones(5),
+        "relu", 0.1, 0, -128, 127,
+        torch.zeros(2, 3, 5, dtype=torch.int8)), r"w must be contiguous"),
+    (lambda: t_k1.neutron_matmul_plan(
+        torch.zeros(2, 3, 8, dtype=torch.int8),
+        torch.zeros(5, 8, dtype=torch.int8), None, torch.ones(5),
+        "relu", 0.1, 0, -128, 127,
+        torch.zeros(2, 4, 5, dtype=torch.int8)), r"out must be \(2, 3, 5\)"),
+    (lambda: t_ssd.ssd_chunk(torch.zeros(1, 40, 3, 16),
+                             torch.zeros(1, 40, 3), torch.zeros(3),
+                             torch.zeros(1, 40, 8), torch.zeros(1, 40, 8),
+                             16), "S=40 is not a multiple of chunk=16"),
+    (lambda: t_ssd.ssd_chunk(torch.zeros(1, 32, 3, 16),
+                             torch.zeros(1, 32, 3), torch.zeros(3),
+                             torch.zeros(1, 32, 200), torch.zeros(1, 32, 200),
+                             16), "N, P <= 128"),
+])
+def test_k1_k4_wrappers_refuse(call, match):
+    """K1's and K4's wrappers refuse what their kernels do not take, with
+    the reason, on the CPU, before any launch; no launch is counted."""
+    before = (t_k1.launches, t_ssd.launches)
+    with pytest.raises(ValueError, match=match):
+        call()
+    assert (t_k1.launches, t_ssd.launches) == before
