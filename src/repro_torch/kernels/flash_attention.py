@@ -12,24 +12,34 @@ f32 body.  Its plain PyTorch version is ``ref.flash_attention_ref``;
 ``ops.flash_attention`` chooses between the two by the device of the
 inputs.
 
-``launches`` counts the kernel launches of this process.
+``launches`` counts the kernel launches of this process, and
+``launches_by_shape`` the same launches by ``shape_key``.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from collections import Counter
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
 
 launches = 0
+launches_by_shape: Counter = Counter()
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p]
 MAX_HEAD_DIM = 256
+
+
+def shape_key(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              window: Optional[int]) -> Tuple:
+    """(B, H, S, D, Hkv, Sk, Dv, window): what ``launches_by_shape``
+    counts a launch under."""
+    return (*q.shape, k.shape[1], k.shape[2], v.shape[-1], window)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -89,4 +99,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 _build.stream_of(q))
     _build.check(rc, "flash_attention")
     launches += 1
+    launches_by_shape[shape_key(q, k, v, window)] += 1
     return out

@@ -11,12 +11,14 @@ Its plain PyTorch version is ``ref.flash_decode_ref``;
 ``ops.flash_decode`` chooses between the two by the device of the
 inputs.
 
-``launches`` counts the kernel launches of this process.
+``launches`` counts the kernel launches of this process, and
+``launches_by_shape`` the same launches by ``shape_key``.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from collections import Counter
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -24,6 +26,7 @@ import torch
 from . import _build
 
 launches = 0
+launches_by_shape: Counter = Counter()
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -34,6 +37,12 @@ MIN_SPLIT_KEYS = 64       # no key range of a split is shorter
 # Per (device index, stream handle): the f32 partials of the splits and
 # the int32 tickets, which the kernel leaves at 0.
 _scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def shape_key(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple:
+    """(B, H, D, Hkv, S, Dv): what ``launches_by_shape`` counts a launch
+    under."""
+    return (*q.shape, k.shape[1], k.shape[2], v.shape[-1])
 
 
 def num_splits(B: int, Hkv: int, S: int) -> int:
@@ -132,4 +141,5 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 _build.DTYPE_CODES[q.dtype], stream)
     _build.check(rc, "flash_decode")
     launches += 1
+    launches_by_shape[shape_key(q, k, v)] += 1
     return (out, lse) if return_lse else out

@@ -3,6 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch zamba2-2.7b --no-smoke --batch 4 --prompt-len 200
 
+Every arch that ``launch/serve.py`` serves runs here; ``--layers N``
+cuts the depth (deepseek-v3-671b at full width fits one card at 4).
+
 Replays a random prompt through ``decode_step`` (warm-up), times
 ``--steps`` further steps on the host clock around
 ``torch.cuda.synchronize()``, then runs as many steps again under
@@ -25,10 +28,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import resolve_device
-from repro_torch.launch.serve import synchronize
+from repro_torch.launch.serve import arch_config, synchronize
 from repro_torch.models import lm
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.registry import get_arch
 
 HBM_BYTES_S = 3.35e12          # H100 SXM device memory, published peak
 
@@ -102,13 +104,13 @@ def main():
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, which must exist)")
     args = ap.parse_args()
     device = resolve_device(args.device)
-    cfg = get_arch(args.arch)
-    if args.smoke:
-        cfg = cfg.reduced()
+    cfg = arch_config(args.arch, args.smoke, args.layers)
     model = lm.init_params(cfg, args.seed, device=device)
     print(json.dumps(profile_decode(cfg, model, args.batch, args.prompt_len,
                                     args.steps, seed=args.seed)))

@@ -8,14 +8,19 @@ Counterpart of ``repro/launch/serve.py``: random prompts from
 replaying the prompt through decode steps (one token for the whole batch
 against the decode caches: the KV cache through the flash-decode kernel,
 the SSM state through ``ssd_step``), then greedy decoding.  Every family
-of ``lm.check_supported`` is served: dense (minitron-4b), ssm
-(mamba2-370m) and hybrid (zamba2-2.7b).  ``--smoke`` (the default) serves the reduced config;
-``--no-smoke`` serves the full width.  Runs on CUDA unless ``--device``
-says otherwise.
+of ``lm.check_supported`` is served: dense (minitron-4b, granite-20b's
+MQA, nemotron-4-340b), gemma3's local/global layers with ring-buffer
+decode (gemma3-27b), MoE (granite-moe-1b-a400m), MLA with MoE
+(deepseek-v3-671b), ssm (mamba2-370m) and hybrid (zamba2-2.7b).
+``--smoke`` (the default) serves the reduced config; ``--no-smoke``
+serves the full width, and ``--layers N`` cuts the depth to N layers
+(deepseek-v3 at full depth does not fit one card).  Runs on CUDA unless
+``--device`` says otherwise.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -84,6 +89,17 @@ def generate(cfg: ArchConfig, model: lm.LM, prompts: np.ndarray, gen: int,
                       t_decode)
 
 
+def arch_config(arch: str, smoke: bool, layers: Optional[int] = None
+                ) -> ArchConfig:
+    """`arch`'s config, reduced with `smoke`, its depth cut to `layers`."""
+    cfg = get_arch(arch)
+    if smoke:
+        cfg = cfg.reduced()
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg
+
+
 @dataclass
 class Served:
     cfg: ArchConfig
@@ -94,11 +110,11 @@ class Served:
 
 def serve(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 16,
           smoke: bool = True, seed: int = 0, max_len: Optional[int] = None,
-          device=None) -> Served:
+          device=None, layers: Optional[int] = None) -> Served:
+    """Serve `arch` (reduced with `smoke`; its depth cut to `layers` when
+    given) on random prompts and weights from `seed`."""
     device = resolve_device(device)
-    cfg = get_arch(arch)
-    if smoke:
-        cfg = cfg.reduced()
+    cfg = arch_config(arch, smoke, layers)
     rng = np.random.default_rng(seed)
     prompts = rng.integers(0, cfg.vocab, size=(batch, prompt_len)
                            ).astype(np.int32)
@@ -121,12 +137,14 @@ def main():
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, which must exist)")
     args = ap.parse_args()
     serve(args.arch, batch=args.batch, prompt_len=args.prompt_len,
           gen=args.gen, smoke=args.smoke, seed=args.seed,
-          device=args.device)
+          device=args.device, layers=args.layers)
 
 
 if __name__ == "__main__":

@@ -120,20 +120,22 @@ def serve_vision(name: str, batch: int, res_scale: float = 1.0,
 
 def float_errors(served: VisionServed) -> Dict[str, tuple]:
     """Per model output: (max |decoded - float32 oracle|, the calibrated
-    ``float_tolerance``), over the served batch.  The oracle is the
-    port's float reference executor (numpy, host) on the float
-    weights."""
+    ``float_tolerance``, max |oracle|), over the served batch.  The oracle
+    is the port's float reference executor (numpy, host) on the float
+    weights; the error over max |oracle| is what says how close the band
+    is where random weights let the outputs grow large."""
     sem = served.plan.semantics
     out = {}
     for name, dec in served.outputs.items():
         dec = dec.float().cpu().numpy()
-        err = 0.0
+        err = scale = 0.0
         for b, img in enumerate(served.images):
             ref = reference_execute(
                 served.graph, {served.graph.inputs[0].name: img},
                 served.qm.weights_f)[name]
             err = max(err, float(np.max(np.abs(dec[b] - ref))))
-        out[name] = (err, sem.float_tolerance(name))
+            scale = max(scale, float(np.max(np.abs(ref))))
+        out[name] = (err, sem.float_tolerance(name), scale)
     return out
 
 
@@ -200,9 +202,9 @@ def main():
     served = serve_vision(args.name, args.batch, res_scale=args.res_scale,
                           weight_dtype=args.weight_dtype,
                           device=args.device, seed=args.seed)
-    for name, (err, tol) in float_errors(served).items():
+    for name, (err, tol, scale) in float_errors(served).items():
         print(f"output {name}: max|decoded - float oracle| {err:.4g} "
-              f"(calibrated tolerance {tol:.4g})")
+              f"(calibrated tolerance {tol:.4g}; max|oracle| {scale:.4g})")
     if args.profile:
         print(json.dumps(profile_replay(served)))
 

@@ -42,9 +42,9 @@ class ArchConfig:
     top_k: int = 0
     moe_d_ff: int = 0                 # per-expert hidden dim
     capacity_factor: float = 1.25
-    moe_dispatch: str = "sort"        # "sort" (O(T·k·d) scatter/gather)
-    #                                 # or "onehot" (Mesh-TF einsums,
-    #                                 # O(T·E·cap·d) — the §Perf baseline)
+    moe_dispatch: str = "sort"        # "sort" (O(T·k·d) scatter/gather),
+    #                                 # the only one ported: moe_dense
+    #                                 # raises for "onehot"
 
     # MLA (deepseek-v3)
     mla: bool = False

@@ -1,35 +1,38 @@
-"""Language-model stack of the port: dense, SSM and hybrid decoders.
+"""Language-model stack of the port: the decoder-only families.
 
-Counterpart of the dense (non-MoE), ``ssm`` (mamba2) and ``hybrid``
-(zamba2) branches of ``repro/models/lm.py``:
+Counterpart of the ``decoder`` (dense, MoE, MLA), ``grouped`` (gemma3),
+``ssm`` (mamba2) and ``hybrid`` (zamba2) backbones of
+``repro/models/lm.py``:
 
     init_params(cfg, seed, device)          -> LM module
     forward(cfg, model, batch)              -> logits (B, S, V)
     prefill(cfg, model, batch)              -> last-position logits (B, V)
-    init_cache(cfg, batch, max_len, device) -> {"kv": {"k", "v"}} (dense),
-        {"ssm": SSMState} (ssm), {"ssm": SSMState, "shared": {"k", "v"}}
-        (hybrid)
+    init_cache(cfg, batch, max_len, device) -> decode caches (see there)
     decode_step(cfg, model, cache, tok, pos) -> (logits (B, V), cache)
 
 The JAX package scans over layer-stacked parameters; here the layers are
 ``ModuleList``s walked by Python loops, run eagerly, and the caches are
-updated in place.  The other families raise ``NotImplementedError``
+updated in place.  deepseek-v3's multi-token-prediction block serves
+only the training loss and is not built.  The encoder-decoder (whisper)
+and the vision-language model (qwen2-vl) raise ``NotImplementedError``
 naming their ``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
 from types import SimpleNamespace
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch import resolve_device
-from .attention import Attention, attention, init_attention
+from .attention import (MLA, Attention, attention, decode_windowed,
+                        init_attention, init_mla, mla_attention)
 from .config import ArchConfig
 from .layers import (MLP, dense_init, dtype_of, embed, embed_init,
                      init_mlp, lm_logits, mlp, param, rms_norm)
+from .moe import MoE, init_moe, moe
 from .ssm import SSM, SSMState, init_ssm, init_ssm_state, ssm_block
 
 _TODO = "not ported yet (ROADMAP.md, 'Modules still to port', item {})"
@@ -37,14 +40,6 @@ _TODO = "not ported yet (ROADMAP.md, 'Modules still to port', item {})"
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise NotImplementedError for the families the port leaves out."""
-    if cfg.mla:
-        raise NotImplementedError(f"{cfg.name}: MLA is " + _TODO.format(2))
-    if cfg.local_global_ratio:
-        raise NotImplementedError(
-            f"{cfg.name}: gemma3's grouped local/global layers and "
-            "windowed decode are " + _TODO.format(2))
-    if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: MoE is " + _TODO.format(3))
     if cfg.enc_dec or cfg.family == "audio":
         raise NotImplementedError(
             f"{cfg.name}: the whisper encoder-decoder is " + _TODO.format(4))
@@ -52,7 +47,7 @@ def check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: qwen2-vl (M-RoPE, vision tokens) is "
             + _TODO.format(4))
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is "
                                   "not ported (ROADMAP.md)")
 
@@ -63,13 +58,31 @@ def check_supported(cfg: ArchConfig) -> None:
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: ArchConfig, dtype: torch.dtype, device):
+    """norm1, norm2 (d,); `attn` (GQA, or MLA when ``cfg.mla``) and either
+    `mlp` or, in an MoE layer, `moe`."""
+
+    def __init__(self, cfg: ArchConfig, dtype: torch.dtype, device,
+                 use_moe: bool = False):
         super().__init__()
         self.norm1 = param((cfg.d_model,), dtype, device)
         self.norm2 = param((cfg.d_model,), dtype, device)
-        self.attn = Attention(cfg, dtype, device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device,
-                       gated=cfg.gated_mlp)
+        self.attn = (MLA if cfg.mla else Attention)(cfg, dtype, device)
+        if use_moe:
+            self.moe = MoE(cfg, dtype, device)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device,
+                           gated=cfg.gated_mlp)
+
+
+class GemmaGroup(nn.Module):
+    """gemma3's group: `local_global_ratio` windowed layers, then one
+    layer of full attention (`global_`)."""
+
+    def __init__(self, cfg: ArchConfig, dtype: torch.dtype, device):
+        super().__init__()
+        self.local = nn.ModuleList(DecoderLayer(cfg, dtype, device)
+                                   for _ in range(cfg.local_global_ratio))
+        self.global_ = DecoderLayer(cfg, dtype, device)
 
 
 class SSMLayer(nn.Module):
@@ -110,11 +123,31 @@ def _hybrid_groups(cfg: ArchConfig) -> int:
     return cfg.n_layers // cfg.shared_attn_every
 
 
+def _moe_flags(cfg: ArchConfig) -> Tuple[int, int]:
+    """(dense prefix layers, MoE layers), as ``repro/models/lm.py``."""
+    if not cfg.n_experts:
+        return cfg.n_layers, 0
+    return cfg.moe_layer_start, cfg.n_layers - cfg.moe_layer_start
+
+
+def _grouped_dims(cfg: ArchConfig) -> Tuple[int, int, int]:
+    """gemma3: (groups, local layers a group, local layers of the tail)."""
+    R = cfg.local_global_ratio
+    G = cfg.n_layers // (R + 1)
+    return G, R, cfg.n_layers - G * (R + 1)
+
+
 class LM(nn.Module):
     """embed (V, d), final_norm (d,), lm_head (d, V) unless tied, and by
-    family: `layers` (dense: DecoderLayers; ssm: SSMLayers) or `groups`
-    (ZambaGroups) and the `shared` DecoderLayer (hybrid); parameters
-    uninitialised."""
+    family:
+      * decoder (dense, MoE, MLA): `dense_layers` (the dense prefix of an
+        MoE stack; empty otherwise), then `layers` (MoE layers when the
+        config has experts);
+      * grouped (gemma3): `groups` (GemmaGroups), then the windowed
+        `tail` layers;
+      * ssm: `layers` (SSMLayers);
+      * hybrid: `groups` (ZambaGroups) and the `shared` DecoderLayer.
+    Parameters uninitialised."""
 
     def __init__(self, cfg: ArchConfig, device):
         super().__init__()
@@ -125,15 +158,28 @@ class LM(nn.Module):
         self.final_norm = param((d,), dtype, device)
         self.lm_head = (None if cfg.tie_embeddings
                         else param((d, cfg.vocab), dtype, device))
+
+        def stack(n, *args):
+            return nn.ModuleList(DecoderLayer(cfg, dtype, device, *args)
+                                 for _ in range(n))
+
         if cfg.family == "hybrid":
             self.groups = nn.ModuleList(
                 ZambaGroup(cfg, dtype, device)
                 for _ in range(_hybrid_groups(cfg)))
             self.shared = DecoderLayer(cfg, dtype, device)
-        else:
-            layer = SSMLayer if cfg.family == "ssm" else DecoderLayer
-            self.layers = nn.ModuleList(layer(cfg, dtype, device)
+        elif cfg.family == "ssm":
+            self.layers = nn.ModuleList(SSMLayer(cfg, dtype, device)
                                         for _ in range(cfg.n_layers))
+        elif cfg.local_global_ratio:
+            G, _, tail = _grouped_dims(cfg)
+            self.groups = nn.ModuleList(GemmaGroup(cfg, dtype, device)
+                                        for _ in range(G))
+            self.tail = stack(tail)
+        else:
+            n_dense, n_moe = _moe_flags(cfg)
+            self.dense_layers = stack(n_dense if n_moe else 0)
+            self.layers = stack(n_moe or n_dense, bool(n_moe))
 
     @property
     def head(self) -> torch.Tensor:
@@ -157,13 +203,10 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> LM:
     model.final_norm.zero_()
     if model.lm_head is not None:
         dense_init(gen, model.lm_head)
-    if cfg.family == "dense":
-        for layer in model.layers:
-            _init_decoder_layer(gen, layer)
-    elif cfg.family == "ssm":
+    if cfg.family == "ssm":
         for layer in model.layers:
             _init_ssm_layer(gen, layer)
-    else:
+    elif cfg.family == "hybrid":
         for group in model.groups:
             for layer in group.ssm:
                 _init_ssm_layer(gen, layer)
@@ -172,14 +215,22 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> LM:
             dense_init(gen, group.lora.in_a)
             group.lora.in_b.zero_()
         _init_decoder_layer(gen, model.shared)
+    else:
+        for layer in model.modules():
+            if isinstance(layer, DecoderLayer):
+                _init_decoder_layer(gen, layer)
     return model
 
 
 def _init_decoder_layer(gen: torch.Generator, layer: DecoderLayer) -> None:
     layer.norm1.zero_()
     layer.norm2.zero_()
-    init_attention(gen, layer.attn)
-    init_mlp(gen, layer.mlp)
+    (init_mla if isinstance(layer.attn, MLA) else init_attention)(
+        gen, layer.attn)
+    if hasattr(layer, "moe"):
+        init_moe(gen, layer.moe)
+    else:
+        init_mlp(gen, layer.mlp)
 
 
 def _init_ssm_layer(gen: torch.Generator, layer: SSMLayer) -> None:
@@ -193,13 +244,37 @@ def _init_ssm_layer(gen: torch.Generator, layer: SSMLayer) -> None:
 
 
 def _decoder_layer(p: DecoderLayer, h: torch.Tensor, cfg: ArchConfig,
-                   positions: torch.Tensor, kv_cache=None, cache_pos=None):
+                   positions: torch.Tensor, window: Optional[int] = None,
+                   kv_cache=None, cache_pos=None):
+    """Pre-norm attention then pre-norm MLP or MoE.  `window` reaches the
+    GQA attention of the full mode (None: the arch default; 0: full)."""
     hn = rms_norm(p.norm1, h, cfg.norm_eps)
-    a, new_cache = attention(p.attn, hn, cfg, positions,
-                             kv_cache=kv_cache, cache_pos=cache_pos)
+    if isinstance(p.attn, MLA):
+        a, new_cache = mla_attention(p.attn, hn, cfg, positions,
+                                     kv_cache=kv_cache, cache_pos=cache_pos)
+    else:
+        a, new_cache = attention(p.attn, hn, cfg, positions, window=window,
+                                 kv_cache=kv_cache, cache_pos=cache_pos)
     h = h + a
-    hn = rms_norm(p.norm2, h, cfg.norm_eps)
-    return h + mlp(p.mlp, hn, act=cfg.act, gated=cfg.gated_mlp), new_cache
+    return h + _feed_forward(p, rms_norm(p.norm2, h, cfg.norm_eps),
+                             cfg), new_cache
+
+
+def _feed_forward(p: DecoderLayer, hn: torch.Tensor, cfg: ArchConfig
+                  ) -> torch.Tensor:
+    if hasattr(p, "moe"):
+        return moe(p.moe, hn, cfg)
+    return mlp(p.mlp, hn, act=cfg.act, gated=cfg.gated_mlp)
+
+
+def _local_decode(p: DecoderLayer, h: torch.Tensor, cfg: ArchConfig,
+                  kv_cache, pos: int) -> torch.Tensor:
+    """One decode step of a gemma3 local layer against its ring cache
+    (``local_body`` of ``repro/models/lm.py:_gemma_decode``)."""
+    a, _ = decode_windowed(p.attn, rms_norm(p.norm1, h, cfg.norm_eps), cfg,
+                           kv_cache, pos, cfg.sliding_window)
+    h = h + a
+    return h + _feed_forward(p, rms_norm(p.norm2, h, cfg.norm_eps), cfg)
 
 
 def _ssm_layer(p: SSMLayer, h: torch.Tensor, cfg: ArchConfig,
@@ -245,8 +320,16 @@ def forward_hidden(cfg: ArchConfig, model: LM, batch: Dict
     elif cfg.family == "ssm":
         for layer in model.layers:
             h, _ = _ssm_layer(layer, h, cfg)
+    elif cfg.local_global_ratio:
+        W = cfg.sliding_window
+        for group in model.groups:
+            for layer in group.local:
+                h, _ = _decoder_layer(layer, h, cfg, positions, window=W)
+            h, _ = _decoder_layer(group.global_, h, cfg, positions, window=0)
+        for layer in model.tail:
+            h, _ = _decoder_layer(layer, h, cfg, positions, window=W)
     else:
-        for layer in model.layers:
+        for layer in (*model.dense_layers, *model.layers):
             h, _ = _decoder_layer(layer, h, cfg, positions)
     return rms_norm(model.final_norm, h, cfg.norm_eps)
 
@@ -269,18 +352,27 @@ def prefill(cfg: ArchConfig, model: LM, batch: Dict) -> torch.Tensor:
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None
                ) -> Dict:
-    """Zero decode caches in the model dtype.  dense: {"kv": {"k", "v"}},
-    each (L, B, Hkv, max_len, hd); ssm: {"ssm": SSMState} stacked over
-    (L,); hybrid: {"ssm": SSMState} stacked over (G, R) and the shared
-    block's {"shared": {"k", "v"}}, each (G, B, Hkv, max_len, hd)."""
+    """Zero decode caches in the model dtype, laid out as the JAX
+    package's (a kv pair is {"k", "v"}, each (n, B, Hkv, S, hd)):
+      * dense: {"kv"} over (L,); with an MoE stack, {"kv"} over its MoE
+        layers and {"kv_dense"} over its dense prefix;
+      * MLA: {"latent"} (n, B, max_len, kv_lora_rank + d_rope), and
+        {"latent_dense"} likewise;
+      * gemma3: {"local"} over (G, R) and {"tail"} over (tail,), rings of
+        min(window, max_len) positions, and {"global"} over (G,);
+      * ssm: {"ssm": SSMState} stacked over (L,);
+      * hybrid: {"ssm": SSMState} stacked over (G, R) and the shared
+        block's {"shared"} over (G,)."""
     check_supported(cfg)
     device = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
 
-    def kv(n):
-        shape = (n, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def kv(lead, S):
+        shape = (*lead, batch, cfg.n_kv_heads, S, cfg.head_dim)
+        return {"k": zeros(*shape), "v": zeros(*shape)}
 
     if cfg.family == "ssm":
         return {"ssm": init_ssm_state(cfg, batch, dtype, device,
@@ -289,8 +381,25 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None
         G = _hybrid_groups(cfg)
         return {"ssm": init_ssm_state(cfg, batch, dtype, device,
                                       lead=(G, cfg.shared_attn_every)),
-                "shared": kv(G)}
-    return {"kv": kv(cfg.n_layers)}
+                "shared": kv((G,), max_len)}
+    if cfg.local_global_ratio:
+        G, R, tail = _grouped_dims(cfg)
+        W = min(cfg.sliding_window, max_len)
+        c = {"local": kv((G, R), W), "global": kv((G,), max_len)}
+        if tail:
+            c["tail"] = kv((tail,), W)
+        return c
+    n_dense, n_moe = _moe_flags(cfg)
+    if cfg.mla:
+        width = cfg.kv_lora_rank + cfg.d_rope
+        c = {"latent": zeros(n_moe or n_dense, batch, max_len, width)}
+        if n_dense and n_moe:
+            c["latent_dense"] = zeros(n_dense, batch, max_len, width)
+        return c
+    c = {"kv": kv((n_moe or n_dense,), max_len)}
+    if n_dense and n_moe:
+        c["kv_dense"] = kv((n_dense,), max_len)
+    return c
 
 
 def _ssm_decode(p: SSMLayer, h: torch.Tensor, cfg: ArchConfig,
@@ -301,6 +410,17 @@ def _ssm_decode(p: SSMLayer, h: torch.Tensor, cfg: ArchConfig,
     st.conv.copy_(new.conv)
     st.ssd.copy_(new.ssd)
     return h
+
+
+def _decoder_caches(cfg: ArchConfig, cache: Dict):
+    """Each decoder layer's cache, the dense prefix first: an MLA latent
+    (B, max_len, width) or a (k, v) pair of (B, Hkv, max_len, hd)."""
+    if cfg.mla:
+        stacks = [cache.get("latent_dense", ()), cache["latent"]]
+        return [lat for stack in stacks for lat in stack]
+    stacks = [cache["kv_dense"]] if "kv_dense" in cache else []
+    return [kv for st in stacks + [cache["kv"]]
+            for kv in zip(st["k"], st["v"])]
 
 
 def decode_step(cfg: ArchConfig, model: LM, cache: Dict, token, pos: int):
@@ -325,10 +445,21 @@ def decode_step(cfg: ArchConfig, model: LM, cache: Dict, token, pos: int):
         st = cache["ssm"]
         for i, layer in enumerate(model.layers):
             h = _ssm_decode(layer, h, cfg, SSMState(st.conv[i], st.ssd[i]))
+    elif cfg.local_global_ratio:
+        lk, lv = cache["local"]["k"], cache["local"]["v"]
+        gk, gv = cache["global"]["k"], cache["global"]["v"]
+        for g, group in enumerate(model.groups):
+            for r, layer in enumerate(group.local):
+                h = _local_decode(layer, h, cfg, (lk[g, r], lv[g, r]), pos)
+            h, _ = _decoder_layer(group.global_, h, cfg, positions,
+                                  kv_cache=(gk[g], gv[g]), cache_pos=pos)
+        for i, layer in enumerate(model.tail):
+            h = _local_decode(layer, h, cfg, (cache["tail"]["k"][i],
+                                              cache["tail"]["v"][i]), pos)
     else:
-        ks, vs = cache["kv"]["k"], cache["kv"]["v"]
-        for i, layer in enumerate(model.layers):
+        for layer, layer_cache in zip((*model.dense_layers, *model.layers),
+                                      _decoder_caches(cfg, cache)):
             h, _ = _decoder_layer(layer, h, cfg, positions,
-                                  kv_cache=(ks[i], vs[i]), cache_pos=pos)
+                                  kv_cache=layer_cache, cache_pos=pos)
     h = rms_norm(model.final_norm, h, cfg.norm_eps)
     return lm_logits(model.head, h)[:, 0], cache

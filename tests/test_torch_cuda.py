@@ -60,6 +60,18 @@ def _randn(gen, shape, dtype, dev):
     (1, 4, 2, 77, 16, 16, True, 7, torch.bfloat16),
     (1, 2, 1, 130, 256, 256, True, None, torch.bfloat16),
     (1, 2, 2, 100, 256, 256, False, None, torch.bfloat16),
+    # the paths of the zoo: MLA's D = 192 with Dv = 128 (the 192 body,
+    # 32-key tiles, V zero-filled past 128), a window of 1024 at S > 1024,
+    # MQA's group of 48, granite-moe's head dim 64
+    (4, 128, 128, 100, 192, 128, True, None, torch.bfloat16),  # deepseek
+    (2, 8, 8, 130, 192, 128, True, None, torch.bfloat16),
+    (2, 8, 4, 65, 192, 128, False, None, torch.bfloat16),
+    (1, 4, 2, 1040, 128, 128, True, 1024, torch.bfloat16),     # gemma3
+    (1, 4, 2, 2100, 128, 128, True, 1024, torch.bfloat16),
+    (1, 4, 2, 1040, 128, 128, True, 1024, torch.float32),
+    (1, 2, 1, 2100, 128, 128, True, 1024, torch.float32),
+    (4, 48, 1, 100, 128, 128, True, None, torch.bfloat16),     # granite-20b
+    (4, 16, 8, 100, 64, 64, True, None, torch.bfloat16),       # granite-moe
 ])
 def test_flash_attention_kernel_matches_plain(dev, B, H, Hkv, S, D, Dv,
                                               causal, window, dtype):
@@ -68,11 +80,14 @@ def test_flash_attention_kernel_matches_plain(dev, B, H, Hkv, S, D, Dv,
     k = _randn(gen, (B, Hkv, S, D), dtype, dev)
     v = _randn(gen, (B, Hkv, S, Dv), dtype, dev)
     n0 = t_fa.launches
+    key = t_fa.shape_key(q, k, v, window)
+    s0 = t_fa.launches_by_shape[key]
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
     want = ops.flash_attention(q, k, v, causal=causal, window=window,
                                impl="ref")
     torch.cuda.synchronize()
     assert t_fa.launches == n0 + 1
+    assert t_fa.launches_by_shape[key] == s0 + 1
     assert got.shape == (B, H, S, Dv) and got.dtype == dtype
     atol, rtol = TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
@@ -97,6 +112,13 @@ def test_flash_attention_kernel_matches_plain(dev, B, H, Hkv, S, D, Dv,
     (2, 4, 2, 64, 24, 16, (40, 9)),
     (2, 4, 2, 70, 12, 20, (70, 33)),
     (2, 8, 1, 513, 256, 256, (513, 257)),              # group 8: 2 blocks
+    (4, 48, 1, 116, 128, 128, (116, 116, 116, 116)),   # granite-20b: MQA
+    (4, 48, 1, 116, 128, 128, (1, 50, 100, 116)),
+    (4, 128, 128, 108, 192, 128, (108, 108, 108, 108)),  # deepseek MLA
+    (4, 128, 128, 108, 192, 128, (1, 40, 64, 108)),
+    (4, 32, 16, 1024, 128, 128, (1024, 1024, 1024, 1024)),  # gemma3 ring
+    (4, 32, 16, 1048, 128, 128, (1048, 1048, 1048, 1048)),  # its global
+    (4, 16, 8, 116, 64, 64, (116, 116, 116, 116)),     # granite-moe
 ])
 def test_flash_decode_kernel_matches_plain(dev, B, H, Hkv, S, D, Dv, lens,
                                            dtype):
@@ -108,11 +130,14 @@ def test_flash_decode_kernel_matches_plain(dev, B, H, Hkv, S, D, Dv, lens,
     v = _randn(gen, (B, Hkv, S, Dv), dtype, dev)
     kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
     n0 = t_fd.launches
+    key = t_fd.shape_key(q, k, v)
+    s0 = t_fd.launches_by_shape[key]
     got, lse = ops.flash_decode(q, k, v, kv_len=kv_len, return_lse=True)
     want, want_lse = ops.flash_decode(q, k, v, kv_len=kv_len,
                                       return_lse=True, impl="ref")
     torch.cuda.synchronize()
     assert t_fd.launches == n0 + 1
+    assert t_fd.launches_by_shape[key] == s0 + 1
     atol, rtol = TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
@@ -149,6 +174,99 @@ def test_flash_decode_kernel_empty_cache(dev, B, H, Hkv, S, dtype):
                                atol=atol, rtol=rtol)
     torch.testing.assert_close(lse[~empty], want_lse[~empty], atol=2e-3,
                                rtol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_decode_on_a_ring_cache_after_the_wrap(dev, dtype):
+    """gemma3's local layers: positions 0..1039 written into a ring of
+    1024 slots at p % 1024 (kv_len 1024 after the wrap) give what the
+    last 1024 positions in order give, on the kernel and the plain
+    version."""
+    gen = torch.Generator(device=dev).manual_seed(1040)
+    B, H, Hkv, D, W, P = 4, 32, 16, 128, 1024, 1040
+    q = _randn(gen, (B, H, D), dtype, dev)
+    k = _randn(gen, (B, Hkv, P, D), dtype, dev)
+    v = _randn(gen, (B, Hkv, P, D), dtype, dev)
+    slots = torch.arange(P, device=dev) % W
+    ring_k = torch.zeros((B, Hkv, W, D), dtype=dtype, device=dev)
+    ring_v = torch.zeros_like(ring_k)
+    ring_k[:, :, slots[P - W:]] = k[:, :, P - W:]
+    ring_v[:, :, slots[P - W:]] = v[:, :, P - W:]
+    assert torch.equal(ring_k[:, :, :P - W], k[:, :, W:])   # wrapped
+    kv_len = torch.full((B,), W, dtype=torch.int32, device=dev)
+    got = ops.flash_decode(q, ring_k, ring_v, kv_len=kv_len)
+    want = ops.flash_decode(q, k[:, :, P - W:].contiguous(),
+                            v[:, :, P - W:].contiguous(), kv_len=kv_len,
+                            impl="ref")
+    plain = ops.flash_decode(q, ring_k, ring_v, kv_len=kv_len, impl="ref")
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(plain.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+# k = 0 gives every key a query sees the weight 1/n, so a marker in v
+# decides the output: a causal, window or kv_len bound one key off moves
+# an output at a marker's edge by about 1 (far above the bf16 tolerance),
+# where on random v it moves it by about 1e-3 at these lengths.
+@pytest.mark.parametrize("B,H,Hkv,S,D,Dv,window", [
+    (4, 32, 16, 1040, 128, 128, 1024),      # gemma3 local
+    (2, 32, 16, 2100, 128, 128, 1024),      # the window hides half the keys
+    (4, 32, 16, 1040, 128, 128, None),      # gemma3 global
+    (4, 128, 128, 100, 192, 128, None),     # deepseek MLA
+])
+def test_flash_attention_boundary_probe(dev, B, H, Hkv, S, D, Dv, window):
+    gen = torch.Generator(device=dev).manual_seed(S)
+    q = _randn(gen, (B, H, S, D), torch.bfloat16, dev)
+    k = torch.zeros((B, Hkv, S, D), dtype=torch.bfloat16, device=dev)
+    v = torch.zeros((B, Hkv, S, Dv), dtype=torch.bfloat16, device=dev)
+    v[:, :, ::256] = window or S
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    want = ops.flash_attention(q, k, v, causal=True, window=window,
+                               impl="ref")
+    if window:
+        # a query that sees its whole window gets its markers' count
+        t = torch.arange(window - 1, S, device=dev)
+        count = (t // 256 - (t - window) // 256).float()
+        torch.testing.assert_close(
+            got[:, :, window - 1:].float(),
+            count[None, None, :, None].expand(B, H, -1, Dv), atol=0,
+            rtol=0)
+    atol, rtol = TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,Dv", [
+    (4, 32, 16, 1024, 128, 128),            # gemma3 ring after the wrap
+    (4, 48, 1, 116, 128, 128),              # granite-20b: MQA
+    (4, 128, 128, 108, 192, 128),           # deepseek MLA
+])
+def test_flash_decode_kv_len_probe(dev, B, H, Hkv, S, D, Dv):
+    """v = 1024 at each lane's last valid key and -2048 at the one after:
+    every output is 1024 / kv_len."""
+    gen = torch.Generator(device=dev).manual_seed(S)
+    q = _randn(gen, (B, H, D), torch.bfloat16, dev)
+    k = torch.zeros((B, Hkv, S, D), dtype=torch.bfloat16, device=dev)
+    v = torch.zeros((B, Hkv, S, Dv), dtype=torch.bfloat16, device=dev)
+    lens = [S, S - 1, S // 2 + 1, 1][:B]
+    for b, n in enumerate(lens):
+        v[b, :, n - 1] = 1024
+        if n < S:
+            v[b, :, n] = -2048
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = ops.flash_decode(q, k, v, kv_len=kv_len)
+    want = torch.tensor([1024 / n for n in lens], device=dev)
+    atol, rtol = TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(),
+                               want[:, None, None].expand(B, H, Dv),
+                               atol=atol, rtol=rtol)
+    torch.testing.assert_close(
+        got.float(), ops.flash_decode(q, k, v, kv_len=kv_len,
+                                      impl="ref").float(),
+        atol=atol, rtol=rtol)
 
 
 def _ssd_inputs(gen, dev, B, S, H, P, N, dtype):

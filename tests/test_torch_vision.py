@@ -424,8 +424,9 @@ def test_serve_vision_on_cpu_agrees_with_float_oracle():
     assert served.stored[out].shape == (3, 1, 1, 1000)
     assert served.stored[out].dtype == torch.int8
     assert served.k1_launches == 0          # plain version on the CPU
-    for name, (err, tol) in float_errors(served).items():
+    for name, (err, tol, scale) in float_errors(served).items():
         assert err <= tol, (name, err, tol)
+        assert scale > 0, name
 
 
 def test_profile_replay_on_cpu_measures_no_device_time():
