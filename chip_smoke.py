@@ -46,7 +46,16 @@ each of which ends the run with a nonzero exit and no result on failure:
 10. gemma3-27b at full width and depth (10 groups of 5 local layers,
    window 1024, and a global one, then 2 local layers), with a prompt of
    1040, so that K2 runs its window at S > 1024 and the local layers'
-   rings wrap in the decode replay.
+   rings wrap in the decode replay;
+11. mobilenet_v2 and resnet50_v1 at 224 through the product path,
+   ``repro_torch.api.compile(name, precision="int8")``: PTQ and the NPU
+   compile on the host (ticks, DDR bytes, modeled latency and the
+   report printed), the compiled model's plan replayed on the card with
+   stored ints equal to phase 6's for the same images and K1 launched 36
+   / 54 times a replay, its warm replay time beside phase 6's,
+   ``verify()`` (the host interpreter against the card plan) and a
+   save -> mmap load -> replay round trip with equal ints and no plan
+   constant recomputed.
 
 For the two SSM paths the prefill-vs-replay agreement is held in
 float32 at full width (TF32 off) and reported in bf16, beside how far
@@ -227,6 +236,9 @@ class VisionPath(NamedTuple):
 MOBILENET = VisionPath("mobilenet_v2", 36, (1, 5))
 RESNET = VisionPath("resnet50_v1", 54, (1,))
 VISION_BATCH = 8
+# phase 11 times CompiledModel.__call__ and the bare plan in this many
+# pairs of warm replays, in turns
+COMPILED_PAIRS = 7
 
 
 class K1Shape(NamedTuple):
@@ -1131,7 +1143,151 @@ def phase_vision(torch, rows, path):
           f"({bands}); K1 {served.k1_launches} per replay; replay "
           f"{served.replay_ms:.3f} ms at batch 8 ({served.images_s:.1f} "
           f"images/s), {replay1_ms:.3f} ms at batch 1")
+    # what phase 11 holds the compiled model to: the same images, the
+    # stored ints of the first replay and the warm replay time
+    ref = dict(images=served.images,
+               stored={k: v.cpu() for k, v in served.stored.items()},
+               replay_ms=served.replay_ms)
     del served, plan, cpu_plan
+    torch.cuda.empty_cache()
+    return out, ref
+
+
+# --------------------------------------------------------------------------
+# phase 11: the compiled model on the card
+# --------------------------------------------------------------------------
+
+
+def phase_compiled(torch, path, ref) -> dict:
+    """``repro_torch.api.compile`` (PTQ and the CP compile on the host,
+    default options), the compiled model's int8 plan replayed on the card
+    against phase 6's stored ints for the same images, ``verify()`` (the
+    host interpreter against the card plan) and the save -> mmap load ->
+    replay round trip."""
+    import tempfile
+    import threading
+
+    from repro_torch import api
+    from repro_torch.core.executor import ExecutionError
+
+    # solve_many forks its pool only while the process has one Python
+    # thread; CUDA's and torch's threads are native, so they do not count
+    threads = threading.active_count()
+    t0 = time.monotonic()
+    model = api.compile(path.name, precision="int8", seed=SEED)
+    compile_wall_s = time.monotonic() - t0
+    if model.device.type != "cuda":
+        fail(f"{path.name}: the compiled model replays on {model.device}")
+    st = model.program.stats()
+    print(f"  api.compile: {compile_wall_s:.2f} s wall (build, PTQ and "
+          f"compile; compile_graph {model.compile_s:.2f} s, Python threads "
+          f"{threads}); {st['ticks']} ticks, {model.program.ddr_bytes()} "
+          f"DDR bytes, {st['latency_ms']:.3f} ms modeled")
+    for line in model.report().splitlines():
+        print(f"  | {line}")
+
+    images = ref["images"]
+    inp = model.graph.inputs[0].name
+    feed = {inp: images}
+    n = len(images)
+    t0 = time.monotonic()
+    plan = model.plan_for(n)
+    torch.cuda.synchronize()
+    lower_s = time.monotonic() - t0
+    # warm replays in turns: CompiledModel.__call__ and the bare plan it
+    # runs (phase 6's call), so that what the API adds is told apart from
+    # the drift of the host between phases
+    reset_launches()
+    stored = plan.run(feed, n=n, decode=False)
+    times = {"call": [], "plan": []}
+    for i in range(2 * COMPILED_PAIRS):
+        which = ("call", "plan")[(i + i // 2) % 2]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        if which == "call":
+            outputs = model(images)
+        else:
+            plan.run(feed, n=n)
+        torch.cuda.synchronize()
+        times[which].append((time.monotonic() - t0) * 1e3)
+    launches = read_launches()
+    replays = 1 + 2 * COMPILED_PAIRS
+    replay_ms = statistics.median(times["call"])
+    plan_ms = statistics.median(times["plan"])
+    spread = {k: [round(q, 3) for q in statistics.quantiles(v, n=4)]
+              for k, v in times.items()}
+    want = (0, 0, 0, replays * path.k1_per_replay)
+    if launches != want:
+        fail(f"{path.name}: the compiled model launched {LAUNCH_NAMES} = "
+             f"{launches} over {replays} replays, expected {want}")
+    for name, w in ref["stored"].items():
+        if not torch.equal(stored[name].cpu(), w):
+            d = (stored[name].cpu().int() - w.int()).abs()
+            fail(f"{path.name}: the compiled model's stored ints of {name} "
+                 f"differ from phase 6's at {int((d > 0).sum())} of "
+                 f"{d.numel()}, by up to {int(d.max())}")
+    for name, out in outputs.items():
+        if out.device.type != "cuda" or \
+                tuple(out.shape) != (n,) + model.graph.tensors[name].shape \
+                or not torch.isfinite(out).all():
+            fail(f"{path.name}: output {name} {tuple(out.shape)} on "
+                 f"{out.device} not finite or of the wrong shape")
+
+    t0 = time.monotonic()
+    try:
+        rep = model.verify(images[0])
+    except ExecutionError as e:
+        fail(f"{path.name}: verify() failed: {e}")
+    verify_s = time.monotonic() - t0
+
+    with tempfile.TemporaryDirectory() as d:
+        p = f"{d}/{path.name}.rpa"
+        t0 = time.monotonic()
+        model.save(p)
+        save_s = time.monotonic() - t0
+        rpa_bytes = Path(p).stat().st_size
+        t0 = time.monotonic()
+        loaded = api.load(p, mmap=True, device="cuda")
+        load_s = time.monotonic() - t0
+        reset_launches()
+        t0 = time.monotonic()
+        again = loaded.plan_for(n).run(feed, n=n, decode=False)
+        torch.cuda.synchronize()
+        loaded_first_s = time.monotonic() - t0
+        loaded_launches = read_launches()[3]
+        info = loaded.plan_cache_info()
+        for name, w in ref["stored"].items():
+            if not torch.equal(again[name].cpu(), w):
+                fail(f"{path.name}: the loaded model's stored ints of "
+                     f"{name} differ from phase 6's")
+        if info["consts_computed"] != 0 or not info["consts_served"]:
+            fail(f"{path.name}: the loaded model recomputed "
+                 f"{info['consts_computed']} plan constants")
+        if loaded_launches != path.k1_per_replay:
+            fail(f"{path.name}: the loaded model launched K1 "
+                 f"{loaded_launches} times in a replay, expected "
+                 f"{path.k1_per_replay}")
+        del loaded, again
+    out = dict(compile_wall_s=compile_wall_s, compile_s=model.compile_s,
+               python_threads=threads, ticks=st["ticks"],
+               ddr_bytes=model.program.ddr_bytes(),
+               modeled_latency_ms=st["latency_ms"], lower_s=lower_s,
+               k1_per_replay=launches[3] // replays,
+               replay_ms_batch8=replay_ms, plan_run_ms_batch8=plan_ms,
+               replay_quartiles_ms=spread,
+               phase6_replay_ms_batch8=ref["replay_ms"],
+               verify_s=verify_s, verify_max_err=rep.max_err,
+               save_s=save_s, rpa_bytes=rpa_bytes, load_mmap_s=load_s,
+               loaded_first_replay_s=loaded_first_s,
+               loaded_consts_served=info["consts_served"])
+    print(f"  stored ints equal phase 6's (batch {n}); K1 "
+          f"{launches[3] // replays} per replay; warm replay {replay_ms:.3f}"
+          f" ms through __call__, {plan_ms:.3f} ms through the bare plan in "
+          f"turns (phase 6: {ref['replay_ms']:.3f} ms); verify() "
+          f"{verify_s:.2f} s;"
+          f" save {save_s:.2f} s ({rpa_bytes} B), mmap load {load_s:.2f} s, "
+          f"loaded replay equal with 0 constants recomputed")
+    del model, plan, stored, outputs
     torch.cuda.empty_cache()
     return out
 
@@ -1183,17 +1339,27 @@ def main() -> None:
     paths = {}
     for n, path in ((3, MINITRON), (4, ZAMBA), (5, MAMBA)):
         paths[path.arch] = phase_lm(torch, rows, n, path)
+    vision_ref = {}
     for path in (MOBILENET, RESNET):
         print(f"== phase 6: {path.name} int8 plan at 224, batch "
               f"{VISION_BATCH}")
         t = time.monotonic()
-        paths[path.name] = phase_vision(torch, rows, path)
+        paths[path.name], vision_ref[path.name] = phase_vision(torch, rows,
+                                                               path)
         print(f"  {path.name}: {json.dumps(paths[path.name])}")
         print(f"  phase 6 ({path.name}) wall time "
               f"{time.monotonic() - t:.1f} s")
     for n, path in ((7, GRANITE), (8, GRANITE_MOE), (9, DEEPSEEK),
                     (10, GEMMA)):
         paths[path.arch] = phase_lm(torch, rows, n, path)
+    for path in (MOBILENET, RESNET):
+        print(f"== phase 11: {path.name} through repro_torch.api.compile at "
+              f"224, int8, batch {VISION_BATCH}")
+        t = time.monotonic()
+        out = phase_compiled(torch, path, vision_ref.pop(path.name))
+        print(f"  {path.name} compiled: {json.dumps(out)}")
+        print(f"  phase 11 ({path.name}) wall time "
+              f"{time.monotonic() - t:.1f} s")
 
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",

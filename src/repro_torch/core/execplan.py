@@ -17,9 +17,11 @@ An arena view is not contiguous across the batch (its row pitch is the
 arena's ``total`` bytes): the kernels read it in place and write their
 output slot in place, with that pitch as their batch stride.
 
-The float32 lowering and the reporting of the compiled program
-(``ticks``, ``ddr_bytes_per_request``) need the compiler, which the port
-does not have yet (``ROADMAP.md`` items 6 and 7).
+A plan lowered from a compiled model (``repro_torch.api``) reports its
+program's modeled ``ticks`` and ``ddr_bytes_per_request``; the int8
+lowering itself reads neither the program nor the tiling, so a bare
+quantized graph lowers too (``program=None``).  The float32 lowering is
+``ROADMAP.md`` item 7.
 """
 from __future__ import annotations
 
@@ -157,8 +159,8 @@ class ExecPlan:
         self.capacity = int(capacity)
         self.granularity = granularity
         self.device = resolve_device(device)
-        # modeled per-request figures of the compiled program; None until
-        # the compiler is ported (ROADMAP.md item 6)
+        #: modeled per-request figures of the compiled program (None for
+        #: a plan lowered from a bare graph, with no program)
         self.ddr_bytes_per_request = (program.ddr_bytes()
                                       if program is not None else None)
         self.ticks = len(program.ticks) if program is not None else None

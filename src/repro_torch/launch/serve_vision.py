@@ -3,20 +3,22 @@
     PYTHONPATH=src python -m repro_torch.launch.serve_vision \
         --name mobilenet_v2 --batch 8
 
-Counterpart of ``api.compile(name, precision="int8")`` followed by
-``CompiledModel.__call__`` on the plan engine (and of
-``examples/serve_vision.py``): build one model of the vision suite
-(``frontends/vision.py``, weights drawn from the seed), calibrate it on
-synthetic inputs and quantize it on the host (int8 per-tensor
-activations, per-channel int8 or int4 weights), lower the plan onto the
-device, and replay a batch of images drawn from the seed.  Every conv and
-fc runs on the hand-written K1 kernel.  Runs on CUDA unless ``--device``
-says otherwise; without a GPU and without ``--device`` it raises.
-``--profile`` then prints one JSON line: wall and device-busy ms per warm
-replay, the device's idle share, K1's device ms and the top kernels.
+Build one model of the vision suite (``frontends/vision.py``, weights
+drawn from the seed), calibrate it on synthetic inputs and quantize it
+on the host (int8 per-tensor activations, per-channel int8 or int4
+weights), lower the plan onto the device, and replay a batch of images
+drawn from the seed.  Every conv and fc runs on the hand-written K1
+kernel.  Runs on CUDA unless ``--device`` says otherwise; without a GPU
+and without ``--device`` it raises.  ``--profile`` then prints one JSON
+line: wall and device-busy ms per warm replay, the device's idle share,
+K1's device ms and the top kernels.
 
-The compiler (tiling, schedule, ``NPUProgram``) is not ported yet
-(``ROADMAP.md`` item 6): the int8 lowering reads none of it.
+This is the plan replay alone, without the compiler: the int8 lowering
+reads no program.  The product path, ``repro_torch.api.compile(name,
+precision="int8")`` followed by ``CompiledModel.__call__``, runs the
+same PTQ and the same plan after compiling the program for the modeled
+NPU, and adds its artifact (``save``/``load``) and the host interpreter
+(``verify``).
 """
 from __future__ import annotations
 

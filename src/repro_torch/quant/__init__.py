@@ -1,17 +1,19 @@
-"""Integer quantization of the port: int8/int4 PTQ and the plan replay
-on the device.
+"""Integer quantization of the port: int8/int4 PTQ, the plan replay on
+the device and the interpretive replay on the host.
 
 Counterpart of ``repro/quant``.  Calibration and the PTQ pass stay on the
-host in numpy (copies of ``observers``, ``qparams``, ``ptq``); the plan
-replay (``execplan``, driven by ``executor.QuantSemantics``) runs on the
-device, with every conv and fc on the hand-written K1 kernel.
+host in numpy (copies of ``observers``, ``qparams``, ``ptq``);
+``executor.QuantSemantics`` drives both the plan replay (``execplan``),
+on the device with every conv and fc on the hand-written K1 kernel, and
+the interpretive replay of the compiled program on the host
+(``repro_torch.core.executor``).  ``repro_torch.api.compile(name,
+precision="int8")`` runs the whole flow:
 
     g, b = vision.build("mobilenet_v2")
     calib = quant.calibrate(g, b._weights, samples)      # observe ranges
     qm = quant.quantize_graph(g, b._weights, calib)      # annotate IR
-    plan = lower_plan(None, qm.graph, None, qm.weights_f,
-                      quant.QuantSemantics(qm), capacity=8)
-    plan.run({"input": images}, n=8)
+    model = api.compile(qm)                               # compile
+    model(images)                                         # plan replay
 
 ``convert.quantized_from_numpy`` carries a quantized model of the JAX
 package across (qparams and integer weights as numpy arrays).

@@ -67,7 +67,11 @@ def _conv_consts(qm: QuantizedModel, op, dw: bool, fh: int, fw: int,
                  zp: int, in_qp) -> Dict[str, np.ndarray]:
     """Derived conv/dwconv constants (the reference's closure of the same
     name): kernel (fh*fw, C) for dwconv or (K, N) for conv, the
-    zero-point-folded bias and the fused rescale vector."""
+    zero-point-folded bias and the fused rescale vector.  Stored as the
+    reference stores them: float32 where every partial sum of the dot
+    stays below 2^24, else float64 (both hold the same integers), so
+    that an artifact holds the same constant bytes whichever package
+    saved it."""
     w_q = qm.qweights[op.inputs[1]]
     if dw:
         kerf = np.ascontiguousarray(
@@ -80,9 +84,13 @@ def _conv_consts(qm: QuantizedModel, op, dw: bool, fh: int, fw: int,
     biasf = qm.qweights[op.inputs[2]].astype(np.float64) \
         if len(op.inputs) > 2 else np.float64(0.0)
     biasf = biasf - zp * wsum
+    max_bias = float(np.max(np.abs(np.atleast_1d(biasf))))
+    fdt = np.float32 if kerf.shape[0] * 255 * 127 + max_bias < 2.0 ** 24 \
+        else np.float64
     s_x = float(np.atleast_1d(in_qp.scale)[0])
     s_w = np.atleast_1d(qm.qp(op.inputs[1]).scale).astype(np.float32)
-    return {"kerf": kerf, "biasf": np.asarray(biasf), "sc": s_x * s_w}
+    return {"kerf": kerf.astype(fdt), "biasf": np.asarray(biasf, dtype=fdt),
+            "sc": s_x * s_w}
 
 
 def _int32(a: np.ndarray, label: str, what: str) -> np.ndarray:
