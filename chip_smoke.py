@@ -19,7 +19,8 @@ each of which ends the run with a nonzero exit and no result on failure:
    contract: f32, bf16, int8 requant, per-channel scale), timed beside its
    plain version, one PyTorch library call for the same function where
    there is one (for K1 `torch._int_mm`, on zero-padded copies where its
-   shape rules refuse the shape), and its bound.  `ms` and
+   shape rules refuse the shape; for K1's float32 rows, at the float32
+   plan's shapes, `torch.matmul` with TF32 off), and its bound.  `ms` and
    `library_ms` are device time: the CUDA kernels one call launches,
    from torch.profiler; `call_ms` (and `library_call_ms`, `plain_ms`)
    the host-plus-device time of one call between CUDA events;
@@ -55,7 +56,22 @@ each of which ends the run with a nonzero exit and no result on failure:
    / 54 times a replay, its warm replay time beside phase 6's,
    ``verify()`` (the host interpreter against the card plan) and a
    save -> mmap load -> replay round trip with equal ints and no plan
-   constant recomputed.
+   constant recomputed;
+12. ``repro_torch.api.Session`` on the card: the two int8 models of
+   phase 11 (not compiled again) and mobilenet_v2 compiled at float32,
+   served by 2 worker threads (each on its own CUDA stream), then by 1,
+   with ``max_batch=8``: 4 submitter threads send 96 requests per model
+   built from phase 6's images.  Every ticket is fulfilled; int8 outputs
+   equal ``CompiledModel.__call__``'s at batch 1 bit for bit, float32
+   outputs of 8 requests lie within ``float_plan_tol`` of the plain path
+   on the CPU; K1 launches 36 / 54 / one per conv and fc of the float32
+   model in each batch; the workers' streams differ.  Then the chaos
+   ladder on int8 mobilenet_v2: a transient plan fault retried, the
+   breaker tripped, requests failed fast with ``BreakerOpen`` while it is
+   open (nothing launched, nothing moved to the host), the probe's
+   recovery, then equal ints on K1 again, no ticket lost.  Requests/s, p50 / p99
+   latency, mean batch size, batch service ms and the float32 replay ms
+   at batch 1 and 8 are printed.
 
 For the two SSM paths the prefill-vs-replay agreement is held in
 float32 at full width (TF32 off) and reported in bf16, beside how far
@@ -82,6 +98,7 @@ import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple, Optional, Tuple
@@ -239,6 +256,12 @@ VISION_BATCH = 8
 # phase 11 times CompiledModel.__call__ and the bare plan in this many
 # pairs of warm replays, in turns
 COMPILED_PAIRS = 7
+# phase 12: requests per model, submitter threads, the float32 requests
+# held against the CPU, and the timed replays of the float32 plan
+SESSION_REQUESTS = 96
+SESSION_SUBMITTERS = 4
+SESSION_F32_SAMPLES = 8
+F32_REPLAYS = 7
 
 
 class K1Shape(NamedTuple):
@@ -251,6 +274,17 @@ class K1Shape(NamedTuple):
     N: int
     act: str
 
+
+# K1's Pallas contract in float32 at the shapes of mobilenet_v2's float32
+# plan at 224 (phase 12): (rows per image, K, N, act) of its stem (im2col),
+# its last 1x1 conv and its fc
+K1_F32_SHAPES = (
+    K1Shape("mobilenet_v2 float32", "stem 3x3/2 conv (im2col)", 112 * 112,
+            27, 32, "relu6"),
+    K1Shape("mobilenet_v2 float32", "last 1x1 conv", 7 * 7, 320, 1280,
+            "relu6"),
+    K1Shape("mobilenet_v2 float32", "fc", 1, 1280, 1000, "none"),
+)
 
 K1_SHAPES = (
     K1Shape("mobilenet_v2", "stem 3x3/2 conv (im2col)", 112 * 112, 27, 32,
@@ -809,6 +843,47 @@ def phase_k1(torch, ops, rows):
             **timings(torch, lambda: ops.neutron_matmul_plan(*args, out),
                       lambda: ref.neutron_matmul_plan_ref(*args), lib_fn))
 
+    # the float32 Pallas contract with an (N, K) weight, as the float32
+    # plan calls it; the library call is torch.matmul with TF32 off
+    for shp in K1_F32_SHAPES:
+        M = B * shp.rows
+        x = randn(B, shp.rows, shp.K)
+        wt = randn(shp.N, shp.K) / math.sqrt(shp.K)
+        bias = randn(shp.N)
+        out = torch.empty((B, shp.rows, shp.N), device="cuda")
+        args = (x, wt, bias, shp.act)
+        ops.neutron_matmul_nk(*args, out)
+        want = no_tf32(torch, lambda: ref.neutron_matmul_nk_ref(*args))
+        err = check_close(torch, f"neutron_matmul f32 {shp.what}", out,
+                          want, "float32")
+        x2, w_kn = x.view(M, shp.K), wt.t()
+        b_ms, b_by = bound(nbytes(x, wt, bias, out), 2 * M * shp.N * shp.K,
+                           "float32")
+        rows[("neutron_matmul", f"{shp.path}: {shp.what}")] = dict(
+            name="neutron_matmul", path=shp.path, route="cuda",
+            source="src/repro_torch/csrc/neutron_matmul.cu",
+            replaces="src/repro/kernels/neutron_matmul.py:137",
+            shape=f"{shp.what}: x ({B},{shp.rows},{shp.K}) f32, w "
+                  f"({shp.N},{shp.K}), bias, {shp.act}, Pallas contract "
+                  f"(library: torch.matmul, TF32 off, no epilogue)",
+            max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+            **timings(torch, lambda: ops.neutron_matmul_nk(*args, out),
+                      lambda: no_tf32(torch, lambda:
+                                      ref.neutron_matmul_nk_ref(*args)),
+                      lambda: no_tf32(torch, lambda:
+                                      torch.matmul(x2, w_kn))))
+
+
+def no_tf32(torch, fn):
+    """``fn()`` with cuBLAS's float32 products held out of TF32 (the flag
+    set and restored around the call)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return fn()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
 
 # --------------------------------------------------------------------------
 # phases 3-5: the serving paths
@@ -830,6 +905,8 @@ def reset_launches() -> None:
         mod.launches = 0
         if hasattr(mod, "launches_by_shape"):
             mod.launches_by_shape.clear()
+        if hasattr(mod, "launches_by_contract"):
+            mod.launches_by_contract.clear()
 
 
 def read_launches():
@@ -1158,12 +1235,13 @@ def phase_vision(torch, rows, path):
 # --------------------------------------------------------------------------
 
 
-def phase_compiled(torch, path, ref) -> dict:
+def phase_compiled(torch, path, ref):
     """``repro_torch.api.compile`` (PTQ and the CP compile on the host,
     default options), the compiled model's int8 plan replayed on the card
     against phase 6's stored ints for the same images, ``verify()`` (the
     host interpreter against the card plan) and the save -> mmap load ->
-    replay round trip."""
+    replay round trip.  Returns the figures and the model, which phase 12
+    serves."""
     import tempfile
     import threading
 
@@ -1287,8 +1365,336 @@ def phase_compiled(torch, path, ref) -> dict:
           f"{verify_s:.2f} s;"
           f" save {save_s:.2f} s ({rpa_bytes} B), mmap load {load_s:.2f} s, "
           f"loaded replay equal with 0 constants recomputed")
-    del model, plan, stored, outputs
+    del plan, stored, outputs
     torch.cuda.empty_cache()
+    return out, model
+
+
+# --------------------------------------------------------------------------
+# phase 12: the Session on the card
+# --------------------------------------------------------------------------
+
+
+def _equal_outputs(torch, got, want) -> bool:
+    return sorted(got) == sorted(want) and all(
+        got[k].device.type == "cpu" and torch.equal(got[k], want[k])
+        for k in want)
+
+
+def _session_warm(torch, api, models, per_batch, images, workers):
+    """A session of ``workers`` threads whose workers each serve one
+    batch of every model alone, K1 launching ``per_batch`` times in each
+    batch; it leaves every worker's arena allocated (the plans are kept
+    per model and worker id), so the traffic session after it measures
+    warm serving."""
+    sess = api.Session(workers=workers, max_batch=VISION_BATCH)
+    try:
+        for name, m in models.items():
+            sess.add(m, name=name)
+        for name in models:
+            for _ in range(workers):
+                b0 = sess.stats()["models"][name]["batches"]
+                reset_launches()
+                ts = [sess.submit(name, img) for img in images]
+                for t in ts:
+                    t.result(timeout=600)
+                nb = sess.stats()["models"][name]["batches"] - b0
+                k1 = read_launches()[3]
+                if k1 != per_batch[name] * nb:
+                    fail(f"phase 12 {name}: K1 launched {k1} times in "
+                         f"{nb} batches, expected {per_batch[name]} a "
+                         f"batch")
+    finally:
+        sess.close()
+
+
+def _session_traffic(torch, api, models, per_batch, images, want,
+                     want_f32, workers):
+    """The traffic: SESSION_SUBMITTERS threads send SESSION_REQUESTS
+    requests per model (image j % len(images)), interleaved over the
+    models, to a session of ``workers`` threads; every check of phase 12
+    on what comes back.  Returns its figures."""
+    from repro_torch.core.executor import float_plan_tol
+    from repro_torch.kernels import neutron_matmul
+    sess = api.Session(workers=workers, max_batch=VISION_BATCH)
+    try:
+        for name, m in models.items():
+            sess.add(m, name=name)
+        order = [(name, j) for j in range(SESSION_REQUESTS)
+                 for name in models]
+        tickets, done_at, errors = {}, {}, []
+        lock = threading.Lock()
+
+        def submitter(k):
+            try:
+                for name, j in order[k::SESSION_SUBMITTERS]:
+                    t = sess.submit(name, images[j % len(images)])
+                    with lock:
+                        tickets[(name, j)] = t
+                    t.on_done(lambda t, key=(name, j): done_at.__setitem__(
+                        key, time.monotonic()))
+            except Exception as e:          # shed, closed: a failed run
+                errors.append(e)
+
+        b0 = {n: dict(sess.stats()["models"][n]) for n in models}
+        reset_launches()
+        t_start = time.monotonic()
+        threads = [threading.Thread(target=submitter, args=(k,))
+                   for k in range(SESSION_SUBMITTERS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if errors:
+            fail(f"phase 12 ({workers} workers): a submitter failed: "
+                 f"{errors[0]!r}")
+        completed = failed = 0
+        for t in tickets.values():
+            try:
+                t.result(timeout=600)
+                completed += 1
+            except Exception:
+                failed += 1
+        launches = read_launches()
+        by_contract = dict(neutron_matmul.launches_by_contract)
+        cancelled = sum(s["cancelled"]
+                        for s in sess.stats()["models"].values())
+        if completed + failed + cancelled != len(order) or failed:
+            fail(f"phase 12 ({workers} workers): of {len(order)} "
+                 f"submitted, {completed} completed, {failed} failed, "
+                 f"{cancelled} cancelled")
+        st = sess.stats()
+        # every int8 output equals __call__'s at batch 1, bit for bit;
+        # the float32 ones of SESSION_F32_SAMPLES requests lie within
+        # float_plan_tol of the plain path on the CPU
+        f32_err = []
+        for (name, j), t in tickets.items():
+            got = t.result()
+            i = j % len(images)
+            if name in want and not _equal_outputs(torch, got, want[name][i]):
+                fail(f"phase 12 ({workers} workers): request {j} of {name} "
+                     f"differs from CompiledModel.__call__ at batch 1")
+            if name not in want and j < SESSION_F32_SAMPLES:
+                for k, w in want_f32[j].items():
+                    e = float((got[k] - w).abs().max())
+                    tol = float_plan_tol(w.numpy())
+                    if not e <= tol:
+                        fail(f"phase 12: float32 request {j} output {k} is "
+                             f"{e:.3g} from the CPU path (tol {tol:.3g})")
+                    f32_err.append(e / tol)
+        batches = {n: st["models"][n]["batches"] - b0[n]["batches"]
+                   for n in models}
+        want_k1 = sum(per_batch[n] * batches[n] for n in models)
+        if launches != (0, 0, 0, want_k1) or not all(batches.values()):
+            fail(f"phase 12 ({workers} workers): launched {LAUNCH_NAMES} = "
+                 f"{launches} over batches {batches}, expected K1 "
+                 f"{want_k1}")
+        # K1 by contract: the int8 models on the plan contract, the
+        # float32 one on the Pallas contract in float32
+        want_contract = {}
+        for n in models:
+            key = "plan int8" if models[n].precision == "int8" \
+                else "pallas float32"
+            want_contract[key] = want_contract.get(key, 0) \
+                + per_batch[n] * batches[n]
+        if by_contract != want_contract:
+            fail(f"phase 12 ({workers} workers): K1 launched {by_contract} "
+                 f"by contract, expected {want_contract}")
+        streams = [h["stream"] for h in st["workers"].values()]
+        if None in streams or len(set(streams)) != workers:
+            fail(f"phase 12: the workers' streams are {streams}")
+        out = dict(workers=workers, streams=len(set(streams)),
+                   wall_s=max(done_at.values()) - t_start,
+                   requests_s=len(order) / (max(done_at.values()) - t_start),
+                   k1_launches=want_k1, k1_by_contract=by_contract,
+                   f32_err_over_tol_max=max(f32_err), models={})
+        for n in models:
+            m, lat = st["models"][n], st["models"][n]["latency"]
+            last = max(v for (nm, _), v in done_at.items() if nm == n)
+            svc = sess._m_service.labels(model=n)
+            out["models"][n] = dict(
+                requests_s=SESSION_REQUESTS / (last - t_start),
+                p50_ms=lat["p50_ms"], p99_ms=lat["p99_ms"],
+                batches=batches[n],
+                mean_batch=(m["batched_requests"]
+                            - b0[n]["batched_requests"]) / batches[n],
+                service_p50_ms=svc.percentile(50),
+                service_p99_ms=svc.percentile(99),
+                k1_launches=per_batch[n] * batches[n])
+        return out
+    finally:
+        sess.close()
+
+
+def _session_chaos(torch, api, model, name, images, want):
+    """The degradation ladder on int8 ``name`` on the card: a transient
+    plan fault retried and served, 3 failed batches trip the breaker,
+    requests while it is open fail fast with ``BreakerOpen`` and a retry
+    hint (nothing launched, nothing served from the host), the probe's
+    recovery, then the plan on K1 again with equal ints; no ticket
+    lost."""
+    from repro_torch.runtime import chaos
+    sess = api.Session(workers=2, max_batch=VISION_BATCH,
+                       breaker_threshold=3, breaker_cooldown_s=2.0,
+                       retry_backoff_ms=1.0)
+    tickets = []
+
+    def served(i):
+        t = sess.submit(name, images[i])
+        tickets.append(t)
+        got = t.result(timeout=600)
+        if not _equal_outputs(torch, got, want[i]):
+            fail(f"phase 12 chaos: a served output of image {i} differs "
+                 f"from CompiledModel.__call__'s")
+
+    try:
+        sess.add(model, name=name)
+        with chaos.inject() as c:
+            c.poison_plan(name, times=1)
+            served(0)
+            if sess.stats()["models"][name]["retries"] != 1:
+                fail("phase 12 chaos: the transient fault was not retried")
+            for i in range(sess.breaker_threshold):
+                c.poison_plan(name, times=2)       # the batch and its retry
+                t = sess.submit(name, images[i])
+                tickets.append(t)
+                try:
+                    t.result(timeout=600)
+                    fail("phase 12 chaos: a poisoned batch was served")
+                except chaos.ChaosError:
+                    pass
+            st = sess.stats()["models"][name]
+            if st["breaker"]["state"] != "open" or st["breaker_trips"] != 1:
+                fail(f"phase 12 chaos: the breaker is {st['breaker']}")
+            reset_launches()
+            t0 = time.monotonic()
+            hints = []
+            for i in (1, 2):
+                t = sess.submit(name, images[i])
+                tickets.append(t)
+                try:
+                    t.result(timeout=600)
+                    fail("phase 12 chaos: a request was served while the "
+                         "breaker was open")
+                except api.BreakerOpen as e:
+                    hints.append(e.retry_after_ms)
+            fast_fail_s = time.monotonic() - t0
+            st = sess.stats()["models"][name]
+            if read_launches() != (0, 0, 0, 0) or st["breaker_rejects"] != 2 \
+                    or st["degraded_requests"] or not all(
+                        0 < h <= 2e3 for h in hints):
+                fail(f"phase 12 chaos: with the breaker open, launches "
+                     f"{read_launches()}, {st['breaker_rejects']} rejected, "
+                     f"{st['degraded_requests']} degraded, hints {hints} ms")
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            st = sess.stats()["models"][name]
+            if st["breaker"]["state"] == "closed" and st["recoveries"]:
+                break
+            time.sleep(0.05)
+        if st["breaker"]["state"] != "closed" or not st["recoveries"]:
+            fail(f"phase 12 chaos: no recovery ({st['breaker']})")
+        reset_launches()
+        b0 = st["batches"]
+        for i in range(len(images)):
+            served(i)
+        st = sess.stats()["models"][name]
+        k1_want = MOBILENET.k1_per_replay * (st["batches"] - b0)
+        if read_launches()[3] != k1_want:
+            fail("phase 12 chaos: the recovered model did not run on K1")
+        done = sum(t.done for t in tickets)
+        ok = sum(t.done and t.error is None for t in tickets)
+        if done != len(tickets):
+            fail(f"phase 12 chaos: {len(tickets) - done} tickets lost")
+        return dict(submitted=len(tickets), completed=ok,
+                    failed=done - ok, retries=st["retries"],
+                    plan_failures=st["plan_failures"],
+                    breaker_trips=st["breaker_trips"],
+                    breaker_rejects=st["breaker_rejects"],
+                    retry_after_ms=hints, fast_fail_s_for_2=fast_fail_s,
+                    degraded_requests=st["degraded_requests"],
+                    recoveries=st["recoveries"],
+                    failed_recoveries=st["failed_recoveries"])
+    finally:
+        sess.close()
+
+
+def phase_session(torch, rows, int8_models, images) -> dict:
+    """``repro_torch.api.Session`` on the card (see the module
+    docstring): the int8 models of phase 11 and mobilenet_v2 compiled at
+    float32, served by 2 worker threads and then by 1, then the chaos
+    ladder."""
+    import tempfile
+
+    from repro_torch import api
+
+    t0 = time.monotonic()
+    f32 = api.compile(MOBILENET.name, precision="float32", seed=SEED)
+    compile_s = time.monotonic() - t0
+    f32_name = f"{MOBILENET.name}_float32"
+    models = {MOBILENET.name: int8_models[MOBILENET.name],
+              RESNET.name: int8_models[RESNET.name], f32_name: f32}
+    per_batch = {MOBILENET.name: MOBILENET.k1_per_replay,
+                 RESNET.name: RESNET.k1_per_replay,
+                 f32_name: sum(op.kind in ("conv", "fc")
+                               for op in f32.graph.ops)}
+    # what each request must give back: int8, CompiledModel.__call__ at
+    # batch 1 on the card; float32, the plain path on the CPU (the model
+    # saved and loaded there)
+    want = {n: [{k: v.cpu() for k, v in models[n](img).items()}
+                for img in images] for n in (MOBILENET.name, RESNET.name)}
+    with tempfile.TemporaryDirectory() as d:
+        cpu_f32 = api.load(f32.save(f"{d}/f32.rpa"), device="cpu")
+        want_f32 = [cpu_f32(images[j % len(images)])
+                    for j in range(SESSION_F32_SAMPLES)]
+    del cpu_f32
+
+    # the float32 plan alone: warm replay ms at batch 1 and 8
+    inp = f32.graph.inputs[0].name
+    replay_ms = {}
+    for n in (1, VISION_BATCH):
+        plan = f32.plan_for(n)
+        times = []
+        for _ in range(F32_REPLAYS + 1):
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            plan.run({inp: images[:n]}, n=n)
+            torch.cuda.synchronize()
+            times.append((time.monotonic() - t) * 1e3)
+        replay_ms[n] = statistics.median(times[1:])
+
+    out = dict(float32_compile_s=compile_s,
+               float32_k1_per_batch=per_batch[f32_name],
+               float32_replay_ms_batch1=replay_ms[1],
+               float32_replay_ms_batch8=replay_ms[VISION_BATCH],
+               serving={})
+    for workers in (2, 1):
+        _session_warm(torch, api, models, per_batch, images, workers)
+        res = _session_traffic(torch, api, models, per_batch, images, want,
+                               want_f32, workers)
+        out["serving"][workers] = res
+        for n, m in res["models"].items():
+            print(f"  {workers} worker(s) {n}: {m['requests_s']:.1f} "
+                  f"requests/s, p50 {m['p50_ms']:.2f} / p99 "
+                  f"{m['p99_ms']:.2f} ms, mean batch {m['mean_batch']:.2f},"
+                  f" batch service p50 {m['service_p50_ms']:.2f} ms, K1 "
+                  f"{m['k1_launches']} in {m['batches']} batches")
+        print(f"  {workers} worker(s): {res['requests_s']:.1f} requests/s "
+              f"over {3 * SESSION_REQUESTS} requests in {res['wall_s']:.2f}"
+              f" s; float32 max err/tol {res['f32_err_over_tol_max']:.3g}")
+    for r in rows.values():
+        if r["path"] == f"{MOBILENET.name} float32":
+            # measured: the float32 contract's own count in the 2-worker
+            # run (checked there against the conv and fc ops per batch)
+            r["launches"] = out["serving"][2]["k1_by_contract"][
+                "pallas float32"]
+    out["chaos"] = _session_chaos(torch, api, int8_models[MOBILENET.name],
+                                  MOBILENET.name, images,
+                                  want[MOBILENET.name])
+    print(f"  float32 {MOBILENET.name}: compile {compile_s:.2f} s, K1 "
+          f"{per_batch[f32_name]} a batch, replay {replay_ms[1]:.3f} ms at "
+          f"batch 1, {replay_ms[VISION_BATCH]:.3f} ms at batch "
+          f"{VISION_BATCH}; chaos {out['chaos']}")
     return out
 
 
@@ -1352,14 +1758,24 @@ def main() -> None:
     for n, path in ((7, GRANITE), (8, GRANITE_MOE), (9, DEEPSEEK),
                     (10, GEMMA)):
         paths[path.arch] = phase_lm(torch, rows, n, path)
+    images = vision_ref[MOBILENET.name]["images"]
+    compiled = {}
     for path in (MOBILENET, RESNET):
         print(f"== phase 11: {path.name} through repro_torch.api.compile at "
               f"224, int8, batch {VISION_BATCH}")
         t = time.monotonic()
-        out = phase_compiled(torch, path, vision_ref.pop(path.name))
+        out, compiled[path.name] = phase_compiled(
+            torch, path, vision_ref.pop(path.name))
         print(f"  {path.name} compiled: {json.dumps(out)}")
         print(f"  phase 11 ({path.name}) wall time "
               f"{time.monotonic() - t:.1f} s")
+    print(f"== phase 12: Session on the card, {MOBILENET.name} and "
+          f"{RESNET.name} int8 and {MOBILENET.name} float32 at 224")
+    t = time.monotonic()
+    out = phase_session(torch, rows, compiled, images)
+    print(f"  session: {json.dumps(out)}")
+    print(f"  phase 12 wall time {time.monotonic() - t:.1f} s")
+    del compiled
 
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",

@@ -2,8 +2,8 @@
 
 Counterpart of ``repro.api``: a workload goes in once, a CP-optimized
 program for the modeled Neutron NPU comes out (on the host, the port's
-copy of the compiler), and its int8 plan replays on the GPU, every conv
-and fc on the hand-written K1 kernel:
+copy of the compiler), and its int8 or float32 plan replays on the GPU,
+every conv and fc on the hand-written K1 kernel:
 
     import repro_torch.api as api
 
@@ -12,15 +12,21 @@ and fc on the hand-written K1 kernel:
     model.save("mnv2_int8.rpa")         # the reference's artifact format
     model = api.load("mnv2_int8.rpa", mmap=True)   # no recompile
 
+    sess = api.Session(workers=2, max_batch=8)     # thread pool on CUDA
+    sess.add(model, name="mnv2")
+    ticket = sess.submit("mnv2", image)            # micro-batched
+    ticket.result()                     # CPU tensors
+
 ``compile`` accepts a benchmark model name, a ``Graph`` (+ weights), a
 ``(Graph, GraphBuilder)`` pair as returned by the frontends, or a
 ``QuantizedModel``, and resolves precision, options and execution
 semantics.  Models replay on CUDA unless the caller passes
 ``device="cpu"``; with no GPU and no explicit device they raise.
 
-The serving surface of ``repro.api`` (``Session`` and its errors,
-``DecodeSession``, ``Fleet``) is not exported yet: its names wait for
-``ROADMAP.md`` items 6b, 8 and 10.
+``Session`` and the serving errors are exported as ``repro.api`` exports
+them, with ``BreakerOpen``, the port's own (a CUDA session's open
+breaker fails fast instead of serving from the host); ``DecodeSession`` and ``Fleet`` wait for ``ROADMAP.md`` items 8
+and 10.
 """
 from __future__ import annotations
 
@@ -33,11 +39,22 @@ from repro_torch.core.npu import NEUTRON_2TOPS, NPUConfig
 from repro_torch.core.pipeline import CompilerOptions, compile_graph
 from repro_torch.core.serialize import ArtifactError
 
+from repro_torch.runtime.serving import (BreakerOpen, Cancelled,
+                                         CircuitBreaker,
+                                         DeadlineExceeded, FlushError,
+                                         FrameCorrupt, Overloaded,
+                                         ServingError, Ticket, WorkerLost)
+
 from .compiled import CompiledModel, resolve_semantics
+from .session import Session
 
 __all__ = [
-    "compile", "load", "CompiledModel", "ArtifactError", "CompilerOptions",
-    "resolve_semantics",
+    "compile", "load", "CompiledModel", "Session", "ArtifactError",
+    "CompilerOptions", "resolve_semantics",
+    # serving robustness surface
+    "ServingError", "Overloaded", "DeadlineExceeded", "FlushError",
+    "WorkerLost", "Ticket", "CircuitBreaker", "Cancelled", "FrameCorrupt",
+    "BreakerOpen",
 ]
 
 Source = Union[str, Graph, GraphBuilder, Tuple[Graph, GraphBuilder],

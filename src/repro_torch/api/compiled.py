@@ -14,8 +14,11 @@ semantics and the torch device it replays on:
     model = CompiledModel.load("mnv2.rpa", mmap=True)   # no recompile
 
 Requests are served by the device plan (:mod:`repro_torch.core.execplan`,
-every conv and fc of an int8 model on K1), and outputs come back as
-tensors on the model's device.  The interpretive executor
+every conv and fc on K1: the int8 plan contract for int8 models, the
+float32 Pallas contract for float32 ones), and outputs come back as
+tensors on the model's device.  The plan cache is safe across threads:
+however many serving workers ask at once, a model lowers its steps (and
+uploads its constants) once.  The interpretive executor
 (:mod:`repro_torch.core.executor`, numpy on the host) is the validating
 oracle, reached only with ``engine="interp"``, ``check=True`` or
 :meth:`CompiledModel.verify`.  Artifacts are the reference's format, byte
@@ -23,6 +26,7 @@ for byte: a model saved by either package loads in the other.
 """
 from __future__ import annotations
 
+import threading
 import time as _time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Union
@@ -122,6 +126,13 @@ class CompiledModel:
         default_factory=lambda: {"builds": 0, "hits": 0, "build_s": 0.0,
                                  "plan_requests": 0, "plan_batches": 0},
         repr=False)
+    #: the one step lowering shared by every plan: (steps, ids,
+    #: granularity), with the device constants the steps hold
+    _lowered: Optional[tuple] = field(default=None, repr=False)
+    #: guards _lowered, _plans, _plan_consts and _plan_stats: serving
+    #: workers ask for plans from several threads
+    _lock: threading.RLock = field(default_factory=threading.RLock,
+                                   repr=False, compare=False)
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
@@ -224,48 +235,72 @@ class CompiledModel:
         ``batch``-request group: lowered lazily, cached per batch-size
         bucket (and per execution dtype — the graph fingerprint is part
         of the key).  Step lowering — with its device weight constants —
-        runs once per model and is shared across buckets; only the arena
-        is per-bucket.
+        runs once per model (:meth:`lower`) and is shared across buckets;
+        only the arena is per-bucket.
 
         ``owner`` keys an additional arena dimension: a plan's arena is
         single-threaded state, so each serving-pool worker passes its
-        worker id to get its *own* arena while still sharing the
-        one-time step lowering with every other worker."""
+        worker id to get its *own* arena (allocated on the worker's
+        stream) while still sharing the one-time step lowering with every
+        other worker.  One lock covers the lowering and the cache."""
         self._require_semantics()
         bucket = next((b for b in PLAN_BUCKETS if b >= batch),
                       PLAN_BUCKETS[-1])
         key = (self.fingerprint, self.semantics.name, bucket, owner)
-        plan = self._plans.get(key)
-        if plan is None:
-            lowered = getattr(self, "_lowered_steps", None)
-            if lowered is None:
-                t0 = _time.monotonic()
-                if self._plan_consts is None:
-                    self._plan_consts = PlanConsts()
-                lowered = lower_steps(self.program, self.graph,
-                                      self.tiling, self.weights,
-                                      self.semantics,
-                                      consts=self._plan_consts,
-                                      device=self.device)
-                self._lowered_steps = lowered
-                self._plan_stats["build_s"] += _time.monotonic() - t0
+        with self._lock:
+            plan = self._plans.get(key)
+            if plan is not None:
+                self._plan_stats["hits"] += 1
+                return plan
             plan = lower_plan(self.program, self.graph, self.tiling,
                               self.weights, self.semantics,
-                              capacity=bucket, lowered=lowered,
+                              capacity=bucket, lowered=self.lower(),
                               device=self.device)
             self._plans[key] = plan
             self._plan_stats["builds"] += 1
             self._plan_stats["build_s"] += plan.build_s
-        else:
-            self._plan_stats["hits"] += 1
-        return plan
+            return plan
+
+    def lower(self) -> tuple:
+        """Lower the model's steps onto its device once (idempotent):
+        the constants are derived (or served from the artifact's store)
+        and uploaded here.  A serving session calls this when a model is
+        added, so that no worker's first batch pays for it."""
+        self._require_semantics()
+        with self._lock:
+            if self._lowered is None:
+                t0 = _time.monotonic()
+                if self._plan_consts is None:
+                    self._plan_consts = PlanConsts()
+                self._lowered = lower_steps(self.program, self.graph,
+                                            self.tiling, self.weights,
+                                            self.semantics,
+                                            consts=self._plan_consts,
+                                            device=self.device)
+                self._plan_stats["build_s"] += _time.monotonic() - t0
+            return self._lowered
+
+    def invalidate_plans(self) -> None:
+        """Drop every cached replay plan, the shared lowered step list
+        *and* the kernel-constant store, forcing a fresh re-lower from
+        the raw weights on the next request.  The serving runtime's
+        circuit-breaker recovery calls this: if a plan (or its
+        constants) went bad, the rebuilt one must not share any state
+        with it.  Workers still running an old plan keep it alive until
+        they finish."""
+        with self._lock:
+            self._plans.clear()
+            self._lowered = None
+            self._plan_consts = PlanConsts()
 
     def plan_cache_info(self) -> Dict[str, object]:
-        info = dict(self._plan_stats)
+        with self._lock:
+            info = dict(self._plan_stats)
+            keys = list(self._plans)
+            pc = self._plan_consts
         info["plans"] = sorted(
             (fp[:12], sem, bucket, "-" if owner is None else str(owner))
-            for fp, sem, bucket, owner in self._plans)
-        pc = self._plan_consts
+            for fp, sem, bucket, owner in keys)
         info["consts"] = len(pc) if pc is not None else 0
         info["consts_computed"] = pc.computed if pc is not None else 0
         info["consts_served"] = pc.served if pc is not None else 0
@@ -276,15 +311,15 @@ class CompiledModel:
         """Run ``n`` stacked requests through bucketed plans (chunking
         past the largest bucket)."""
         cap = PLAN_BUCKETS[-1]
-        self._plan_stats["plan_requests"] += n
+        with self._lock:
+            self._plan_stats["plan_requests"] += n
+            self._plan_stats["plan_batches"] += -(-n // cap)
         if n <= cap:
-            self._plan_stats["plan_batches"] += 1
             return self.plan_for(n, owner=owner).run(stacked, n=n)
         outs: Dict[str, list] = {}
         for i in range(0, n, cap):
             j = min(i + cap, n)
             chunk = {k: v[i:j] for k, v in stacked.items()}
-            self._plan_stats["plan_batches"] += 1
             res = self.plan_for(j - i, owner=owner).run(chunk, n=j - i)
             for name, val in res.items():
                 outs.setdefault(name, []).append(val)
@@ -345,20 +380,34 @@ class CompiledModel:
         per-caller plan arena (see :meth:`plan_for`)."""
         if not requests:
             return []
+        if check:
+            return [self._on_device(self._run_one(f, True))
+                    for f in self._single_samples(requests)]
+        res = self.run_batch(requests, owner=owner)
+        return [{name: vals[i] for name, vals in res.items()}
+                for i in range(len(requests))]
+
+    def _single_samples(self, requests: List[Inputs]
+                        ) -> List[Dict[str, object]]:
         feeds = [self._normalize(r) for r in requests]
         for f in feeds:
             if self._batch_size(f) is not None:
                 raise ValueError(
                     f"{self.name}: run_many takes single-sample requests"
                     f" — pass a batched array to __call__ instead")
-        if check:
-            return [self._on_device(self._run_one(f, True)) for f in feeds]
+        return feeds
+
+    def run_batch(self, requests: List[Inputs], owner=None) -> Outputs:
+        """Stack a group of single-sample requests and replay them
+        through the plans (one copy of the batch to the device); returns
+        each output batched, ``(len(requests), *shape)`` on the model's
+        device.  The serving session copies these to the host once per
+        batch."""
+        feeds = self._single_samples(requests)
         self._require_semantics()
         stacked = {t.name: _stack([f[t.name] for f in feeds])
                    for t in self.graph.inputs}
-        res = self._run_plan_batch(stacked, len(feeds), owner=owner)
-        return [{name: vals[i] for name, vals in res.items()}
-                for i in range(len(feeds))]
+        return self._run_plan_batch(stacked, len(feeds), owner=owner)
 
     def verify(self, inputs: Inputs) -> ExecutionReport:
         """Checked single-sample replay exercising **both** execution
@@ -379,7 +428,7 @@ class CompiledModel:
             got = plan_out[t.name].cpu().numpy()
             want = rep.outputs[t.name]
             err = float(np.max(np.abs(got - want))) if got.size else 0.0
-            tol = self.semantics.plan_parity_tol(t.name)
+            tol = self.semantics.plan_parity_tol(t.name, want)
             if err > tol:
                 raise ExecutionError(
                     f"{self.name}: plan replay diverged from the "
@@ -456,15 +505,13 @@ class CompiledModel:
         """Write the versioned on-disk artifact (everything needed to
         :meth:`load` and execute in another process, no recompile —
         including the lowered-plan kernel constants, so a loading
-        process's first request serves them instead of re-deriving).
-        The float32 plan is not ported (``ROADMAP.md`` item 7), so a
-        float32 model does not save yet."""
+        process's first request serves them instead of re-deriving)."""
         if self.semantics is None:
             raise RuntimeError(
                 f"{self.name}: cost-model-only models (dtype-cast "
                 f"graphs) are not persistable deployment artifacts")
         if self._plan_consts is None or not len(self._plan_consts):
-            self.plan_for(1)          # populate the constant store
+            self.lower()              # populate the constant store
         quant_meta = None
         qweights = packed = None
         calib_error = None

@@ -1,7 +1,7 @@
 """Plan lowering and the compiled replay engine, on the device.
 
 Counterpart of ``repro/core/execplan.py``.  A one-time lowering pass
-turns a quantized graph into a flat :class:`ExecPlan`:
+turns a graph into a flat :class:`ExecPlan`:
 
   * every per-request decision is made once at lowering time: weight
     constants are derived on the host (in numpy, as the reference derives
@@ -17,23 +17,38 @@ An arena view is not contiguous across the batch (its row pitch is the
 arena's ``total`` bytes): the kernels read it in place and write their
 output slot in place, with that pitch as their batch stride.
 
+Both value semantics lower **one batch-vectorized step per op**: the
+int8/int4 lowering in ``quant/execplan.py`` and the float32 lowering
+here (:func:`lower_float_steps`), whose conv and fc run on K1 in its
+Pallas contract with float32 operands.  The reference's float32 plan
+emits one step per *program step* so as to be bit-exact with its numpy
+interpreter; this one is not bit-exact (K1 and torch sum in another
+order), and is held to the interpreter within
+``executor.float_plan_tol``.
+
 A plan lowered from a compiled model (``repro_torch.api``) reports its
-program's modeled ``ticks`` and ``ddr_bytes_per_request``; the int8
-lowering itself reads neither the program nor the tiling, so a bare
-quantized graph lowers too (``program=None``).  The float32 lowering is
-``ROADMAP.md`` item 7.
+program's modeled ``ticks`` and ``ddr_bytes_per_request``; neither
+lowering reads the program or the tiling, so a bare graph lowers too
+(``program=None``).
+
+When the tracer is armed with ``plan_steps``, :meth:`ExecPlan.run`
+records one span per step (category ``plan``): host time, which on CUDA
+is the time to enqueue the step.
 """
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch import resolve_device
 
+from ..obs import trace as _trace
 from .ir import Graph
 
 #: arena slots are aligned to this many bytes (cache-line friendly).
@@ -240,17 +255,27 @@ class ExecPlan:
         """Replay ``n`` stacked requests.  ``feed`` maps every graph input
         to an ``(n, *shape)`` float array or tensor (``(*shape,)`` when
         ``n`` is None).  The batch goes to the device in one copy and is
-        quantized there.  Returns each model output as an ``(n, *shape)``
-        tensor on the plan's device: decoded to float32 through the
-        semantics, or a copy of the stored integers with
-        ``decode=False``.  A failing kernel raises :class:`PlanError`
-        naming its step."""
+        encoded there.  Returns each model output as an ``(n, *shape)``
+        tensor on the plan's device (never a view of the arena): decoded
+        to float32 through the semantics, or a copy of the stored values
+        with ``decode=False``.  A failing kernel raises
+        :class:`PlanError` naming its step.  With the tracer armed (and
+        its ``plan_steps`` flag set) each step lands as one span."""
         n, squeeze = self._encode(feed, n)
         bufs = self._views
+        tracer = _trace.active()
+        if tracer is not None and not tracer.plan_steps:
+            tracer = None
         st = None
         try:
-            for st in self.steps:
-                st.run(bufs, n)
+            if tracer is None:
+                for st in self.steps:
+                    st.run(bufs, n)
+            else:
+                for st in self.steps:
+                    t0 = time.monotonic()
+                    st.run(bufs, n)
+                    tracer.complete(st.label, "plan", t0, time.monotonic())
         except Exception as e:
             raise PlanError(
                 f"{self.name}: lowered kernel "
@@ -259,8 +284,9 @@ class ExecPlan:
         outs: Dict[str, torch.Tensor] = {}
         for t in self.graph.outputs:
             raw = bufs[self.ids[t.name]][:n]
-            out = self.semantics.decode(t.name, raw) if decode \
-                else raw.clone()
+            out = self.semantics.decode(t.name, raw) if decode else raw
+            if out is raw:          # the float32 decode is the identity
+                out = raw.clone()
             outs[t.name] = out[0] if squeeze else out
         return outs
 
@@ -322,6 +348,239 @@ def lower_plan(program, graph: Graph, tiling,
                     device=device)
 
 
-def lower_float_steps(*args, **kwargs):
-    raise NotImplementedError(
-        "the float32 plan is not ported yet (ROADMAP.md item 7)")
+# --------------------------------------------------------------------------
+# float32 lowering — one batch-vectorized step per op
+# --------------------------------------------------------------------------
+
+
+#: the kinds of the LM decode path, which the device plans do not lower
+#: yet (ROADMAP.md item 8)
+CAUSAL_KINDS = ("matmul", "layernorm", "softmax", "attention", "kvappend")
+
+
+def taps(xp: torch.Tensor, fh: int, fw: int, s: int, oh: int, ow: int):
+    """The (i, j) windows of a padded (n, H, W, C) tensor, row-major."""
+    for i in range(fh):
+        for j in range(fw):
+            yield i * fw + j, xp[:, i:i + oh * s:s, j:j + ow * s:s, :]
+
+
+def pad_hw(x: torch.Tensor, pt: int, pb: int, pl: int, pr: int, value):
+    """``x`` (n, H, W, C) padded along H and W with ``value``."""
+    if (pt, pb, pl, pr) == (0, 0, 0, 0):
+        return x
+    return F.pad(x, (0, 0, pl, pr, pt, pb), value=value)
+
+
+def im2col(x: torch.Tensor, pad, fh: int, fw: int, s: int, oh: int,
+           ow: int, value) -> torch.Tensor:
+    """The columns (n, oh * ow, fh * fw * C) of a conv over ``x`` (n, H,
+    W, C) in the (i, j, c) order of a weight ``w.reshape(outC, -1)``,
+    padded with ``value``."""
+    n, C = x.shape[0], x.shape[-1]
+    xp = pad_hw(x, *pad, value=value)
+    cols = torch.empty((n, oh, ow, fh * fw, C), dtype=x.dtype,
+                       device=x.device)
+    for t, win in taps(xp, fh, fw, s, oh, ow):
+        cols[:, :, :, t, :] = win
+    return cols.view(n, oh * ow, fh * fw * C)
+
+
+def lower_float_steps(g: Graph, tiling, program,
+                      weights: Dict[str, np.ndarray],
+                      ids: Dict[str, int],
+                      consts: Optional[PlanConsts] = None, device=None
+                      ) -> Tuple[List[PlanStep], str]:
+    """One batch-vectorized float32 step per op, in topological order, on
+    ``device`` (CUDA unless the caller asks for the CPU).
+
+    conv and fc run on K1 in its Pallas contract (``act(x @ w + bias)``,
+    float32 operands, ``ops.neutron_matmul_nk``): a 1x1 conv without
+    padding reads its input slot in place, any other conv lays out its
+    columns first (:func:`im2col`), and K1 writes the output slot in
+    place.  The (N, K) weight and the bias are derived once here, on the
+    host, through ``consts``, and moved to the device once.  dwconv
+    accumulates tap by tap; the pools, resize and the elementwise kinds
+    are plain torch work (nothing reaches cuBLAS or cuDNN, whose float32
+    paths may run in TF32).  ``tiling`` and ``program`` are not read."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ir_activation
+
+    cs = consts if consts is not None else PlanConsts()
+    device = resolve_device(device)
+    f32 = torch.float32
+    steps: List[PlanStep] = []
+
+    def const(label: str, name: str, build) -> torch.Tensor:
+        arr = cs.get(f"{label}/{name}", build)
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+    def param(name: str) -> np.ndarray:
+        return np.asarray(weights[name], dtype=np.float32)
+
+    def bias_of(op, label: str) -> Optional[torch.Tensor]:
+        if len(op.inputs) < 3:
+            return None
+        return const(label, "bias", lambda: param(op.inputs[2]))
+
+    def scalar(v) -> torch.Tensor:
+        return torch.tensor(float(v), dtype=f32, device=device)
+
+    for op in g.topo_ops():
+        a = op.attrs
+        k = op.kind
+        if k in CAUSAL_KINDS:
+            raise NotImplementedError(
+                f"{op.name}: the causal op {k!r} is not ported to the "
+                f"device plan yet (ROADMAP.md item 8)")
+        oid = ids[op.outputs[0]]
+        label = f"{op.name}@f32"
+        act = a.get("act", "none")
+
+        if k in ("conv", "fc"):
+            x = g.act_inputs(op)[0]
+            xid = ids[x.name]
+            # (N, K): conv weights (outC, fh, fw, inC) in the (i, j, c)
+            # order of im2col's columns; fc weights (N, 1, 1, K)
+            wt = const(label, "wt", lambda op=op: param(
+                op.inputs[1]).reshape(g.tensors[op.inputs[1]].shape[0], -1))
+            bias = bias_of(op, label)
+            # K1 fuses every activation of the IR (its codes are
+            # ref.IR_ACTIVATIONS, the IR's list), so none runs after it
+            if k == "fc":
+                def run(bufs, n, xid=xid, oid=oid, wt=wt, bias=bias,
+                        act=act):
+                    ops.neutron_matmul_nk(bufs[xid][:n].view(n, 1, -1), wt,
+                                          bias, act,
+                                          bufs[oid][:n].view(n, 1, -1))
+            else:
+                s = a["stride"]
+                pad = tuple(a["pad"])
+                fh, fw = a["k"]
+                oh, ow, oc = g.tensors[op.outputs[0]].shape
+                H, W, C = x.shape
+                pointwise = (fh, fw) == (1, 1) and pad == (0, 0, 0, 0)
+
+                def run(bufs, n, xid=xid, oid=oid, wt=wt, bias=bias,
+                        act=act, s=s, pad=pad, fh=fh, fw=fw, oh=oh, ow=ow,
+                        oc=oc, H=H, W=W, C=C, pointwise=pointwise):
+                    xv = bufs[xid][:n]
+                    if pointwise:
+                        # 1x1 stride-s conv == strided gemm, read in place
+                        xin = xv[:, ::s, ::s, :] if s != 1 \
+                            else xv.view(n, H * W, C)
+                    else:
+                        xin = im2col(xv, pad, fh, fw, s, oh, ow, 0.0)
+                    ops.neutron_matmul_nk(xin, wt, bias, act,
+                                          bufs[oid][:n].view(n, oh * ow, oc))
+            reads = (xid,)
+        elif k == "dwconv":
+            x = g.act_inputs(op)[0]
+            xid = ids[x.name]
+            fh, fw = a["k"]
+            ker = const(label, "ker", lambda op=op, fh=fh, fw=fw:
+                        np.transpose(param(op.inputs[1])[:, :, :, 0],
+                                     (1, 2, 0)).reshape(fh * fw, -1))
+            bias = bias_of(op, label)
+            oh, ow = g.tensors[op.outputs[0]].shape[:2]
+
+            def run(bufs, n, xid=xid, oid=oid, ker=ker, bias=bias, act=act,
+                    s=a["stride"], pad=tuple(a["pad"]), fh=fh, fw=fw, oh=oh,
+                    ow=ow):
+                # tap-by-tap f32 accumulation off the zero-padded input
+                xp = pad_hw(bufs[xid][:n], *pad, value=0.0)
+                acc = None
+                for t, win in taps(xp, fh, fw, s, oh, ow):
+                    acc = win * ker[t] if acc is None else acc + win * ker[t]
+                if bias is not None:
+                    acc = acc + bias
+                bufs[oid][:n].copy_(ir_activation(acc, act))
+            reads = (xid,)
+        elif k in ("add", "mul"):
+            xs = g.act_inputs(op)
+            i0, i1 = ids[xs[0].name], ids[xs[1].name]
+
+            def run(bufs, n, i0=i0, i1=i1, act=act, is_add=k == "add",
+                    oid=oid):
+                a0, a1 = bufs[i0][:n], bufs[i1][:n]
+                y = ir_activation(a0 + a1, act) if is_add else a0 * a1
+                bufs[oid][:n].copy_(y)
+            reads = (i0, i1)
+        elif k == "scalar":
+            xid = ids[g.act_inputs(op)[0].name]
+            fn = {"add": torch.add, "mul": torch.mul,
+                  "div": torch.div}[a["op"]]
+
+            def run(bufs, n, xid=xid, fn=fn, v=scalar(a["value"]), oid=oid):
+                bufs[oid][:n].copy_(fn(bufs[xid][:n], v))
+            reads = (xid,)
+        elif k == "act":
+            xid = ids[g.act_inputs(op)[0].name]
+
+            def run(bufs, n, xid=xid, act=a["act"], oid=oid):
+                bufs[oid][:n].copy_(ir_activation(bufs[xid][:n], act))
+            reads = (xid,)
+        elif k == "maxpool":
+            xid = ids[g.act_inputs(op)[0].name]
+            oh, ow = g.tensors[op.outputs[0]].shape[:2]
+
+            def run(bufs, n, xid=xid, kk=a["k"], s=a["stride"],
+                    pad=tuple(a["pad"]), oh=oh, ow=ow, oid=oid):
+                xp = pad_hw(bufs[xid][:n], *pad, value=-math.inf)
+                y = None
+                for _, win in taps(xp, kk, kk, s, oh, ow):
+                    y = win if y is None else torch.maximum(y, win)
+                bufs[oid][:n].copy_(y)
+            reads = (xid,)
+        elif k == "avgpool":
+            xid = ids[g.act_inputs(op)[0].name]
+            if a["k"] == 0:
+                def run(bufs, n, xid=xid, oid=oid):
+                    bufs[oid][:n].copy_(
+                        bufs[xid][:n].mean(dim=(1, 2), keepdim=True))
+            else:
+                kk = a["k"]
+                oh, ow = g.tensors[op.outputs[0]].shape[:2]
+
+                def run(bufs, n, xid=xid, kk=kk, s=a["stride"],
+                        pad=tuple(a["pad"]), oh=oh, ow=ow,
+                        area=scalar(kk * kk), oid=oid):
+                    xp = pad_hw(bufs[xid][:n], *pad, value=0.0)
+                    acc = None
+                    for _, win in taps(xp, kk, kk, s, oh, ow):
+                        acc = win.clone() if acc is None else acc + win
+                    bufs[oid][:n].copy_(acc / area)
+            reads = (xid,)
+        elif k == "resize":
+            xid = ids[g.act_inputs(op)[0].name]
+
+            def run(bufs, n, xid=xid, f=a["factor"], oid=oid):
+                bufs[oid][:n].copy_(bufs[xid][:n].repeat_interleave(f, dim=1)
+                                    .repeat_interleave(f, dim=2))
+            reads = (xid,)
+        elif k == "concat":
+            xids = tuple(ids[x.name] for x in g.act_inputs(op))
+
+            def run(bufs, n, xids=xids, oid=oid):
+                bufs[oid][:n].copy_(torch.cat([bufs[i][:n] for i in xids],
+                                              dim=-1))
+            reads = xids
+        elif k == "split":
+            x = g.act_inputs(op)[0]
+            xid = ids[x.name]
+            oids = tuple(ids[o] for o in op.outputs)
+
+            def run(bufs, n, xid=xid, oids=oids,
+                    width=x.shape[-1] // a["sections"]):
+                parts = torch.split(bufs[xid][:n], width, dim=-1)
+                for o, p in zip(oids, parts):
+                    bufs[o][:n].copy_(p)
+            steps.append(PlanStep(label, (xid,), oids, run))
+            continue
+        else:
+            raise NotImplementedError(
+                f"{op.name}: op kind {k!r} has no float32 plan kernel")
+
+        steps.append(PlanStep(label, reads, (oid,), run))
+
+    return steps, "op"

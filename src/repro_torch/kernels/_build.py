@@ -14,6 +14,11 @@ the flags, so an edited source is rebuilt and an unchanged one is not.
 Every launch function returns ``cudaGetLastError()``; ``check`` raises
 when that is not 0, naming the CUDA error.
 
+Building and loading are safe across threads: one module lock covers
+``build_all`` and the loading of a library, so threads that launch a
+kernel first together run nvcc once and load each library once.  A
+temporary library is named by process and thread.
+
 No source is built with ``--use_fast_math``: divisions stay correctly
 rounded.  nvcc still contracts ``a * b + c`` into one FMA by default;
 ``neutron_matmul.cu``, whose int8 epilogue must round as numpy does,
@@ -28,6 +33,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Sequence
@@ -41,6 +47,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+# held while building, loading or typing a library's function; reentrant,
+# since loading builds what is missing
+_lock = threading.RLock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 # nvcc's output (ptxas register and shared-memory report) per source,
@@ -69,6 +78,11 @@ def build_all() -> float:
     """Compile every source whose library is missing, one nvcc each, all
     started together.  Returns the seconds it took; raises on a failed
     build with nvcc's output."""
+    with _lock:
+        return _build_missing()
+
+
+def _build_missing() -> float:
     t0 = time.monotonic()
     todo = [(n, _library_path(n)) for n in SOURCES]
     todo = [(n, so) for n, so in todo if not so.exists()]
@@ -78,7 +92,8 @@ def build_all() -> float:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for name, so in todo:
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        tmp = so.with_name(
+            f"{so.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((name, so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -128,26 +143,34 @@ def tensor_core_ops(name: str) -> Dict[str, Dict[str, int]]:
 
 
 def _library(name: str) -> ctypes.CDLL:
-    if name not in _libs:
-        so = _library_path(name)
-        if not so.exists():
-            build_all()
-        lib = ctypes.CDLL(str(so))
-        lib.rt_error_string.argtypes = [ctypes.c_int]
-        lib.rt_error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
-    return _libs[name]
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _libs:
+            so = _library_path(name)
+            if not so.exists():
+                build_all()
+            lib = ctypes.CDLL(str(so))
+            lib.rt_error_string.argtypes = [ctypes.c_int]
+            lib.rt_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return _libs[name]
 
 
 def function(lib: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     """The launch function ``symbol`` of library ``lib``, typed."""
     key = f"{lib}.{symbol}"
-    if key not in _fns:
-        fn = getattr(_library(lib), symbol)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        _fns[key] = fn
-    return _fns[key]
+    fn = _fns.get(key)
+    if fn is not None:
+        return fn
+    with _lock:
+        if key not in _fns:
+            fn = getattr(_library(lib), symbol)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            _fns[key] = fn
+        return _fns[key]
 
 
 def check(rc: int, lib: str) -> None:

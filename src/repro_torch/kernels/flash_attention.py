@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from collections import Counter
 from typing import Optional, Tuple
 
@@ -28,6 +29,7 @@ from . import _build
 
 launches = 0
 launches_by_shape: Counter = Counter()
+_lock = threading.Lock()             # the counters, across threads
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -98,6 +100,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 int(window or 0), _build.DTYPE_CODES[q.dtype],
                 _build.stream_of(q))
     _build.check(rc, "flash_attention")
-    launches += 1
-    launches_by_shape[shape_key(q, k, v, window)] += 1
+    with _lock:
+        launches += 1
+        launches_by_shape[shape_key(q, k, v, window)] += 1
     return out

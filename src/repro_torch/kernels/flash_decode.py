@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from collections import Counter
 from typing import Dict, List, Optional, Tuple
 
@@ -27,6 +28,9 @@ from . import _build
 
 launches = 0
 launches_by_shape: Counter = Counter()
+# guards the counters and the scratch dict: serving workers launch from
+# several threads
+_lock = threading.Lock()
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -65,12 +69,13 @@ def _scratch_for(dev: torch.device, stream: int, n_part: int,
     asked for.  Tickets are zeroed when they are allocated; the kernel
     resets each to 0, so no call needs a memset."""
     key = (dev.index, stream)
-    part, tickets = _scratch.get(key, (None, None))
-    if part is None or part.numel() < n_part:
-        part = torch.empty(n_part, dtype=torch.float32, device=dev)
-    if tickets is None or tickets.numel() < n_tickets:
-        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=dev)
-    _scratch[key] = (part, tickets)
+    with _lock:
+        part, tickets = _scratch.get(key, (None, None))
+        if part is None or part.numel() < n_part:
+            part = torch.empty(n_part, dtype=torch.float32, device=dev)
+        if tickets is None or tickets.numel() < n_tickets:
+            tickets = torch.zeros(n_tickets, dtype=torch.int32, device=dev)
+        _scratch[key] = (part, tickets)
     return part, tickets
 
 
@@ -140,6 +145,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 B, H, Hkv, S, D, Dv, splits, sm_scale,
                 _build.DTYPE_CODES[q.dtype], stream)
     _build.check(rc, "flash_decode")
-    launches += 1
-    launches_by_shape[shape_key(q, k, v)] += 1
+    with _lock:
+        launches += 1
+        launches_by_shape[shape_key(q, k, v)] += 1
     return (out, lse) if return_lse else out

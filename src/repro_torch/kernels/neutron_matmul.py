@@ -9,22 +9,30 @@ One int8 (or f32/bf16) GEMM body with two epilogues:
   * :func:`neutron_matmul_plan`, the int8 plan replay's contract:
     ``q = clip(rint(act(f32(acc + bias) * sc) / s_out) + zp_out)`` with
     strided, batched operands, so a conv reads its input slot of the
-    arena and writes its output slot in place.
+    arena and writes its output slot in place;
+  * :func:`neutron_matmul_nk`, the Pallas contract in float32 as the
+    float32 plan calls it: ``act(x @ w + bias)`` with the weight given
+    as the (N, K) matrix the plan stores once at lowering, and strided,
+    batched operands written in place, as in the plan contract.
 
-Their plain PyTorch versions are ``ref.neutron_matmul_ref`` and
-``ref.neutron_matmul_plan_ref``; ``ops`` chooses between kernel and plain
-version by the device of the inputs.
+Their plain PyTorch versions are ``ref.neutron_matmul_ref``,
+``ref.neutron_matmul_plan_ref`` and ``ref.neutron_matmul_nk_ref``;
+``ops`` chooses between kernel and plain version by the device of the
+inputs.
 
 The int8 body runs on the tensor cores; its load width, span mode and
 k-split come from :func:`plan`, a pure function of the shapes, strides
 and base addresses.  The split scratch is kept per (device, stream).
 
-``launches`` counts the kernel launches of this process (both
-contracts).
+``launches`` counts the kernel launches of this process (every
+contract), ``launches_by_contract`` the same launches by
+``contract_key``.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
+from collections import Counter
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -33,6 +41,10 @@ from . import _build
 from .ref import IR_ACTIVATIONS
 
 launches = 0
+launches_by_contract: Counter = Counter()
+# guards the counters and the scratch dict: serving workers launch from
+# several threads
+_lock = threading.Lock()
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
              + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
@@ -119,14 +131,23 @@ def _scratch_for(dev: torch.device, stream: int, tiles: int
     """The split scratch of (device, stream), grown to ``tiles`` tiles;
     zeroed when allocated, reset to 0 by the kernel after each use."""
     key = (dev.index, stream)
-    part, tickets = _scratch.get(key, (None, None))
-    if part is None or part.numel() < tiles * TILE * TILE:
-        part = torch.zeros(tiles * TILE * TILE, dtype=torch.int32,
-                           device=dev)
-    if tickets is None or tickets.numel() < tiles:
-        tickets = torch.zeros(tiles, dtype=torch.int32, device=dev)
-    _scratch[key] = (part, tickets)
+    with _lock:
+        part, tickets = _scratch.get(key, (None, None))
+        if part is None or part.numel() < tiles * TILE * TILE:
+            part = torch.zeros(tiles * TILE * TILE, dtype=torch.int32,
+                               device=dev)
+        if tickets is None or tickets.numel() < tiles:
+            tickets = torch.zeros(tiles, dtype=torch.int32, device=dev)
+        _scratch[key] = (part, tickets)
     return part, tickets
+
+
+def contract_key(contract: int, dtype: torch.dtype) -> str:
+    """What ``launches_by_contract`` counts a launch under: the contract
+    and the operands' dtype, e.g. ``"plan int8"`` or ``"pallas
+    float32"``."""
+    return (f"{'plan' if contract == _PLAN else 'pallas'} "
+            f"{str(dtype).removeprefix('torch.')}")
 
 
 def _act_code(act: Optional[str]) -> int:
@@ -183,7 +204,9 @@ def _launch(x, w, scale, bias, y, rows, N, ldy, y_bstride, out_code,
                 tickets.data_ptr() if tickets is not None else None,
                 stream)
     _build.check(rc, "neutron_matmul")
-    launches += 1
+    with _lock:
+        launches += 1
+        launches_by_contract[contract_key(contract, x.dtype)] += 1
 
 
 def _check_cuda(*ts) -> None:
@@ -289,4 +312,42 @@ def neutron_matmul_plan(x: torch.Tensor, w: torch.Tensor,
     _launch(x, w, sc, bias, out, rows, N, out.stride(1), out.stride(0),
             _CODES[torch.int8], _PLAN, _act_code(act), int(sc.numel() > 1),
             1, float(out_scale), int(out_zp), int(qmin), int(qmax))
+    return out
+
+
+def neutron_matmul_nk(x: torch.Tensor, wt: torch.Tensor,
+                      bias: Optional[torch.Tensor], act: str,
+                      out: torch.Tensor) -> torch.Tensor:
+    """The Pallas contract in float32 with an (N, K) weight, written into
+    ``out`` in place: ``out[b,m,n] = act(sum_k x[b,m,k] wt[n,k] +
+    bias[n])``, accumulated in f32 on FMAs (no TF32).
+
+    x float32 (batch, M, K) or (batch, R, C, K) (M = R*C rows, e.g. a
+    strided view of an arena slot), unit stride along K; wt float32 (N, K)
+    contiguous; bias float32 (N,) or None; out float32 (batch, M, N) with
+    unit stride along N and rows at a uniform pitch (any batch stride).
+    ``act`` is one of the IR's activations."""
+    rows = _rows(x)
+    B, M, K = rows[:3]
+    f32 = torch.float32
+    if x.dtype != f32 or wt.dtype != f32 or out.dtype != f32:
+        raise TypeError(f"neutron_matmul_nk takes float32 x, wt and out; "
+                        f"got {x.dtype}, {wt.dtype}, {out.dtype}")
+    N = wt.shape[0]
+    if wt.shape != (N, K) or not wt.is_contiguous():
+        raise ValueError(f"wt must be contiguous ({N}, {K}); got "
+                         f"{tuple(wt.shape)}")
+    if x.stride(-1) != 1 or out.stride(-1) != 1:
+        raise ValueError("x and out need unit stride along their last axis")
+    if out.dim() != 3 or tuple(out.shape) != (B, M, N):
+        raise ValueError(f"out must be ({B}, {M}, {N}); got "
+                         f"{tuple(out.shape)}")
+    if bias is not None and (bias.dtype != f32 or bias.shape != (N,)
+                             or not bias.is_contiguous()):
+        raise TypeError(f"bias must be contiguous float32 ({N},)")
+    if min(B, M, K, N) < 1:
+        raise ValueError("empty operand")
+    _check_cuda(x, wt, bias, out)
+    _launch(x, wt, None, bias, out, rows, N, out.stride(1), out.stride(0),
+            _CODES[f32], _PALLAS, _act_code(act), 0, 0, 1.0, 0, -128, 127)
     return out

@@ -84,6 +84,15 @@ def neutron_matmul_plan(x, w, bias, sc, act: str, out_scale: float,
                                    qmin, qmax, out)
 
 
+def neutron_matmul_nk(x, wt, bias, act: str, out, impl: str = "auto"):
+    """The Pallas contract in float32 with an (N, K) weight, written into
+    ``out`` (batch, M, N) in place; see
+    ``neutron_matmul.neutron_matmul_nk``."""
+    if _plain(impl, x):
+        return out.copy_(_ref.neutron_matmul_nk_ref(x, wt, bias, act))
+    return _nm.neutron_matmul_nk(x, wt, bias, act, out)
+
+
 # --------------------------------------------------------------------------
 # flash attention (prefill)
 # --------------------------------------------------------------------------

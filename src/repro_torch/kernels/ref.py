@@ -127,6 +127,20 @@ def neutron_matmul_ref(x: torch.Tensor, w: torch.Tensor,
                                 else torch.float32))
 
 
+def neutron_matmul_nk_ref(x: torch.Tensor, wt: torch.Tensor,
+                          bias: Optional[torch.Tensor],
+                          act: str) -> torch.Tensor:
+    """The Pallas contract in float32 with an (N, K) weight, on x
+    float32 (batch, M, K) or (batch, R, C, K): ``act(x @ wt^T + bias)``
+    as float32 (batch, M, N), ``act`` one of the IR's activations
+    (``ir_activation``)."""
+    x = x.reshape(x.shape[0], -1, x.shape[-1])
+    y = x @ wt.t()
+    if bias is not None:
+        y = y + bias
+    return ir_activation(y, act).to(torch.float32)
+
+
 def neutron_matmul_plan_ref(x: torch.Tensor, w: torch.Tensor,
                             bias: Optional[torch.Tensor], sc: torch.Tensor,
                             act: str, out_scale: float, out_zp: int,

@@ -15,6 +15,7 @@ heads) computing C·Bᵀ once for the group; ``head_group`` picks the group.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Tuple
 
 import torch
@@ -22,6 +23,7 @@ import torch
 from . import _build
 
 launches = 0
+_lock = threading.Lock()             # the counter, across threads
 
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 MAX_DIM = 128               # chunk, N and P are at most this
@@ -99,5 +101,6 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 head_group(Bsz * nc, H), _build.DTYPE_CODES[x.dtype],
                 _build.stream_of(x))
     _build.check(rc, "ssd_chunk")
-    launches += 1
+    with _lock:
+        launches += 1
     return y, contrib, total, seg

@@ -35,18 +35,16 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch import resolve_device
-from repro_torch.core.execplan import PlanConsts, PlanStep
+from repro_torch.core.execplan import (CAUSAL_KINDS, PlanConsts, PlanStep,
+                                       im2col, pad_hw, taps)
 from repro_torch.core.ir import Graph
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ir_activation
 
 from .ptq import _NEG_SENTINEL, QuantizedModel
 from .qparams import dequantize_t, device_scalar, quantize_t
-
-_CAUSAL = ("matmul", "layernorm", "softmax", "attention", "kvappend")
 
 
 def _gemm_consts(qm: QuantizedModel, op, zp: int,
@@ -130,19 +128,6 @@ def _out_params(qp) -> Tuple[float, int, int, int]:
             int(np.atleast_1d(qp.zero_point)[0]), qp.qmin, qp.qmax)
 
 
-def _taps(xp: torch.Tensor, fh: int, fw: int, s: int, oh: int, ow: int):
-    """The (i, j) windows of a padded (n, H, W, C) tensor, row-major."""
-    for i in range(fh):
-        for j in range(fw):
-            yield i * fw + j, xp[:, i:i + oh * s:s, j:j + ow * s:s, :]
-
-
-def _pad(x: torch.Tensor, pt: int, pb: int, pl: int, pr: int, value):
-    if (pt, pb, pl, pr) == (0, 0, 0, 0):
-        return x
-    return F.pad(x, (0, 0, pl, pr, pt, pb), value=value)
-
-
 def lower_quant_steps(qm: QuantizedModel, g: Graph, tiling, program,
                       weights: Dict[str, np.ndarray],
                       ids: Dict[str, int],
@@ -159,7 +144,7 @@ def lower_quant_steps(qm: QuantizedModel, g: Graph, tiling, program,
     for op in g.topo_ops():
         a = op.attrs
         k = op.kind
-        if k in _CAUSAL:
+        if k in CAUSAL_KINDS:
             raise NotImplementedError(
                 f"{op.name}: the causal op {k!r} is not ported to the "
                 f"device plan yet (ROADMAP.md item 8)")
@@ -195,10 +180,11 @@ def lower_quant_steps(qm: QuantizedModel, g: Graph, tiling, program,
                         fh=fh, fw=fw, s=s, oh=oh, ow=ow, ker=ker, bias=bias,
                         sc=sc, act=act, out_qp=out_qp):
                     # tap-by-tap int32 accumulation off the padded input
-                    xp = _pad(bufs[xid][:n], *pad, value=zp).to(torch.int32)
+                    xp = pad_hw(bufs[xid][:n], *pad,
+                                value=zp).to(torch.int32)
                     acc = torch.zeros((n, oh, ow, ker.shape[1]),
                                       dtype=torch.int32, device=xp.device)
-                    for t, win in _taps(xp, fh, fw, s, oh, ow):
+                    for t, win in taps(xp, fh, fw, s, oh, ow):
                         acc += win * ker[t]
                     acc += bias
                     y = acc.to(torch.float32) * sc
@@ -215,13 +201,7 @@ def lower_quant_steps(qm: QuantizedModel, g: Graph, tiling, program,
                         xin = xq[:, ::s, ::s, :] if s != 1 \
                             else xq.view(n, H * W, C)
                     else:
-                        xp = _pad(xq, *pad, value=zp)
-                        cols = torch.empty((n, oh, ow, fh * fw, C),
-                                           dtype=torch.int8,
-                                           device=xq.device)
-                        for t, win in _taps(xp, fh, fw, s, oh, ow):
-                            cols[:, :, :, t, :] = win
-                        xin = cols.view(n, oh * ow, fh * fw * C)
+                        xin = im2col(xq, pad, fh, fw, s, oh, ow, zp)
                     ops.neutron_matmul_plan(
                         xin, ker, bias, sc, act, *outp,
                         out=bufs[oid][:n].view(n, oh * ow, oc))
@@ -297,10 +277,10 @@ def lower_quant_steps(qm: QuantizedModel, g: Graph, tiling, program,
                     pad=tuple(a["pad"]), oh=oh, ow=ow, oid=oid,
                     out_qp=out_qp):
                 # max in the int domain, sentinel padding, one requant
-                xp = _pad(bufs[xid][:n].to(torch.int32), *pad,
+                xp = pad_hw(bufs[xid][:n].to(torch.int32), *pad,
                           value=int(_NEG_SENTINEL))
                 y = None
-                for _, win in _taps(xp, kk, kk, s, oh, ow):
+                for _, win in taps(xp, kk, kk, s, oh, ow):
                     y = win if y is None else torch.maximum(y, win)
                 bufs[oid][:n].copy_(quantize_t(dequantize_t(y, in_qp),
                                                out_qp))
@@ -328,10 +308,10 @@ def lower_quant_steps(qm: QuantizedModel, g: Graph, tiling, program,
                         s=s, pad=tuple(a["pad"]), oh=oh, ow=ow, oid=oid,
                         out_qp=out_qp):
                     xi = bufs[xid][:n].to(torch.int32) - zp
-                    xp = _pad(xi, *pad, value=0)
+                    xp = pad_hw(xi, *pad, value=0)
                     acc = torch.zeros((n, oh, ow, xp.shape[-1]),
                                       dtype=torch.int32, device=xp.device)
-                    for _, win in _taps(xp, kk, kk, s, oh, ow):
+                    for _, win in taps(xp, kk, kk, s, oh, ow):
                         acc += win
                     y = acc.to(torch.float32) * device_scalar(r, acc)
                     bufs[oid][:n].copy_(quantize_t(y, out_qp))

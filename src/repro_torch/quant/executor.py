@@ -104,7 +104,7 @@ class QuantSemantics(ExecSemantics):
             return dequantize_t(arr, self.qm.qp(tensor))
         return dequantize(arr, self.qm.qp(tensor))
 
-    def plan_parity_tol(self, tensor: str) -> float:
+    def plan_parity_tol(self, tensor: str, want=None) -> float:
         if self.qm.graph.tensors[tensor].qparams is None:
             return 1e-6
         return self._scale(tensor) + 1e-7   # one output quant step

@@ -11,6 +11,7 @@ int8 outputs are compared with torch.equal wherever its epilogue is
 piecewise linear.
 """
 import math
+import time
 
 import pytest
 import torch
@@ -599,3 +600,220 @@ def test_ssd_chunk_bf16_small_matches_plain(dev, B, H, group, pad):
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == torch.float32
         torch.testing.assert_close(g, w, atol=2e-3, rtol=1e-3)
+
+
+# --------------------------------------------------------------------------
+# K1's float32 Pallas contract and the Session on the card (ROADMAP 6b, 7)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,R,C,K,N,stride,act", [
+    (8, 112, 112, 27, 32, 1, "relu6"),     # mobilenet_v2 stem (im2col)
+    (8, 7, 7, 320, 1280, 1, "relu6"),      # mobilenet_v2 last 1x1
+    (8, 1, 1, 1280, 1000, 1, "none"),      # mobilenet_v2 fc
+    (3, 14, 14, 96, 40, 2, "hswish"),      # 1x1 stride 2, read in place
+    (2, 9, 9, 33, 70, 1, "gelu"),
+])
+def test_neutron_matmul_nk_matches_plain(dev, B, R, C, K, N, stride, act):
+    """K1 in its Pallas contract with float32 operands and an (N, K)
+    weight, as the float32 plan calls it: x a strided view, the output
+    written in place at a row pitch; f32 atol 2e-3 / rtol 1e-3 against
+    the plain version (cuBLAS, TF32 off)."""
+    gen = torch.Generator(device=dev).manual_seed(K + N)
+    x = _randn(gen, (B, R * stride, C * stride, K), torch.float32, dev)
+    xin = x[:, ::stride, ::stride, :]
+    wt = _randn(gen, (N, K), torch.float32, dev) / math.sqrt(K)
+    bias = _randn(gen, (N,), torch.float32, dev)
+    buf = torch.zeros((B, R * C + 3, N), dtype=torch.float32, device=dev)
+    out = buf[:, :R * C]
+    n0 = t_k1.launches
+    c0 = t_k1.launches_by_contract["pallas float32"]
+    ops.neutron_matmul_nk(xin, wt, bias, act, out)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = ref.neutron_matmul_nk_ref(xin, wt, bias, act)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.cuda.synchronize()
+    assert t_k1.launches == n0 + 1
+    assert t_k1.launches_by_contract["pallas float32"] == c0 + 1
+    torch.testing.assert_close(out, want, atol=2e-3, rtol=1e-3)
+    assert not buf[:, R * C:].any()
+
+
+def _served_graph(name: str, seed: int = 0):
+    """A small graph of every vision kind the plans lower, built with the
+    port's GraphBuilder (this file imports no JAX)."""
+    from repro_torch.core.ir import GraphBuilder
+    b = GraphBuilder(name, seed=seed)
+    x = b.input((16, 16, 8))
+    x = b.conv(x, 16, k=3, act="relu")
+    y = b.dwconv(x, k=3, act="relu6")
+    x = b.add(x, y, act="relu")
+    x = b.conv(x, 16, k=1, s=2, act="silu")
+    x = b.maxpool(x, k=2)
+    x = b.scalar(x, "mul", 0.5)
+    x = b.activation(x, "hswish")
+    lo, hi = b.split(x, 2)
+    x = b.concat([lo, hi])
+    x = b.resize(x, 2)
+    x = b.global_avgpool(x)
+    b.mark_output(b.fc(x, 10))
+    return b.build(), b
+
+
+def _session_models(device, precision):
+    import repro_torch.api as tapi
+    return tapi.compile(_served_graph(f"served_{precision}"),
+                        precision=precision, calib_samples=2, cache=False,
+                        device=device)
+
+
+def test_session_on_the_card_serves_int8_and_float32(dev):
+    """Two worker threads, each on its own stream, serve an int8 and a
+    float32 model: int8 outputs equal the plain path's on the CPU, the
+    float32 ones lie within ``float_plan_tol`` of it; every conv and fc
+    of every batch ran on K1."""
+    import numpy as np
+    import repro_torch.api as tapi
+    from repro_torch.core.executor import float_plan_tol
+
+    sess = tapi.Session(workers=2, max_batch=4, linger_ms=1.0)
+    try:
+        cpu = {}
+        for p in ("int8", "float32"):
+            sess.add(_session_models(dev, p), name=p)
+            cpu[p] = _session_models("cpu", p)
+        convs = sum(op.kind in ("conv", "fc")
+                    for op in sess["int8"].graph.ops)
+        xs = np.random.default_rng(0).normal(
+            size=(24, 16, 16, 8)).astype(np.float32)
+        n0 = t_k1.launches
+        tickets = [(p, i, sess.submit(p, xs[i]))
+                   for i in range(24) for p in ("int8", "float32")]
+        for p, i, t in tickets:
+            got = t.result(timeout=60)
+            want = cpu[p].run_many([xs[i]])[0]
+            for k, w in want.items():
+                assert got[k].device.type == "cpu"
+                if p == "int8":
+                    assert torch.equal(got[k], w), (p, i, k)
+                else:
+                    err = float((got[k] - w).abs().max())
+                    assert err <= float_plan_tol(w.numpy()), (p, i, k, err)
+        st = sess.stats()
+        batches = sum(st["models"][p]["batches"] for p in cpu)
+        assert t_k1.launches - n0 == convs * batches
+        streams = [h["stream"] for h in st["workers"].values()]
+        assert None not in streams and len(set(streams)) == 2
+    finally:
+        sess.close()
+
+
+def test_session_sync_launch_error_fails_only_its_batch(dev):
+    """A launch that the launch function refuses at once
+    (``cudaErrorInvalidValue``, a synchronous error), on one worker's
+    stream behind kernels still running there (a long
+    ``torch.cuda._sleep``), fails the tickets of that batch (and of its
+    retry on the same stream) and no other: every other ticket equals
+    the plain path's ints.  An asynchronous device fault (an illegal
+    address, a trap) is not injected: it is sticky and poisons the CUDA
+    context of every worker of the process."""
+    import threading
+
+    import numpy as np
+    import repro_torch.api as tapi
+    from repro_torch.kernels import _build
+
+    sess = tapi.Session(workers=2, max_batch=4, linger_ms=1.0,
+                        retry_backoff_ms=1.0, breaker_threshold=100)
+    try:
+        model = sess.add(_session_models(dev, "int8"), name="m")
+        cpu = _session_models("cpu", "int8")
+        st = model.lower()[0][0]              # the first conv: K1
+        orig, lock = st.run, threading.Lock()
+        poison = {"stream": None, "left": 2}
+        fn = _build.function("neutron_matmul", "neutron_matmul_launch",
+                             t_k1._ARGTYPES)
+
+        def faulty(bufs, n):
+            s = torch.cuda.current_stream().cuda_stream
+            with lock:
+                hit = poison["left"] > 0 and poison["stream"] in (None, s)
+                if hit:
+                    poison["stream"] = s
+                    poison["left"] -= 1
+            orig(bufs, n)
+            if hit:
+                torch.cuda._sleep(50_000_000)
+                # batch 0: the launch function refuses the launch with
+                # cudaErrorInvalidValue, and the wrapper's check raises
+                rc = fn(*([None] * 5 + [0, 1, 1, 1] + [0, 1, 0, 0, 0, 1]
+                          + [0] * 6 + [1.0] + [0] * 5 + [None, None, s]))
+                _build.check(rc, "neutron_matmul")
+        st.run = faulty
+        xs = np.random.default_rng(2).normal(
+            size=(32, 16, 16, 8)).astype(np.float32)
+        tickets = [sess.submit("m", x) for x in xs]
+        failed = []
+        for i, t in enumerate(tickets):
+            try:
+                got = t.result(timeout=60)
+            except Exception as e:
+                failed.append(e)
+                continue
+            for k, w in cpu.run_many([xs[i]])[0].items():
+                assert torch.equal(got[k], w), (i, k)
+        assert poison["left"] == 0
+        assert 1 <= len(failed) <= 4
+        assert len({id(e) for e in failed}) == 1       # one batch's error
+        assert "CUDA error" in str(failed[0])
+        assert sess.stats()["models"]["m"]["retries"] >= 1
+    finally:
+        sess.close()
+
+
+def test_session_open_breaker_on_the_card_fails_fast_then_recovers(dev):
+    """On a CUDA session the open breaker fails a batch fast with
+    ``BreakerOpen`` and a retry hint, launching nothing and serving
+    nothing from the host; the probe then verifies the re-lowered plan on
+    the card, and the model serves the plain path's ints on K1 again."""
+    import numpy as np
+    import repro_torch.api as tapi
+    import repro_torch.runtime.chaos as chaos
+
+    sess = tapi.Session(workers=1, max_batch=4, linger_ms=1.0,
+                        retry_backoff_ms=1.0, breaker_threshold=2,
+                        breaker_cooldown_s=1.0)
+    try:
+        model = sess.add(_session_models(dev, "int8"), name="m")
+        cpu = _session_models("cpu", "int8")
+        convs = sum(op.kind in ("conv", "fc") for op in model.graph.ops)
+        x = np.random.default_rng(3).normal(
+            size=(16, 16, 8)).astype(np.float32)
+        want = cpu.run_many([x])[0]
+        with chaos.inject() as c:
+            for _ in range(2):
+                c.poison_plan("m", times=2)
+                with pytest.raises(chaos.ChaosError):
+                    sess.submit("m", x).result(timeout=60)
+            n0 = t_k1.launches
+            with pytest.raises(tapi.BreakerOpen) as e:
+                sess.submit("m", x).result(timeout=60)
+            assert t_k1.launches == n0
+        assert 0 < e.value.retry_after_ms <= 1e3
+        st = sess.stats()["models"]["m"]
+        assert st["breaker_rejects"] == 1 and st["degraded_requests"] == 0
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and not (
+                sess.stats()["models"]["m"]["recoveries"]):
+            time.sleep(0.05)
+        assert sess.stats()["models"]["m"]["breaker"]["state"] == "closed"
+        n0 = t_k1.launches
+        got = sess.submit("m", x).result(timeout=60)
+        assert t_k1.launches - n0 == convs
+        for k, w in want.items():
+            assert torch.equal(got[k], w), k
+    finally:
+        sess.close()

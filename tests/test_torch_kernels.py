@@ -301,6 +301,17 @@ def test_neutron_matmul_rows_contiguous(args, contiguous):
     assert t_k1.rows_contiguous(*args) == contiguous
 
 
+@pytest.mark.parametrize("contract,dtype,key", [
+    (t_k1._PLAN, torch.int8, "plan int8"),
+    (t_k1._PALLAS, torch.int8, "pallas int8"),
+    (t_k1._PALLAS, torch.float32, "pallas float32"),
+    (t_k1._PALLAS, torch.bfloat16, "pallas bfloat16"),
+])
+def test_neutron_matmul_contract_key(contract, dtype, key):
+    """What K1's ``launches_by_contract`` counts a launch under."""
+    assert t_k1.contract_key(contract, dtype) == key
+
+
 @pytest.mark.parametrize("pairs,H,group", [
     (8, 80, 3),      # zamba2-2.7b prefill: 216 blocks
     (8, 32, 1),      # mamba2-370m: 256 blocks

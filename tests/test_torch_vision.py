@@ -447,13 +447,15 @@ def test_serve_vision_raises_without_a_gpu(monkeypatch):
 
 
 def test_unported_paths_raise_naming_their_item():
+    from repro_torch.core.executor import FLOAT_SEMANTICS
     from repro_torch.core.ir import GraphBuilder
-    with pytest.raises(NotImplementedError, match="item 7"):
-        t_execplan.lower_float_steps()
     b = GraphBuilder("causal", seed=0)
     x = b.input((4, 1, 8))
     b.mark_output(b.matmul(x, 8))
     g = b.build()
+    with pytest.raises(NotImplementedError, match="item 8"):
+        lower_plan(None, g, None, b._weights, FLOAT_SEMANTICS,
+                   device="cpu")
     cal = tquant.synthetic_calibration(g, samples=1)
     qm = tquant.quantize_graph(g, b._weights,
                                tquant.calibrate(g, b._weights, cal))
