@@ -16,7 +16,10 @@ each of which ends the run with a nonzero exit and no result on failure:
    shapes each serving path gives it (bf16; int8 for K1 at the vision
    plans' shapes, compared for equality) and at small ragged cases (f32;
    K4 also bf16 with N, P not multiples of 16; K1 also in its Pallas
-   contract: f32, bf16, int8 requant, per-channel scale), timed beside its
+   contract: f32, bf16, int8 requant, per-channel scale; K1 at both
+   contracts, K2 and K3 in float32 at phase 13's decoder shapes, K2 with
+   its query offset, which probes hold at lanes of different offsets;
+   ``strided_ms``, the call on the plan's cache-slot views), timed beside its
    plain version, one PyTorch library call for the same function where
    there is one (for K1 `torch._int_mm`, on zero-padded copies where its
    shape rules refuse the shape; for K1's float32 rows, at the float32
@@ -71,7 +74,23 @@ each of which ends the run with a nonzero exit and no result on failure:
    open (nothing launched, nothing moved to the host), the probe's
    recovery, then equal ints on K1 again, no ticket lost.  Requests/s, p50 / p99
    latency, mean batch size, batch service ms and the float32 replay ms
-   at batch 1 and 8 are printed.
+   at batch 1 and 8 are printed;
+13. LM decode on the NPU compile path: ``repro_torch.api.DecodeSession``
+   serving the whisper-tiny decoder of ``frontends/lm.py`` at full width
+   (4 layers, d_model 384, 6 heads of 64, d_ff 1536, vocab 51865) at
+   float32 and at int8: its 7 (seq, kv) models compiled (seconds
+   printed) and loaded, from their artifacts, into the same session on
+   the CPU; request A (prompt 6) and B (prompt 60) alone, every prefill
+   and step held teacher-forced against the CPU session (float32 logits
+   and caches within ``float_plan_tol``; int8 stored ints within one
+   step, the count printed per step), the greedy tokens against the CPU
+   session's (equal at float32; the first divergence printed at int8);
+   then A and B interleaved step by step with the counters from 0: the
+   tokens equal the solo runs, K1 25 a step (by contract), K3 4 a decode
+   step and K2 4 a prefill (by shape, at shapes phase 2 times), every
+   plan built once.  Prefill ms, decode ms per token, tokens/s, the
+   device busy share of a decode step (torch.profiler) and kernels a
+   step are printed.
 
 For the two SSM paths the prefill-vs-replay agreement is held in
 float32 at full width (TF32 off) and reported in bf16, beside how far
@@ -297,6 +316,31 @@ K1_SHAPES = (
     K1Shape("resnet50_v1", "fc", 1, 2048, 1000, "none"),
 )
 
+# phase 13: the whisper-tiny decoder of the LM decode path at full width
+# (src/repro_torch/configs/whisper_tiny.py: 4 layers, d_model 384, 6 heads
+# of 64, d_ff 1536, gelu, vocab 51865; nothing cut), compiled through
+# DecodeSession at float32 and at int8.  Request A's prompt has the length
+# of BENCH_decode.json's (6) and crosses kv 8 -> 16 -> 32 -> 64; B's (60)
+# prefills at s64/kv64 and grows to kv 128.  Each gets DECODE_NEW tokens:
+# the prefill's and DECODE_NEW - 1 decode steps.
+DECODER = dict(scale=1, n_layers=4, vocab=51865)
+DECODER_WIDTH = (4, 384, 6, 64, 1536, 51865)
+DECODE_PROMPTS = (6, 60)
+DECODE_NEW = 40
+DECODE_PRECISIONS = ("float32", "int8")
+DECODE_TIMED = 5        # warm prefills timed per request
+DECODE_PROFILED = 8     # decode steps under torch.profiler
+DECODER_PATH = "whisper-tiny decoder"
+# K1 at the decoder's matmuls (one per precision row, batch 1): the logits
+# of a decode step and of B's prefill (N = 51865: the int8 output pitch is
+# odd), the feed-forward's second matmul (K = 1536) and its first (gelu)
+DECODER_K1_SHAPES = (
+    K1Shape(DECODER_PATH, "logits, decode step", 1, 384, 51865, "none"),
+    K1Shape(DECODER_PATH, "logits, prefill s64", 64, 384, 51865, "none"),
+    K1Shape(DECODER_PATH, "ff out (K 1536)", 1, 1536, 384, "none"),
+    K1Shape(DECODER_PATH, "ff in (gelu)", 1, 384, 1536, "gelu"),
+)
+
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
@@ -351,6 +395,9 @@ def call_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+PROFILE_LEAD = 8
+
+
 def device_ms(torch, fn, iters: int = 30, warmup: int = 3,
               attempts: int = 3) -> float:
     """Median over `iters` calls of the device time of the CUDA kernels
@@ -369,9 +416,12 @@ def device_ms(torch, fn, iters: int = 30, warmup: int = 3,
     torch.cuda.synchronize()
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            # one call more than is counted: the kernels before the
-            # second flush are discarded
-            for _ in range(iters + 1):
+            # the device's first microseconds in a session may go
+            # unrecorded (a few short calls were seen to vanish there):
+            # a pause first, then PROFILE_LEAD calls more than are
+            # counted, whose kernels are discarded
+            time.sleep(0.01)
+            for _ in range(iters + PROFILE_LEAD):
                 flush.bitwise_not_()
                 fn()
             torch.cuda.synchronize()
@@ -703,6 +753,7 @@ def phase_kernels(torch, F, ops):
             rows[("flash_attention", a.tag)] = k2_row(torch, F, ops, randn, a)
         for a in k3_shapes:
             rows[("flash_decode", a.tag)] = k3_row(torch, F, ops, randn, a)
+    decoder_attention_rows(torch, F, ops, randn, rows)
 
     # ssd_chunk at the prefill shapes: the prompt of 200 padded to 256
     print("  ssd_chunk: library_ms is null; no single PyTorch call computes "
@@ -737,8 +788,10 @@ def phase_kernels(torch, F, ops):
     for r in rows.values():
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} (call {r['library_call_ms']:.4f})"
+        strided = "" if "strided_ms" not in r else \
+            f", {r['strided_ms']:.4f} from the slots' views"
         print(f"  {r['name']} [{r['path']}] {r['shape']}: device "
-              f"{r['ms']:.4f} ms, call {r['call_ms']:.4f} (plain "
+              f"{r['ms']:.4f} ms{strided}, call {r['call_ms']:.4f} (plain "
               f"{r['plain_ms']:.4f}, library {lib}, bound "
               f"{r['bound_ms']:.5f} by {r['bound_by']}), max|err| "
               f"{r['max_abs_err']:.3g}")
@@ -771,9 +824,8 @@ def int_mm(torch, x2, w):
 def phase_k1(torch, ops, rows):
     """K1 against its plain version: its Pallas contract at small ragged
     cases, then the plan contract at the vision paths' shapes (batch 8),
-    where the int8 outputs must be equal."""
-    from repro_torch.kernels import ref
-
+    where the int8 outputs must be equal, the float32 contract at the
+    float32 plan's, and both at the decoder's of phase 13."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def randn(*shape, dtype=torch.float32):
@@ -811,67 +863,93 @@ def phase_k1(torch, ops, rows):
           f"requant: equal; per-channel scale (16,128)x(128,32): max|err| "
           f"{e:.3g}")
 
-    B = VISION_BATCH
     for shp in K1_SHAPES:
-        M = B * shp.rows
-        x = randint(-128, 128, B, shp.rows, shp.K)
-        w = randint(-127, 128, shp.N, shp.K)
-        bias = randint(-20000, 20000, shp.N, dtype=torch.int32)
-        # rescale so that act(y) spans a few units: outputs fill the grid
-        sc = (torch.rand(shp.N, generator=gen, device="cuda") + 0.5) \
-            * (2.0 / (math.sqrt(shp.K) * 5461))
-        out = torch.empty((B, shp.rows, shp.N), dtype=torch.int8,
-                          device="cuda")
-        args = (x, w, bias, sc, shp.act, 0.05, -5, -128, 127)
-        ops.neutron_matmul_plan(*args, out)
-        want = ref.neutron_matmul_plan_ref(*args)
-        err = int((out.int() - want.int()).abs().max())
-        if err:
-            fail(f"neutron_matmul {shp.path} {shp.what}: the int8 plan "
-                 f"epilogue differs from its plain version by {err}")
-        lib_fn, lib = int_mm(torch, x.view(M, shp.K), w)
-        b_ms, b_by = bound(nbytes(x, w, bias, sc, out),
-                           2 * M * shp.N * shp.K, "int8")
-        rows[("neutron_matmul", f"{shp.path}: {shp.what}")] = dict(
-            name="neutron_matmul", path=shp.path, route="cuda",
-            source="src/repro_torch/csrc/neutron_matmul.cu",
-            replaces="src/repro/kernels/neutron_matmul.py:137",
-            shape=f"{shp.what}: x ({B},{shp.rows},{shp.K}) int8, w "
-                  f"({shp.N},{shp.K}), {shp.act}, int8 plan epilogue "
-                  f"(library: {lib})",
-            max_abs_err=float(err), bound_ms=b_ms, bound_by=b_by,
-            **timings(torch, lambda: ops.neutron_matmul_plan(*args, out),
-                      lambda: ref.neutron_matmul_plan_ref(*args), lib_fn))
-
+        k1_plan_row(torch, ops, rows, randint, gen, shp, VISION_BATCH)
     # the float32 Pallas contract with an (N, K) weight, as the float32
     # plan calls it; the library call is torch.matmul with TF32 off
     for shp in K1_F32_SHAPES:
-        M = B * shp.rows
-        x = randn(B, shp.rows, shp.K)
-        wt = randn(shp.N, shp.K) / math.sqrt(shp.K)
-        bias = randn(shp.N)
-        out = torch.empty((B, shp.rows, shp.N), device="cuda")
-        args = (x, wt, bias, shp.act)
-        ops.neutron_matmul_nk(*args, out)
-        want = no_tf32(torch, lambda: ref.neutron_matmul_nk_ref(*args))
-        err = check_close(torch, f"neutron_matmul f32 {shp.what}", out,
-                          want, "float32")
-        x2, w_kn = x.view(M, shp.K), wt.t()
-        b_ms, b_by = bound(nbytes(x, wt, bias, out), 2 * M * shp.N * shp.K,
-                           "float32")
-        rows[("neutron_matmul", f"{shp.path}: {shp.what}")] = dict(
-            name="neutron_matmul", path=shp.path, route="cuda",
-            source="src/repro_torch/csrc/neutron_matmul.cu",
-            replaces="src/repro/kernels/neutron_matmul.py:137",
-            shape=f"{shp.what}: x ({B},{shp.rows},{shp.K}) f32, w "
-                  f"({shp.N},{shp.K}), bias, {shp.act}, Pallas contract "
-                  f"(library: torch.matmul, TF32 off, no epilogue)",
-            max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-            **timings(torch, lambda: ops.neutron_matmul_nk(*args, out),
-                      lambda: no_tf32(torch, lambda:
-                                      ref.neutron_matmul_nk_ref(*args)),
-                      lambda: no_tf32(torch, lambda:
-                                      torch.matmul(x2, w_kn))))
+        k1_f32_row(torch, ops, rows, randn, shp, VISION_BATCH)
+    # the decoder of phase 13 at one sequence: a decode step (1 row) and
+    # B's prefill (64 rows), whose int8 logits rows lie at an odd pitch
+    for shp in DECODER_K1_SHAPES:
+        k1_plan_row(torch, ops, rows, randint, gen,
+                    shp._replace(path=f"{shp.path} int8"), 1)
+        k1_f32_row(torch, ops, rows, randn,
+                   shp._replace(path=f"{shp.path} float32"), 1)
+
+
+def k1_plan_row(torch, ops, rows, randint, gen, shp: K1Shape, B: int):
+    """K1's int8 plan contract at one GEMM of a path (batch B) against its
+    plain version: equal ints where the activation is piecewise linear,
+    within one step elsewhere (gelu: the kernel's tanh is not torch's);
+    timed beside ``torch._int_mm``."""
+    from repro_torch.kernels import ref
+    M = B * shp.rows
+    x = randint(-128, 128, B, shp.rows, shp.K)
+    w = randint(-127, 128, shp.N, shp.K)
+    bias = randint(-20000, 20000, shp.N, dtype=torch.int32)
+    # rescale so that act(y) spans a few units: outputs fill the grid
+    sc = (torch.rand(shp.N, generator=gen, device="cuda") + 0.5) \
+        * (2.0 / (math.sqrt(shp.K) * 5461))
+    out = torch.empty((B, shp.rows, shp.N), dtype=torch.int8,
+                      device="cuda")
+    args = (x, w, bias, sc, shp.act, 0.05, -5, -128, 127)
+    ops.neutron_matmul_plan(*args, out)
+    want = ref.neutron_matmul_plan_ref(*args)
+    d = (out.int() - want.int()).abs()
+    err = int(d.max())
+    if err > (shp.act not in ("none", "relu", "relu6")):
+        fail(f"neutron_matmul {shp.path} {shp.what}: the int8 plan "
+             f"epilogue differs from its plain version by {err}")
+    if err:
+        print(f"  neutron_matmul {shp.path} {shp.what}: {int((d > 0).sum())}"
+              f" of {d.numel()} ints one step from the plain version "
+              f"({shp.act})")
+    lib_fn, lib = int_mm(torch, x.view(M, shp.K), w)
+    b_ms, b_by = bound(nbytes(x, w, bias, sc, out),
+                       2 * M * shp.N * shp.K, "int8")
+    rows[("neutron_matmul", f"{shp.path}: {shp.what}")] = dict(
+        name="neutron_matmul", path=shp.path, route="cuda",
+        source="src/repro_torch/csrc/neutron_matmul.cu",
+        replaces="src/repro/kernels/neutron_matmul.py:137",
+        shape=f"{shp.what}: x ({B},{shp.rows},{shp.K}) int8, w "
+              f"({shp.N},{shp.K}), {shp.act}, int8 plan epilogue "
+              f"(library: {lib})",
+        max_abs_err=float(err), bound_ms=b_ms, bound_by=b_by,
+        **timings(torch, lambda: ops.neutron_matmul_plan(*args, out),
+                  lambda: ref.neutron_matmul_plan_ref(*args), lib_fn))
+
+
+def k1_f32_row(torch, ops, rows, randn, shp: K1Shape, B: int):
+    """K1's float32 Pallas contract with an (N, K) weight, as the float32
+    plan calls it, at one GEMM of a path (batch B) against its plain
+    version; timed beside torch.matmul with TF32 off."""
+    from repro_torch.kernels import ref
+    M = B * shp.rows
+    x = randn(B, shp.rows, shp.K)
+    wt = randn(shp.N, shp.K) / math.sqrt(shp.K)
+    bias = randn(shp.N)
+    out = torch.empty((B, shp.rows, shp.N), device="cuda")
+    args = (x, wt, bias, shp.act)
+    ops.neutron_matmul_nk(*args, out)
+    want = no_tf32(torch, lambda: ref.neutron_matmul_nk_ref(*args))
+    err = check_close(torch, f"neutron_matmul f32 {shp.what}", out, want,
+                      "float32")
+    x2, w_kn = x.view(M, shp.K), wt.t()
+    b_ms, b_by = bound(nbytes(x, wt, bias, out), 2 * M * shp.N * shp.K,
+                       "float32")
+    rows[("neutron_matmul", f"{shp.path}: {shp.what}")] = dict(
+        name="neutron_matmul", path=shp.path, route="cuda",
+        source="src/repro_torch/csrc/neutron_matmul.cu",
+        replaces="src/repro/kernels/neutron_matmul.py:137",
+        shape=f"{shp.what}: x ({B},{shp.rows},{shp.K}) f32, w "
+              f"({shp.N},{shp.K}), bias, {shp.act}, Pallas contract "
+              f"(library: torch.matmul, TF32 off, no epilogue)",
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+        **timings(torch, lambda: ops.neutron_matmul_nk(*args, out),
+                  lambda: no_tf32(torch, lambda:
+                                  ref.neutron_matmul_nk_ref(*args)),
+                  lambda: no_tf32(torch, lambda: torch.matmul(x2, w_kn))))
 
 
 def no_tf32(torch, fn):
@@ -1697,6 +1775,466 @@ def phase_session(torch, rows, int8_models, images) -> dict:
           f"{VISION_BATCH}; chaos {out['chaos']}")
     return out
 
+# --------------------------------------------------------------------------
+# phase 13 (and its rows of phase 2): LM decode on the NPU compile path
+# --------------------------------------------------------------------------
+
+
+def decoder_spec():
+    from repro_torch.frontends import lm
+    return lm, lm.tiny_spec(**DECODER)
+
+
+def decode_launches(lm, spec):
+    """What phase 13's traffic launches at one precision: K2 and K3 by the
+    wrappers' shape keys (attention runs in float32 at both precisions),
+    and K1's count (one per matmul: 6 a layer and the logits, in each
+    prefill and each decode step)."""
+    from collections import Counter
+    H, hd, L = spec.n_heads, spec.head_dim, spec.n_layers
+    k2, k3, runs = Counter(), Counter(), 0
+    for p in DECODE_PROMPTS:
+        k2[(1, H, lm.bucket_for(p), hd, H, lm.bucket_for(p + 1), hd,
+            None)] += L
+        runs += 1
+        for pos in range(p, p + DECODE_NEW - 1):
+            k3[(1, H, hd, H, lm.bucket_for(pos + 1), hd)] += L
+            runs += 1
+    return k2, k3, (6 * L + 1) * runs
+
+
+def slot_views(torch, randn, kv, H, hd):
+    """k and v as the plan hands them to K2/K3: head-major views (1, H,
+    kv, hd) of (1, kv, 1, H * hd) cache slots, and contiguous copies."""
+    kc = randn(1, kv, 1, H * hd, dtype=torch.float32)
+    vc = randn(1, kv, 1, H * hd, dtype=torch.float32)
+    k = kc.view(1, kv, H, hd).transpose(1, 2)
+    v = vc.view(1, kv, H, hd).transpose(1, 2)
+    return k, v, k.contiguous(), v.contiguous()
+
+
+def k2_offset_probe(torch, ops, randn, H, D, S, Sk, causal, dtype) -> float:
+    """K2 over lanes at query offsets (0, 3, Sk - S) on inputs that make
+    the offset decisive: k = 0, so every key a query row sees gets the
+    same weight, and v = 0 except 1024 at each lane's key o + S - 1 (the
+    last its last row sees) and -2048 at the key after it (the first no
+    row sees).  Causal, row i of lane o sees keys [0, o + i] and only the
+    last row meets the marker: 1024 / (o + S); not causal, every row sees
+    [0, o + S): 1024 / (o + S).  A bound one key off moves an output by
+    about 1024 / (o + S) or more.  Held against these values and the
+    plain version."""
+    name = str(dtype).removeprefix("torch.")
+    offs = (0, 3, Sk - S)
+    B = len(offs)
+    q = randn(B, H, S, D, dtype=dtype)
+    k = torch.zeros((B, H, Sk, D), dtype=dtype, device="cuda")
+    v = torch.zeros((B, H, Sk, D), dtype=dtype, device="cuda")
+    want = torch.zeros((B, H, S, D), device="cuda")
+    for b, o in enumerate(offs):
+        v[b, :, o + S - 1] = 1024
+        if o + S < Sk:
+            v[b, :, o + S] = -2048
+        want[b, :, S - 1 if causal else slice(None)] = 1024 / (o + S)
+    off = torch.tensor(offs, dtype=torch.int32, device="cuda")
+    got = ops.flash_attention(q, k, v, causal=causal, q_offset=off)
+    what = (f"flash_attention {name} q_offset probe {offs} S={S} Sk={Sk} "
+            f"causal={causal}")
+    check_close(torch, what, got, want.to(dtype), name)
+    return check_close(torch, what, got,
+                       ops.flash_attention(q, k, v, causal=causal,
+                                           q_offset=off, impl="ref"), name)
+
+
+def decoder_attention_rows(torch, F, ops, randn, rows) -> None:
+    """K2 and K3 in float32 at every shape phase 13's traffic runs them at
+    (the decoder's 6 heads of 64; K2 at each prefill's (seq, kv), with
+    the offset and without; K3 at each kv bucket, with kv_len at the full
+    bucket and at 1), each against its plain version and timed beside
+    SDPA; ``strided_ms`` is the device time of the same call on the
+    head-major views of the cache slots, whose copies the wrappers make
+    (the layout the plan hands over).  Then the offset probes, causal and
+    not, in float32 and bfloat16."""
+    from repro_torch.kernels import flash_attention, flash_decode
+    lm, spec = decoder_spec()
+    k2, k3, _ = decode_launches(lm, spec)
+    H, hd = spec.n_heads, spec.head_dim
+    scale = hd ** -0.5                  # the IR attention's
+    f32 = torch.float32
+    n_prec = len(DECODE_PRECISIONS)
+    for key, per in sorted(k2.items()):
+        S, kv = key[2], key[5]
+        q = randn(1, H, S, hd, dtype=f32)
+        k, v, kk, vv = slot_views(torch, randn, kv, H, hd)
+        off = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+        def kernel(q=q, kk=kk, vv=vv, off=off):
+            return ops.flash_attention(q, kk, vv, causal=True,
+                                       sm_scale=scale, q_offset=off)
+
+        def plain(q=q, kk=kk, vv=vv, off=off):
+            return ops.flash_attention(q, kk, vv, causal=True,
+                                       sm_scale=scale, q_offset=off,
+                                       impl="ref")
+        got, want = kernel(), plain()
+        tag = f"{DECODER_PATH} s{S}/kv{kv}"
+        err = max(check_close(torch, f"flash_attention f32 {tag}", got,
+                              want, "float32"),
+                  check_close(torch, f"flash_attention f32 {tag} no offset",
+                              ops.flash_attention(q, kk, vv, causal=True,
+                                                  sm_scale=scale),
+                              want, "float32"))
+        pairs = H * S * (S + 1) // 2
+        b_ms, b_by = bound(nbytes(q, kk, vv, off, got), 2 * pairs * 2 * hd,
+                           "float32")
+        rows[("flash_attention", tag)] = dict(
+            name="flash_attention", path=tag, route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:116",
+            shape=f"q (1,{H},{S},{hd}), k,v (1,{H},{kv},{hd}) f32 causal, "
+                  f"q_offset",
+            key=flash_attention.shape_key(q, kk, vv, None),
+            expect=per * n_prec, max_abs_err=err, bound_ms=b_ms,
+            bound_by=b_by,
+            strided_ms=device_ms(torch, lambda q=q, k=k, v=v, off=off:
+                                 ops.flash_attention(q, k, v, causal=True,
+                                                     sm_scale=scale,
+                                                     q_offset=off)),
+            **timings(torch, kernel, plain,
+                      lambda q=q, kk=kk, vv=vv: F.scaled_dot_product_attention(
+                          q, kk, vv, is_causal=True, scale=scale)))
+    for S, Sk in ((8, 64), (64, 128)):
+        for causal in (True, False):
+            for dt in (f32, torch.bfloat16):
+                e = k2_offset_probe(torch, ops, randn, H, hd, S, Sk, causal,
+                                    dt)
+                print(f"  flash_attention q_offset probe S={S} Sk={Sk} "
+                      f"causal={causal} {str(dt)[6:]}: max|err| {e:.3g}")
+    for key, per in sorted(k3.items()):
+        kv = key[4]
+        q = randn(1, H, hd, dtype=f32)
+        k, v, kk, vv = slot_views(torch, randn, kv, H, hd)
+        full = torch.full((1,), kv, dtype=torch.int32, device="cuda")
+
+        def kernel(q=q, kk=kk, vv=vv, n=full):
+            return ops.flash_decode(q, kk, vv, kv_len=n, sm_scale=scale)
+
+        def plain(q=q, kk=kk, vv=vv, n=full):
+            return ops.flash_decode(q, kk, vv, kv_len=n, sm_scale=scale,
+                                    impl="ref")
+        got = kernel()
+        one = torch.ones(1, dtype=torch.int32, device="cuda")
+        tag = f"{DECODER_PATH} kv{kv}"
+        err = max(check_close(torch, f"flash_decode f32 {tag}", got, plain(),
+                              "float32"),
+                  check_close(torch, f"flash_decode f32 {tag} kv_len 1",
+                              kernel(n=one), plain(n=one), "float32"))
+        b_ms, b_by = bound(nbytes(q, kk, vv, full, got), 2 * H * kv * 2 * hd,
+                           "float32")
+        rows[("flash_decode", tag)] = dict(
+            name="flash_decode", path=tag, route="cuda",
+            source="src/repro_torch/csrc/flash_decode.cu",
+            replaces="src/repro/kernels/flash_decode.py:96",
+            shape=f"q (1,{H},{hd}) x cache (1,{H},{kv},{hd}) f32, kv_len "
+                  f"{kv} (and 1)",
+            key=flash_decode.shape_key(q, kk, vv), expect=per * n_prec,
+            max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+            strided_ms=device_ms(torch, lambda q=q, k=k, v=v, n=full:
+                                 ops.flash_decode(q, k, v, kv_len=n,
+                                                  sm_scale=scale)),
+            **timings(torch, kernel, plain,
+                      lambda q=q, kk=kk, vv=vv:
+                      F.scaled_dot_product_attention(q[:, :, None], kk, vv,
+                                                     scale=scale)))
+
+
+class _Capture:
+    """Wraps a DecodeSession's ``_run`` so that the outputs of its last
+    prefill or step can be read."""
+
+    def __init__(self, sess):
+        self.out = None
+        run = sess._run
+
+        def capture(m, feed):
+            self.out = run(m, feed)
+            self.m = m
+            return self.out
+        sess._run = capture
+
+
+def _hold_step(torch, card_cap, cpu_cap, precision, float_plan_tol):
+    """One prefill's or step's outputs (logits and caches) on the card
+    against the CPU session's on the same inputs: float32 within
+    ``float_plan_tol``; int8 in stored ints, within one output step.
+    Returns (worst err / tol, ints that differ)."""
+    m = cpu_cap.m
+    worst, differ = 0.0, 0
+    for name, want in cpu_cap.out.items():
+        got = card_cap.out[name].cpu()
+        if not torch.isfinite(got).all() or got.shape != want.shape:
+            fail(f"phase 13 {precision}: {name} {tuple(got.shape)} is not "
+                 f"finite or of the wrong shape")
+        if precision == "float32":
+            tol = float_plan_tol(want.numpy())
+            err = float((got - want).abs().max())
+            if err > tol:
+                fail(f"phase 13 float32: {name} is {err:.3g} from the CPU "
+                     f"session, above float_plan_tol {tol:.3g}")
+            worst = max(worst, err / tol)
+        else:
+            steps = ((got - want).abs()
+                     / m.semantics._scale(name)).round().int()
+            if int(steps.max()) > 1:
+                fail(f"phase 13 int8: {name}'s stored ints differ from the "
+                     f"CPU session's by {int(steps.max())} steps")
+            differ += int((steps > 0).sum())
+    return worst, differ
+
+
+def _teacher_forced(torch, card, cpu, prompt, precision):
+    """One request on the card with every step held against the CPU
+    session fed the same inputs: before each step the CPU's request takes
+    the card's caches and tokens (teacher forcing), so each step's error
+    is its own.  Returns the card's tokens, the ms of each decode step
+    (host clock; a step ends in the read of its token), the worst float32
+    err / tol, the ints that differ per step at int8 and the steps whose
+    tokens differ on the same inputs."""
+    from repro_torch.core.executor import float_plan_tol
+    cc, pc = _Capture(card), _Capture(cpu)
+    rid, tok = card.prefill(prompt)
+    prid, ptok = cpu.prefill(prompt)
+    worst, differ = _hold_step(torch, cc, pc, precision, float_plan_tol)
+    per_step, token_differs, step_ms = [differ], [], []
+    toks = [tok]
+    for i in range(DECODE_NEW - 1):
+        r, pr = card._requests[rid], cpu._requests[prid]
+        pr.caches = {k: v.cpu() for k, v in r.caches.items()}
+        pr.tokens, pr.pos, pr.bucket = list(r.tokens), r.pos, r.bucket
+        t = time.monotonic()
+        tok = card.step(rid)
+        step_ms.append((time.monotonic() - t) * 1e3)
+        if cpu.step(prid) != tok:
+            token_differs.append(i + 1)
+        w, differ = _hold_step(torch, cc, pc, precision, float_plan_tol)
+        worst = max(worst, w)
+        per_step.append(differ)
+        toks.append(tok)
+    card.finish(rid)
+    cpu.finish(prid)
+    del card._run, cpu._run             # the class's again
+    return toks, step_ms, worst, per_step, token_differs
+
+
+def _decode_profile(torch, card, prompt) -> dict:
+    """The device's busy share of a decode step: DECODE_PROFILED steps of
+    one request timed on the host, then the same number under
+    torch.profiler (CUDA kernel and copy durations summed per step)."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+    rid, _ = card.prefill(prompt)
+    card.step(rid)
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    for _ in range(DECODE_PROFILED):
+        card.step(rid)
+    wall_ms = (time.monotonic() - t) * 1e3 / DECODE_PROFILED
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(DECODE_PROFILED):
+            card.step(rid)
+        torch.cuda.synchronize()
+    card.finish(rid)
+    by_name, n = Counter(), 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us()
+            n += 1
+    busy_ms = sum(by_name.values()) / 1e3 / DECODE_PROFILED
+    if busy_ms <= 0:
+        fail("phase 13: the profiler saw no device time in a decode step")
+    return dict(wall_ms_per_step=wall_ms, busy_ms_per_step=busy_ms,
+                busy_share=busy_ms / wall_ms,
+                kernels_per_step=n / DECODE_PROFILED,
+                top_kernels_ms_per_step=[
+                    (name[:60], us / 1e3 / DECODE_PROFILED)
+                    for name, us in by_name.most_common(6)])
+
+
+def phase_decode(torch, rows) -> dict:
+    """Phase 13 (see the module docstring): the whisper-tiny decoder at
+    full width through ``DecodeSession`` on the card, at float32 and at
+    int8, against the same session on the CPU."""
+    import tempfile
+
+    from repro_torch import api
+    from repro_torch.kernels import neutron_matmul
+
+    lm, spec = decoder_spec()
+    width = (spec.n_layers, spec.d_model, spec.n_heads, spec.head_dim,
+             spec.d_ff, spec.vocab)
+    if width != DECODER_WIDTH:
+        fail(f"phase 13: the decoder is {width}, not {DECODER_WIDTH}")
+    k2_want, k3_want, k1_want = decode_launches(lm, spec)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, spec.vocab, size=p).tolist()
+               for p in DECODE_PROMPTS]
+    shapes = sorted({(lm.bucket_for(p), lm.bucket_for(p + 1))
+                     for p in DECODE_PROMPTS}
+                    | {(1, lm.bucket_for(pos + 1)) for p in DECODE_PROMPTS
+                       for pos in range(p, p + DECODE_NEW - 1)})
+    out = {}
+    for precision in DECODE_PRECISIONS:
+        t_phase = time.monotonic()
+        card = api.DecodeSession(spec=spec, precision=precision, seed=SEED,
+                                 device="cuda")
+        cpu = api.DecodeSession(spec=spec, precision=precision, seed=SEED,
+                                device="cpu")
+        compile_s = {}
+        with tempfile.TemporaryDirectory() as d:
+            for sq, kv in shapes:
+                t = time.monotonic()
+                m = card.model(sq, kv)
+                compile_s[f"s{sq}/kv{kv}"] = time.monotonic() - t
+                # the CPU session serves the same compiled model (the
+                # artifact), with the plain versions
+                cpu._models[(sq, kv)] = api.load(
+                    m.save(f"{d}/s{sq}-kv{kv}.rpa"), device="cpu")
+        print(f"  {precision}: compiled {len(shapes)} models, s: "
+              f"{json.dumps({k: round(v, 2) for k, v in compile_s.items()})}")
+
+        # each request alone, every step held against the CPU session
+        solo = [_teacher_forced(torch, card, cpu, p, precision)
+                for p in prompts]
+        for (toks, _, worst, per_step, tok_diff), p in zip(solo, prompts):
+            print(f"  {precision} prompt {len(p)}: teacher-forced against "
+                  f"the CPU session: " + (
+                      f"worst err/float_plan_tol {worst:.3g}"
+                      if precision == "float32" else
+                      f"ints differing per step {per_step}") +
+                  f"; steps whose token differs on the same inputs "
+                  f"{tok_diff}")
+        # the CPU session free-running: its greedy tokens
+        for (toks, *_), p in zip(solo, prompts):
+            want = cpu.generate(p, max_new_tokens=DECODE_NEW)
+            first = next((i for i, (a, b) in enumerate(zip(toks, want))
+                          if a != b), None)
+            if precision == "float32" and first is not None:
+                fail(f"phase 13 float32: the card's greedy tokens leave the "
+                     f"CPU session's at token {first}")
+            print(f"  {precision} prompt {len(p)}: greedy tokens against "
+                  f"the CPU session's: " + (
+                      "equal" if first is None else
+                      f"first differ at token {first} of {DECODE_NEW}"))
+
+        # the main path: A and B interleaved step by step, counters from 0
+        reset_launches()
+        t = time.monotonic()
+        rids, toks = [], []
+        for p in prompts:
+            rid, tok = card.prefill(p)
+            rids.append(rid)
+            toks.append([tok])
+        for _ in range(DECODE_NEW - 1):
+            for rid, tl in zip(rids, toks):
+                tl.append(card.step(rid))
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t
+        launches = read_launches()
+        by_shape = read_launches_by_shape()
+        by_contract = dict(neutron_matmul.launches_by_contract)
+        for rid in rids:
+            card.finish(rid)
+        contract = "plan int8" if precision == "int8" else "pallas float32"
+        if [s[0] for s in solo] != toks:
+            fail(f"phase 13 {precision}: interleaved tokens differ from "
+                 f"each request's solo run")
+        if launches != (sum(k2_want.values()), sum(k3_want.values()), 0,
+                        k1_want) or by_contract != {contract: k1_want}:
+            fail(f"phase 13 {precision}: launched {LAUNCH_NAMES} = "
+                 f"{launches}, K1 {by_contract}; expected K2 "
+                 f"{sum(k2_want.values())}, K3 {sum(k3_want.values())}, "
+                 f"K1 {k1_want} ({contract})")
+        if by_shape["flash_attention"] != k2_want or \
+                by_shape["flash_decode"] != k3_want:
+            fail(f"phase 13 {precision}: K2/K3 launched by shape "
+                 f"{by_shape}, expected {k2_want} / {k3_want}")
+        builds = {k: v["plan"]["builds"] for k, v in card.stats().items()}
+        if set(builds.values()) != {1}:
+            fail(f"phase 13 {precision}: plan builds {builds}, not 1 each")
+        for r in rows.values():
+            if r["path"].startswith(DECODER_PATH):
+                if r["name"] == "neutron_matmul":
+                    if r["path"] == f"{DECODER_PATH} {precision}":
+                        r["launches"] = by_contract[contract]
+                else:
+                    name = r["name"]
+                    r["launches"] = r.get("launches", 0) + \
+                        by_shape[name][r["key"]]
+
+        # timing: warm prefills, decode steps, the profiler
+        prefill_ms = []
+        for p in prompts:
+            times = []
+            for _ in range(DECODE_TIMED):
+                torch.cuda.synchronize()
+                t = time.monotonic()
+                rid, _ = card.prefill(p)
+                times.append((time.monotonic() - t) * 1e3)
+                card.finish(rid)
+            prefill_ms.append(statistics.median(times))
+        step_ms = [statistics.median(s[1]) for s in solo]
+        prof = _decode_profile(torch, card, prompts[0])
+        # the weights a decode step reads: every matmul's and layernorm's
+        m = card.model(1, lm.bucket_for(DECODE_PROMPTS[0] + 1))
+        weights = m.qm.qweights if precision == "int8" else m.weights
+        prof["weight_bytes_per_step"] = int(sum(
+            np.asarray(w).nbytes for w in weights.values()))
+        prof["weight_bound_ms_per_step"] = \
+            prof["weight_bytes_per_step"] / HBM_BYTES_S * 1e3
+        steps = len(prompts) * (DECODE_NEW - 1)
+        res = dict(
+            compile_s=compile_s,
+            prefill_ms={len(p): v for p, v in zip(prompts, prefill_ms)},
+            decode_ms_per_token={len(p): v for p, v in zip(prompts,
+                                                           step_ms)},
+            tokens_s_one_request={len(p): 1e3 / v
+                                  for p, v in zip(prompts, step_ms)},
+            interleaved_tokens_s=len(prompts) * DECODE_NEW / wall,
+            k1_per_step=k1_want // (steps + len(prompts)),
+            k3_per_decode_step=sum(k3_want.values()) // steps,
+            k2_per_prefill=sum(k2_want.values()) // len(prompts),
+            worst_err_over_tol=max(s[2] for s in solo),
+            ints_differing_per_step={len(p): s[3]
+                                     for p, s in zip(prompts, solo)},
+            **prof)
+        out[precision] = res
+        print(f"  {precision}: prefill ms {res['prefill_ms']}, decode ms "
+              f"per token {res['decode_ms_per_token']} (tokens/s "
+              f"{res['tokens_s_one_request']}), interleaved "
+              f"{res['interleaved_tokens_s']:.1f} tokens/s; decode step "
+              f"{prof['wall_ms_per_step']:.3f} ms wall, "
+              f"{prof['busy_ms_per_step']:.3f} ms busy (share "
+              f"{prof['busy_share']:.3f}), {prof['kernels_per_step']:.0f} "
+              f"kernels, weights {prof['weight_bytes_per_step']} bytes "
+              f"(bound {prof['weight_bound_ms_per_step']:.4f} ms); top {prof['top_kernels_ms_per_step'][:3]}; K1 "
+              f"{res['k1_per_step']} a step, K3 "
+              f"{res['k3_per_decode_step']} a decode step, K2 "
+              f"{res['k2_per_prefill']} a prefill; builds {builds}")
+        print(f"  phase 13 {precision} wall time "
+              f"{time.monotonic() - t_phase:.1f} s")
+        del card, cpu
+        torch.cuda.empty_cache()
+    for r in rows.values():
+        if r["path"].startswith(DECODER_PATH) and "expect" in r:
+            print(f"  {r['name']} [{r['path']}]: {r['launches']} launches")
+            if r["launches"] != r["expect"]:
+                fail(f"phase 13: {r['name']} [{r['path']}] launched "
+                     f"{r['launches']} times, the traffic gives "
+                     f"{r['expect']}")
+    return out
+
+
 
 def phase_lm(torch, rows, n, path) -> dict:
     """Phase `n`: one LM path (the float32 agreement first, where the
@@ -1776,6 +2314,12 @@ def main() -> None:
     print(f"  session: {json.dumps(out)}")
     print(f"  phase 12 wall time {time.monotonic() - t:.1f} s")
     del compiled
+    print(f"== phase 13: {DECODER_PATH} ({DECODER}) through "
+          f"DecodeSession, float32 and int8")
+    t = time.monotonic()
+    out = phase_decode(torch, rows)
+    print(f"  decode: {json.dumps(out)}")
+    print(f"  phase 13 wall time {time.monotonic() - t:.1f} s")
 
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",

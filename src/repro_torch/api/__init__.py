@@ -17,6 +17,10 @@ every conv and fc on the hand-written K1 kernel:
     ticket = sess.submit("mnv2", image)            # micro-batched
     ticket.result()                     # CPU tensors
 
+    lm = api.DecodeSession(precision="int8")       # the tiny LM decoder
+    rid, tok = lm.prefill([3, 17, 42])             # caches on the device
+    toks = list(lm.stream(rid, max_new_tokens=16))
+
 ``compile`` accepts a benchmark model name, a ``Graph`` (+ weights), a
 ``(Graph, GraphBuilder)`` pair as returned by the frontends, or a
 ``QuantizedModel``, and resolves precision, options and execution
@@ -25,8 +29,10 @@ semantics.  Models replay on CUDA unless the caller passes
 
 ``Session`` and the serving errors are exported as ``repro.api`` exports
 them, with ``BreakerOpen``, the port's own (a CUDA session's open
-breaker fails fast instead of serving from the host); ``DecodeSession`` and ``Fleet`` wait for ``ROADMAP.md`` items 8
-and 10.
+breaker fails fast instead of serving from the host).
+``DecodeSession`` (``api/decode.py``) serves the LM decoder of
+``frontends/lm.py``: prefill on K2, every decode step's attention on K3,
+every matmul on K1.  ``Fleet`` waits for ``ROADMAP.md`` item 10.
 """
 from __future__ import annotations
 
@@ -46,10 +52,12 @@ from repro_torch.runtime.serving import (BreakerOpen, Cancelled,
                                          ServingError, Ticket, WorkerLost)
 
 from .compiled import CompiledModel, resolve_semantics
+from .decode import DecodeSession
 from .session import Session
 
 __all__ = [
-    "compile", "load", "CompiledModel", "Session", "ArtifactError",
+    "compile", "load", "CompiledModel", "Session", "DecodeSession",
+    "ArtifactError",
     "CompilerOptions", "resolve_semantics",
     # serving robustness surface
     "ServingError", "Overloaded", "DeadlineExceeded", "FlushError",

@@ -19,8 +19,12 @@ output slot in place, with that pitch as their batch stride.
 
 Both value semantics lower **one batch-vectorized step per op**: the
 int8/int4 lowering in ``quant/execplan.py`` and the float32 lowering
-here (:func:`lower_float_steps`), whose conv and fc run on K1 in its
-Pallas contract with float32 operands.  The reference's float32 plan
+here (:func:`lower_float_steps`), whose conv, fc and matmul run on K1
+in its Pallas contract with float32 operands.  The causal kinds of the
+LM decode path (matmul, layernorm, softmax, attention, kvappend) lower
+in both: attention on K3 for one query row and on K2 for more, with each
+lane's cache position read from its ``pos`` slot on the device, so a
+decode step reads nothing back to the host.  The reference's float32 plan
 emits one step per *program step* so as to be bit-exact with its numpy
 interpreter; this one is not bit-exact (K1 and torch sum in another
 order), and is held to the interpreter within
@@ -47,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.kernels import ops
 
 from ..obs import trace as _trace
 from .ir import Graph
@@ -353,11 +358,6 @@ def lower_plan(program, graph: Graph, tiling,
 # --------------------------------------------------------------------------
 
 
-#: the kinds of the LM decode path, which the device plans do not lower
-#: yet (ROADMAP.md item 8)
-CAUSAL_KINDS = ("matmul", "layernorm", "softmax", "attention", "kvappend")
-
-
 def taps(xp: torch.Tensor, fh: int, fw: int, s: int, oh: int, ow: int):
     """The (i, j) windows of a padded (n, H, W, C) tensor, row-major."""
     for i in range(fh):
@@ -386,6 +386,70 @@ def im2col(x: torch.Tensor, pad, fh: int, fw: int, s: int, oh: int,
     return cols.view(n, oh * ow, fh * fw * C)
 
 
+# --------------------------------------------------------------------------
+# The causal kinds (LM decode path), shared by both lowerings
+# --------------------------------------------------------------------------
+
+
+def pos_rows(pos: torch.Tensor, smax: int, s: int) -> torch.Tensor:
+    """``core/ir.py:_pos_index`` per lane, on the positions' device: the
+    (n, 1, 1, 1) float positions as int64 (n,) row offsets, rounded half
+    to even (as Python's ``round``) and clamped so that ``s`` new rows fit
+    a cache of ``smax`` rows.  Nothing is read back to the host."""
+    return torch.round(pos.reshape(-1)).clamp_(0, max(smax - s, 0)) \
+        .to(torch.int64)
+
+
+def attend(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+           p0: torch.Tensor, attrs: Dict) -> torch.Tensor:
+    """The IR attention (``core/ir.py:_attention_ref``) of float32 queries
+    (n, s, 1, C) against caches (n, kv, 1, C) for lanes at row offsets
+    ``p0`` (n,), as (n, s, heads, head_dim) float32: one query row on K3
+    (``kv_len = p0 + 1``), more on K2 (``q_offset = p0``), one launch for
+    the batch.  The head-major views of the arena slots are copied by the
+    kernels' wrappers (they take contiguous operands)."""
+    n, s = q.shape[:2]
+    kv = kc.shape[1]
+    H, hd = attrs["heads"], attrs["head_dim"]
+    k = kc.view(n, kv, H, hd).transpose(1, 2)
+    v = vc.view(n, kv, H, hd).transpose(1, 2)
+    if s == 1:      # j < p0 + 1, causal or not
+        o = ops.flash_decode(q.view(n, H, hd), k, v, kv_len=p0 + 1,
+                             sm_scale=attrs["scale"])
+        return o.view(n, 1, H, hd)
+    o = ops.flash_attention(q.view(n, s, H, hd).transpose(1, 2), k, v,
+                            causal=attrs.get("causal", True),
+                            sm_scale=attrs["scale"], q_offset=p0)
+    return o.transpose(1, 2)
+
+
+def kv_append(out: torch.Tensor, cache: torch.Tensor, new: torch.Tensor,
+              p0: torch.Tensor) -> None:
+    """``core/ir.py:_kvappend_ref`` per lane, in place: ``out`` (n, kv, 1,
+    C) takes ``cache`` with rows [p0, p0 + s) of each lane replaced by
+    ``new`` (n, s, 1, C), scattered at offsets read on the device."""
+    n, kv, _, C = cache.shape
+    s = new.shape[1]
+    out.copy_(cache)        # live at once, so never the same arena slot
+    idx = p0[:, None] + torch.arange(s, device=p0.device)
+    out.view(n, kv, C).scatter_(1, idx[:, :, None].expand(n, s, C),
+                                new.reshape(n, s, C))
+
+
+def layernorm_t(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                eps: float) -> torch.Tensor:
+    """``core/ir.py:_layernorm_ref`` in float32 over the last axis."""
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    return (x - mu) / torch.sqrt(var + eps) * gamma + beta
+
+
+def softmax_t(x: torch.Tensor) -> torch.Tensor:
+    """``core/ir.py:_softmax_ref`` in float32 over the last axis."""
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
 def lower_float_steps(g: Graph, tiling, program,
                       weights: Dict[str, np.ndarray],
                       ids: Dict[str, int],
@@ -394,16 +458,20 @@ def lower_float_steps(g: Graph, tiling, program,
     """One batch-vectorized float32 step per op, in topological order, on
     ``device`` (CUDA unless the caller asks for the CPU).
 
-    conv and fc run on K1 in its Pallas contract (``act(x @ w + bias)``,
-    float32 operands, ``ops.neutron_matmul_nk``): a 1x1 conv without
-    padding reads its input slot in place, any other conv lays out its
-    columns first (:func:`im2col`), and K1 writes the output slot in
-    place.  The (N, K) weight and the bias are derived once here, on the
-    host, through ``consts``, and moved to the device once.  dwconv
+    conv, fc and matmul run on K1 in its Pallas contract (``act(x @ w +
+    bias)``, float32 operands, ``ops.neutron_matmul_nk``): a 1x1 conv
+    without padding and a matmul read their input slot in place, any
+    other conv lays out its columns first (:func:`im2col`), and K1 writes
+    the output slot in place.  The (N, K) weight and the bias are derived
+    once here, on the host, through ``consts``, and moved to the device
+    once.  dwconv
     accumulates tap by tap; the pools, resize and the elementwise kinds
     are plain torch work (nothing reaches cuBLAS or cuDNN, whose float32
-    paths may run in TF32).  ``tiling`` and ``program`` are not read."""
-    from repro_torch.kernels import ops
+    paths may run in TF32), and so are layernorm and softmax.  attention
+    runs on K3 (one query row) or K2 (:func:`attend`) and kvappend
+    scatters the new rows (:func:`kv_append`), both at the per-lane
+    offsets :func:`pos_rows` derives on the device.  ``tiling`` and
+    ``program`` are not read."""
     from repro_torch.kernels.ref import ir_activation
 
     cs = consts if consts is not None else PlanConsts()
@@ -429,30 +497,30 @@ def lower_float_steps(g: Graph, tiling, program,
     for op in g.topo_ops():
         a = op.attrs
         k = op.kind
-        if k in CAUSAL_KINDS:
-            raise NotImplementedError(
-                f"{op.name}: the causal op {k!r} is not ported to the "
-                f"device plan yet (ROADMAP.md item 8)")
         oid = ids[op.outputs[0]]
         label = f"{op.name}@f32"
         act = a.get("act", "none")
 
-        if k in ("conv", "fc"):
+        if k in ("conv", "fc", "matmul"):
             x = g.act_inputs(op)[0]
             xid = ids[x.name]
             # (N, K): conv weights (outC, fh, fw, inC) in the (i, j, c)
-            # order of im2col's columns; fc weights (N, 1, 1, K)
+            # order of im2col's columns; fc and matmul weights (N, 1, 1, K)
             wt = const(label, "wt", lambda op=op: param(
                 op.inputs[1]).reshape(g.tensors[op.inputs[1]].shape[0], -1))
             bias = bias_of(op, label)
             # K1 fuses every activation of the IR (its codes are
             # ref.IR_ACTIVATIONS, the IR's list), so none runs after it
-            if k == "fc":
+            if k != "conv":
+                # a matmul's rows are its sequence; an fc has one
+                rows = g.tensors[op.outputs[0]].shape[0] \
+                    if k == "matmul" else 1
+
                 def run(bufs, n, xid=xid, oid=oid, wt=wt, bias=bias,
-                        act=act):
-                    ops.neutron_matmul_nk(bufs[xid][:n].view(n, 1, -1), wt,
-                                          bias, act,
-                                          bufs[oid][:n].view(n, 1, -1))
+                        act=act, rows=rows):
+                    ops.neutron_matmul_nk(bufs[xid][:n].view(n, rows, -1),
+                                          wt, bias, act,
+                                          bufs[oid][:n].view(n, rows, -1))
             else:
                 s = a["stride"]
                 pad = tuple(a["pad"])
@@ -577,6 +645,42 @@ def lower_float_steps(g: Graph, tiling, program,
                     bufs[o][:n].copy_(p)
             steps.append(PlanStep(label, (xid,), oids, run))
             continue
+        elif k == "layernorm":
+            xid = ids[g.act_inputs(op)[0].name]
+            gamma = const(label, "gamma", lambda op=op: param(op.inputs[1]))
+            beta = const(label, "beta", lambda op=op: param(op.inputs[2]))
+
+            def run(bufs, n, xid=xid, oid=oid, gamma=gamma, beta=beta,
+                    eps=a["eps"]):
+                bufs[oid][:n].copy_(layernorm_t(bufs[xid][:n], gamma, beta,
+                                                eps))
+            reads = (xid,)
+        elif k == "softmax":
+            xid = ids[g.act_inputs(op)[0].name]
+
+            def run(bufs, n, xid=xid, oid=oid):
+                bufs[oid][:n].copy_(softmax_t(bufs[xid][:n]))
+            reads = (xid,)
+        elif k == "attention":
+            q, kc, vc, ps = g.act_inputs(op)
+            qid, kid, vid, pid = (ids[t.name] for t in (q, kc, vc, ps))
+
+            def run(bufs, n, qid=qid, kid=kid, vid=vid, pid=pid, oid=oid,
+                    attrs=dict(a), smax=kc.shape[0], s=q.shape[0]):
+                p0 = pos_rows(bufs[pid][:n], smax, s)
+                y = attend(bufs[qid][:n], bufs[kid][:n], bufs[vid][:n], p0,
+                           attrs)
+                bufs[oid][:n].view(y.shape).copy_(y)
+            reads = (qid, kid, vid, pid)
+        elif k == "kvappend":
+            cache, new, ps = g.act_inputs(op)
+            cid, nid, pid = ids[cache.name], ids[new.name], ids[ps.name]
+
+            def run(bufs, n, cid=cid, nid=nid, pid=pid, oid=oid,
+                    smax=cache.shape[0], s=new.shape[0]):
+                kv_append(bufs[oid][:n], bufs[cid][:n], bufs[nid][:n],
+                          pos_rows(bufs[pid][:n], smax, s))
+            reads = (cid, nid, pid)
         else:
             raise NotImplementedError(
                 f"{op.name}: op kind {k!r} has no float32 plan kernel")

@@ -9,6 +9,13 @@
 //   p_ij     = exp(s_ij - m_i), s_ij = q_i . k_j * sm_scale, where
 //   s_ij = -1e30 unless j < Sk, and j <= i when causal, and i - j < window
 //   when a window is given.
+// With a query offset (an int32 vector q_offset (B,) on the device), row i
+// of lane b stands at key position p = q_offset[b] + i: key j is valid iff
+// j < Sk and j < q_offset[b] + S, and j <= p when causal, and p - j <
+// window when a window is given (the IR attention of the LM decode path,
+// src/repro/core/ir.py `_attention_ref`, whose Pallas counterpart has no
+// such argument).  Each block reads its lane's offset, so one launch serves
+// lanes at different positions; a null q_offset is the mask above.
 // The softmax runs streamed over key tiles with f32 running max, sum and
 // accumulator; the output is rounded to the input dtype.  Key tiles that
 // the causal or window mask hides from every row of a query tile are
@@ -94,8 +101,9 @@ size_t smem_bytes(int D, int Dv) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int H,
-                       int Hkv, int S, int Sk, int D, int Dv, float sm_scale,
+                       const T* __restrict__ v, T* __restrict__ out,
+                       const int* __restrict__ q_offset, int H, int Hkv,
+                       int S, int Sk, int D, int Dv, float sm_scale,
                        int causal, int window) {
   extern __shared__ float smem[];
   float* q_s = smem;                  // kBQ x D
@@ -110,6 +118,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (H / Hkv);
+  // this lane's query offset and the end of the keys its rows may see
+  const int off = q_offset ? q_offset[b] : 0;
+  const int kv_lim = q_offset ? min(Sk, off + S) : Sk;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -142,11 +153,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < kColSlots; ++j) acc[i][j] = 0.f;
 
   // Key range that some row of this tile can see.
-  int k_end = Sk;
-  if (causal) k_end = min(Sk, q0 + kBQ);
+  int k_end = kv_lim;
+  if (causal) k_end = min(kv_lim, off + q0 + kBQ);
   int k_begin = 0;
   if (window > 0) {
-    const int lo = q0 - window + 1;  // first key row q0 can see
+    const int lo = off + q0 - window + 1;  // first key row q0 can see
     if (lo > 0) k_begin = (lo / kBK) * kBK;
   }
   __syncthreads();
@@ -180,8 +191,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < kRowsPerThread; ++i) {
         const int r = sr + kRowGroups * i;
-        const int qi = q0 + r;
-        bool ok = kj < Sk;
+        const int qi = off + q0 + r;  // the row's key position
+        bool ok = kj < kv_lim;
         if (causal) ok = ok && kj <= qi;
         if (window > 0) ok = ok && qi - kj < window;
         s_s[r * kBK + sc] = ok ? s[i] * sm_scale : rt::kNegInf;
@@ -247,9 +258,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
-               int H, int Hkv, int S, int Sk, int D, int Dv, float sm_scale,
-               int causal, int window, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               const int* q_offset, int B, int H, int Hkv, int S, int Sk,
+               int D, int Dv, float sm_scale, int causal, int window,
+               cudaStream_t stream) {
   const size_t smem = smem_bytes(D, Dv);
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<float>,
@@ -258,8 +270,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   flash_attention_kernel<float><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), H, Hkv, S, Sk,
-      D, Dv, sm_scale, causal, window);
+      static_cast<const float*>(v), static_cast<float*>(out), q_offset, H,
+      Hkv, S, Sk, D, Dv, sm_scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -310,13 +322,19 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
   }
 }
 
+// Up to head dim 80 a block fits in 128 registers a thread, so that two
+// blocks share an SM; the query offset's registers pushed the 80 body past
+// 128, to one block an SM (zamba2's prefill, chip_smoke.py phase 2 on an
+// H100: 17.3 -> 23.6 us), so the bound is asked for (the 64 body spills 8
+// bytes under it).
 template <int DP>
-__global__ void __launch_bounds__(kMmaThreads)
+__global__ void __launch_bounds__(kMmaThreads, DP <= 80 ? 2 : 1)
 flash_attention_bf16_kernel(const bf16* __restrict__ q,
                             const bf16* __restrict__ k,
                             const bf16* __restrict__ v, bf16* __restrict__ out,
-                            int H, int Hkv, int S, int Sk, int D, int Dv,
-                            float sm_scale, int causal, int window) {
+                            const int* __restrict__ q_offset, int H, int Hkv,
+                            int S, int Sk, int D, int Dv, float sm_scale,
+                            int causal, int window) {
   using Tile = MmaTile<DP>;
   constexpr int BK = Tile::BK;
   constexpr int LD = Tile::LD;
@@ -337,6 +355,9 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2;  // fragment row (and row + 8)
   const int t = lane & 3;   // fragment column pair
+  // this lane's query offset and the end of the keys its rows may see
+  const int off = q_offset ? q_offset[b] : 0;
+  const int kv_lim = q_offset ? min(Sk, off + S) : Sk;
 
   const bf16* qp = q + (static_cast<size_t>(b) * H + h) * S * D;
   const bf16* kp = k + (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
@@ -344,10 +365,10 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
   bf16* op = out + (static_cast<size_t>(b) * H + h) * S * Dv;
 
   // Key tiles that some row of this query tile can see.
-  const int k_end = causal ? min(Sk, q0 + kMmaBQ) : Sk;
+  const int k_end = causal ? min(kv_lim, off + q0 + kMmaBQ) : kv_lim;
   int k_begin = 0;
   if (window > 0) {
-    const int lo = q0 - window + 1;  // first key row q0 can see
+    const int lo = off + q0 - window + 1;  // first key row q0 can see
     if (lo > 0) k_begin = (lo / BK) * BK;
   }
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
@@ -403,8 +424,8 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
       }
     }
     // A warp whose rows see no key of this tile skips its products.
-    const bool skip = w_first >= S || (causal && k0 > w_first + 15) ||
-                      (window > 0 && w_first - (k0 + BK - 1) >= window);
+    const bool skip = w_first >= S || (causal && k0 > off + w_first + 15) ||
+                      (window > 0 && off + w_first - (k0 + BK - 1) >= window);
     if (!skip) {
       // S = Q K^T for this warp's 16 rows and the tile's BK keys.
       float s[NS][4];
@@ -437,9 +458,9 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
       for (int j = 0; j < NS; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int qi = row0 + (e >> 1) * 8;
+          const int qi = off + row0 + (e >> 1) * 8;  // key position
           const int kj = k0 + j * 8 + 2 * t + (e & 1);
-          bool ok = kj < Sk;
+          bool ok = kj < kv_lim;
           if (causal) ok = ok && kj <= qi;
           if (window > 0) ok = ok && qi - kj < window;
           s[j][e] = ok ? s[j][e] * scale_log2 : rt::kNegInf;
@@ -531,8 +552,8 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
 
 template <int DP>
 int launch_bf16_dp(const bf16* q, const bf16* k, const bf16* v, bf16* out,
-                   int B, int H, int Hkv, int S, int Sk, int D, int Dv,
-                   float sm_scale, int causal, int window,
+                   const int* q_offset, int B, int H, int Hkv, int S, int Sk,
+                   int D, int Dv, float sm_scale, int causal, int window,
                    cudaStream_t stream) {
   const size_t smem = MmaTile<DP>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
@@ -541,13 +562,15 @@ int launch_bf16_dp(const bf16* q, const bf16* k, const bf16* v, bf16* out,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kMmaBQ - 1) / kMmaBQ, H, B);
   flash_attention_bf16_kernel<DP><<<grid, kMmaThreads, smem, stream>>>(
-      q, k, v, out, H, Hkv, S, Sk, D, Dv, sm_scale, causal, window);
+      q, k, v, out, q_offset, H, Hkv, S, Sk, D, Dv, sm_scale, causal,
+      window);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int B, int H, int Hkv, int S, int Sk, int D, int Dv,
-                float sm_scale, int causal, int window, cudaStream_t stream) {
+                const int* q_offset, int B, int H, int Hkv, int S, int Sk,
+                int D, int Dv, float sm_scale, int causal, int window,
+                cudaStream_t stream) {
   // 16-byte copies need 16-byte rows and base addresses.
   const uintptr_t addr = reinterpret_cast<uintptr_t>(q) |
                          reinterpret_cast<uintptr_t>(k) |
@@ -566,8 +589,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   switch (dp) {
 #define RT_FA_CASE(DP)                                                    \
   case DP:                                                                \
-    return launch_bf16_dp<DP>(qb, kb, vb, ob, B, H, Hkv, S, Sk, D, Dv,    \
-                              sm_scale, causal, window, stream);
+    return launch_bf16_dp<DP>(qb, kb, vb, ob, q_offset, B, H, Hkv, S, Sk, \
+                              D, Dv, sm_scale, causal, window, stream);
     RT_FA_CASE(16) RT_FA_CASE(32) RT_FA_CASE(64)
     RT_FA_CASE(80) RT_FA_CASE(96) RT_FA_CASE(112) RT_FA_CASE(128)
     RT_FA_CASE(144) RT_FA_CASE(160) RT_FA_CASE(176) RT_FA_CASE(192)
@@ -585,22 +608,25 @@ RT_DEFINE_ERROR_STRING
 // Returns cudaGetLastError() after the launch (0 on success).  The caller
 // checks shapes, dtypes and contiguity; D and Dv must be at most 256 (and,
 // in bfloat16, multiples of 8 with 16-byte aligned tensors), and
-// window <= 0 means no window.
+// window <= 0 means no window.  q_offset is null or an int32 (B,) device
+// vector with values in [0, Sk - S].
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int H,
+                                      const void* v, void* out,
+                                      const void* q_offset, int B, int H,
                                       int Hkv, int S, int Sk, int D, int Dv,
                                       float sm_scale, int causal, int window,
                                       int dtype, void* stream) {
   if (D > kMaxD || Dv > kMaxD || Hkv <= 0 || H % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* off = static_cast<const int*>(q_offset);
   switch (dtype) {
     case rt::kF32:
-      return launch_f32(q, k, v, out, B, H, Hkv, S, Sk, D, Dv, sm_scale,
+      return launch_f32(q, k, v, out, off, B, H, Hkv, S, Sk, D, Dv, sm_scale,
                         causal, window, st);
     case rt::kBF16:
-      return launch_bf16(q, k, v, out, B, H, Hkv, S, Sk, D, Dv, sm_scale,
-                         causal, window, st);
+      return launch_bf16(q, k, v, out, off, B, H, Hkv, S, Sk, D, Dv,
+                         sm_scale, causal, window, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

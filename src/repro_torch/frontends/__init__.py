@@ -1,2 +1,3 @@
-"""Model frontends of the port: the vision suite of paper Table IV
-(``vision``), copied from ``repro/frontends``."""
+"""Model frontends of the port, copied from ``repro/frontends``: the
+vision suite of paper Table IV (``vision``) and the tiny LM decoder of
+the causal-op decode path (``lm``)."""

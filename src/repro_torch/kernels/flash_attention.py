@@ -1,4 +1,6 @@
-"""Flash attention (prefill) on the H100: causal / sliding-window / GQA.
+"""Flash attention (prefill) on the H100: causal / sliding-window / GQA,
+with an optional per-lane query offset (the IR attention of the LM decode
+path, whose queries stand at a cache position).
 
 Launch wrapper of the hand-written CUDA kernel
 ``csrc/flash_attention.cu``, which replaces the Pallas kernel of
@@ -31,7 +33,7 @@ launches = 0
 launches_by_shape: Counter = Counter()
 _lock = threading.Lock()             # the counters, across threads
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p]
 MAX_HEAD_DIM = 256
@@ -47,11 +49,18 @@ def shape_key(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None,
                     sm_scale: Optional[float] = None,
-                    block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+                    block_q: int = 128, block_k: int = 128,
+                    q_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B,H,S,D); k (B,Hkv,Sk,D); v (B,Hkv,Sk,Dv); H % Hkv == 0.
 
     Returns o (B,H,S,Dv) in q's dtype.  Query head h reads kv head
-    h // (H // Hkv).  ``block_q``/``block_k`` are accepted for the JAX
+    h // (H // Hkv).  ``q_offset``, an integer tensor (B,) on q's device
+    with values in [0, Sk - S], places query row i of lane b at key
+    position ``q_offset[b] + i``: key j is valid iff ``j < q_offset[b] +
+    S`` and, when causal, ``j <= q_offset[b] + i``; the kernel reads it
+    on the device, so lanes at different positions share one launch.
+    None launches the kernel without an offset (its mask is then the
+    Pallas kernel's).  ``block_q``/``block_k`` are accepted for the JAX
     API and ignored: the kernel's tiles are fixed (128 query rows and 64
     keys in bf16, 32 keys above head dim 128; 16 rows and 64 keys in
     f32).  q, k and v are made contiguous and 16-byte aligned (copied
@@ -89,6 +98,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, "
                         f"v of one dtype; got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
+    if q_offset is not None:
+        if q_offset.shape != (B,) or q_offset.device != dev or \
+                q_offset.dtype.is_floating_point:
+            raise ValueError(f"q_offset must be an integer ({B},) tensor on "
+                             f"{dev}; got {tuple(q_offset.shape)} "
+                             f"{q_offset.dtype} on {q_offset.device}")
+        q_offset = q_offset.to(torch.int32).contiguous()
     sm_scale = sm_scale or 1.0 / math.sqrt(D)
     q, k, v = (_build.aligned(t) for t in (q, k, v))
     out = torch.empty((B, H, S, Dv), dtype=q.dtype, device=dev)
@@ -96,7 +112,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          _ARGTYPES)
     with torch.cuda.device(dev):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, H, Hkv, S, Sk, D, Dv, sm_scale, int(causal),
+                q_offset.data_ptr() if q_offset is not None else None, B, H, Hkv, S, Sk, D, Dv, sm_scale, int(causal),
                 int(window or 0), _build.DTYPE_CODES[q.dtype],
                 _build.stream_of(q))
     _build.check(rc, "flash_attention")

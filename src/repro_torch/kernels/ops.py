@@ -101,15 +101,19 @@ def neutron_matmul_nk(x, wt, bias, act: str, out, impl: str = "auto"):
 def flash_attention(q, k, v, causal: bool = True,
                     window: Optional[int] = None,
                     sm_scale: Optional[float] = None,
-                    impl: str = "auto", **block_kw):
-    """q (B,H,S,D); k (B,Hkv,Sk,D); v (B,Hkv,Sk,Dv) -> (B,H,S,Dv)."""
+                    impl: str = "auto", q_offset=None, **block_kw):
+    """q (B,H,S,D); k (B,Hkv,Sk,D); v (B,Hkv,Sk,Dv) -> (B,H,S,Dv).
+    ``q_offset`` (B,) int: each lane's query position in the keys (see
+    ``ref.flash_attention_ref``)."""
     if _plain(impl, q):
         k, v = _repeat_kv(k, v, q.shape[1])
         return _ref.flash_attention_ref(q, k, v, causal=causal,
                                         window=window, sm_scale=sm_scale,
-                                        block_k=block_kw.get("block_k", 512))
+                                        block_k=block_kw.get("block_k", 512),
+                                        q_offset=q_offset)
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                               sm_scale=sm_scale, **block_kw)
+                               sm_scale=sm_scale, q_offset=q_offset,
+                               **block_kw)
 
 
 # --------------------------------------------------------------------------

@@ -169,11 +169,18 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True,
                         window: Optional[int] = None,
                         sm_scale: Optional[float] = None,
-                        block_k: int = 512) -> torch.Tensor:
+                        block_k: int = 512,
+                        q_offset: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """Streaming-softmax attention, O(S·block_k) memory.
 
     q (B,H,S,D); k (B,H,Sk,D); v (B,H,Sk,Dv): the heads of q and k/v are
     equal here (``ops.flash_attention`` repeats grouped kv heads first).
+    ``q_offset`` (B,) int places query row i of lane b at key position
+    ``q_offset[b] + i``: key j is then valid iff ``j < q_offset[b] + S``
+    and, when causal, ``j <= q_offset[b] + i`` (the window counts from
+    the same position).  None is an offset of 0 with no ``j < S`` bound,
+    the Pallas kernel's mask.
     """
     B, H, S, D = q.shape
     Dv = v.shape[-1]
@@ -183,6 +190,11 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     nk = math.ceil(Sk / block_k)
     qf = q.float()
     qi = torch.arange(S, device=q.device)[:, None]
+    kv_lim = Sk
+    if q_offset is not None:
+        off = q_offset.to(q.device, torch.int64).reshape(B, 1, 1, 1)
+        qi = qi + off                                   # (B,1,S,1)
+        kv_lim = off + S
     m = torch.full((B, H, S), -math.inf, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros((B, H, S), dtype=torch.float32, device=q.device)
@@ -192,7 +204,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         vc = v[:, :, j * block_k:(j + 1) * block_k].float()
         s = torch.einsum("bhqd,bhkd->bhqk", qf, kc) * sm_scale
         kj = j * block_k + torch.arange(kc.shape[2], device=q.device)[None]
-        mask = kj < Sk
+        mask = (kj < Sk) & (kj < kv_lim)
         if causal:
             mask = mask & (kj <= qi)
         if window is not None:

@@ -5,8 +5,9 @@ through the port's :class:`~repro_torch.core.execplan.ExecPlan`, one
 fused kernel per op in topological order, the batch dimension through
 every kernel:
 
-  * **conv and fc run on K1** (``kernels/neutron_matmul.py``, the plan
-    contract): a 1x1 conv without padding reads its input slot in place
+  * **conv, fc and matmul run on K1** (``kernels/neutron_matmul.py``,
+    the plan contract): a 1x1 conv without padding and a matmul read
+    their input slot in place
     (through a strided view when its stride is above 1); any other conv
     first lays out its columns (im2col) in the (i, j, c) order of the
     weight ``w_q.reshape(outC, -1)``, padding the stored int8 with the
@@ -26,8 +27,17 @@ float32 epilogue is the reference's operation for operation, so the
 stored integers equal the reference plan's wherever the activations are
 piecewise linear.
 
-The causal kinds of the LM decode path (matmul, layernorm, softmax,
-attention, kvappend) are ``ROADMAP.md`` item 8.
+The causal kinds of the LM decode path: matmul on K1 as fc is; layernorm
+(gamma and beta float32, as PTQ keeps them) and softmax dequantize,
+compute in float32 and quantize; attention dequantizes q and the caches
+and runs K3 or K2 in float32 (the reference computes it in float32 too);
+kvappend copies the cache's stored ints (its input and output qparams are
+tied by PTQ) and requantizes the new rows into them.  The ``pos`` operand
+stays float32 (PTQ exempts it), and each lane's offset is derived from it
+on the device (``core.execplan.pos_rows``).  layernorm, softmax, gelu and
+attention are not piecewise linear, and torch and the kernels sum in
+another order than numpy, so their stored ints may differ from the
+reference plan's by one step where a value lies at a rounding boundary.
 """
 from __future__ import annotations
 
@@ -37,8 +47,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.execplan import (CAUSAL_KINDS, PlanConsts, PlanStep,
-                                       im2col, pad_hw, taps)
+from repro_torch.core.execplan import (PlanConsts, PlanStep, attend,
+                                       im2col, kv_append, layernorm_t,
+                                       pad_hw, pos_rows, softmax_t, taps)
 from repro_torch.core.ir import Graph
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ir_activation
@@ -144,10 +155,6 @@ def lower_quant_steps(qm: QuantizedModel, g: Graph, tiling, program,
     for op in g.topo_ops():
         a = op.attrs
         k = op.kind
-        if k in CAUSAL_KINDS:
-            raise NotImplementedError(
-                f"{op.name}: the causal op {k!r} is not ported to the "
-                f"device plan yet (ROADMAP.md item 8)")
         oid = ids[op.outputs[0]]
         out_qp = qm.qp(op.outputs[0])
         label = f"{op.name}@op"
@@ -206,7 +213,7 @@ def lower_quant_steps(qm: QuantizedModel, g: Graph, tiling, program,
                         xin, ker, bias, sc, act, *outp,
                         out=bufs[oid][:n].view(n, oh * ow, oc))
             reads = (xid,)
-        elif k == "fc":
+        elif k in ("fc", "matmul"):
             x = g.act_inputs(op)[0]
             xid = ids[x.name]
             in_qp = qm.qp(x.name)
@@ -219,12 +226,13 @@ def lower_quant_steps(qm: QuantizedModel, g: Graph, tiling, program,
                                            transpose=True)
             act = a.get("act", "none")
             outp = _out_params(out_qp)
+            rows = g.tensors[op.outputs[0]].shape[0] if k == "matmul" else 1
 
             def run(bufs, n, xid=xid, oid=oid, ker=ker, bias=bias, sc=sc,
-                    act=act, outp=outp):
+                    act=act, outp=outp, rows=rows):
                 ops.neutron_matmul_plan(
-                    bufs[xid][:n].view(n, 1, -1), ker, bias, sc, act, *outp,
-                    out=bufs[oid][:n].view(n, 1, -1))
+                    bufs[xid][:n].view(n, rows, -1), ker, bias, sc, act,
+                    *outp, out=bufs[oid][:n].view(n, rows, -1))
             reads = (xid,)
         elif k in ("add", "mul"):
             xs = g.act_inputs(op)
@@ -355,6 +363,62 @@ def lower_quant_steps(qm: QuantizedModel, g: Graph, tiling, program,
                     bufs[o][:n].copy_(quantize_t(p, qp))
             steps.append(PlanStep(label, (xid,), oids, run))
             continue
+        elif k == "layernorm":
+            x = g.act_inputs(op)[0]
+            xid = ids[x.name]
+            to = dict(device=device, dtype=torch.float32)
+            gam = torch.as_tensor(qm.qweights[op.inputs[1]], **to)
+            bet = torch.as_tensor(qm.qweights[op.inputs[2]], **to)
+
+            def run(bufs, n, xid=xid, in_qp=qm.qp(x.name), gam=gam, bet=bet,
+                    eps=a["eps"], oid=oid, out_qp=out_qp):
+                y = layernorm_t(dequantize_t(bufs[xid][:n], in_qp), gam, bet,
+                                eps)
+                bufs[oid][:n].copy_(quantize_t(y, out_qp))
+            reads = (xid,)
+        elif k == "softmax":
+            x = g.act_inputs(op)[0]
+            xid = ids[x.name]
+
+            def run(bufs, n, xid=xid, in_qp=qm.qp(x.name), oid=oid,
+                    out_qp=out_qp):
+                y = softmax_t(dequantize_t(bufs[xid][:n], in_qp))
+                bufs[oid][:n].copy_(quantize_t(y, out_qp))
+            reads = (xid,)
+        elif k == "attention":
+            q, kc, vc, ps = g.act_inputs(op)
+            qid, kid, vid, pid = (ids[t.name] for t in (q, kc, vc, ps))
+            qps = tuple(qm.qp(t.name) for t in (q, kc, vc))
+
+            def run(bufs, n, qid=qid, kid=kid, vid=vid, pid=pid, qps=qps,
+                    attrs=dict(a), smax=kc.shape[0], s=q.shape[0], oid=oid,
+                    out_qp=out_qp):
+                qf, kf, vf = (dequantize_t(bufs[i][:n], qp)
+                              for i, qp in zip((qid, kid, vid), qps))
+                y = attend(qf, kf, vf, pos_rows(bufs[pid][:n], smax, s),
+                           attrs)
+                out = bufs[oid][:n]
+                out.copy_(quantize_t(y.reshape(out.shape), out_qp))
+            reads = (qid, kid, vid, pid)
+        elif k == "kvappend":
+            cx, nx, ps = g.act_inputs(op)
+            cid, nid, pid = ids[cx.name], ids[nx.name], ids[ps.name]
+            qpc = qm.qp(cx.name)
+            # tied qparams (quantize_graph ties every cache's): the rows
+            # kept are the stored ints as they are
+            tied = _out_params(qpc) == _out_params(out_qp) \
+                and qpc.axis is None and out_qp.axis is None
+
+            def run(bufs, n, cid=cid, nid=nid, pid=pid, qpc=qpc,
+                    qpn=qm.qp(nx.name), tied=tied, smax=cx.shape[0],
+                    s=nx.shape[0], oid=oid, out_qp=out_qp):
+                cache = bufs[cid][:n]
+                if not tied:
+                    cache = quantize_t(dequantize_t(cache, qpc), out_qp)
+                new = quantize_t(dequantize_t(bufs[nid][:n], qpn), out_qp)
+                kv_append(bufs[oid][:n], cache, new,
+                          pos_rows(bufs[pid][:n], smax, s))
+            reads = (cid, nid, pid)
         else:
             raise NotImplementedError(
                 f"{op.name}: op kind {k!r} has no int8 plan kernel")

@@ -384,14 +384,13 @@ def test_compile_and_load_raise_without_a_gpu(monkeypatch, tmp_path):
 def test_api_exports_and_imports_no_serving_names():
     """Since item 6b the port exports the reference's Session and serving
     errors, and BreakerOpen (the port's own: a CUDA session's open breaker
-    fails fast); DecodeSession and Fleet (items 8 and 10) stay out."""
-    serving = {"Session", "ServingError", "Overloaded", "DeadlineExceeded",
-               "FlushError", "WorkerLost", "Ticket", "CircuitBreaker",
-               "Cancelled", "FrameCorrupt"}
+    fails fast); since item 8 DecodeSession; Fleet (item 10) stays out."""
+    serving = {"Session", "DecodeSession", "ServingError", "Overloaded",
+               "DeadlineExceeded", "FlushError", "WorkerLost", "Ticket",
+               "CircuitBreaker", "Cancelled", "FrameCorrupt"}
     assert set(tapi.__all__) == {"compile", "load", "CompiledModel",
                                  "ArtifactError", "CompilerOptions",
                                  "resolve_semantics", "BreakerOpen"} | serving
     assert serving <= set(japi.__all__)
     assert issubclass(tapi.BreakerOpen, tapi.ServingError)
-    for n in ("DecodeSession", "Fleet"):
-        assert not hasattr(tapi, n)
+    assert not hasattr(tapi, "Fleet")

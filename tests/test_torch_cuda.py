@@ -817,3 +817,154 @@ def test_session_open_breaker_on_the_card_fails_fast_then_recovers(dev):
             assert torch.equal(got[k], w), k
     finally:
         sess.close()
+
+
+# --------------------------------------------------------------------------
+# the LM decode path on the NPU compile path (ROADMAP item 8)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Sk,causal", [
+    (3, 8, 16, True), (3, 8, 16, False), (4, 64, 128, True),
+    (3, 1, 8, True), (2, 5, 70, True), (2, 130, 200, True),
+])
+def test_flash_attention_q_offset_matches_plain(dev, dtype, B, S, Sk,
+                                                causal):
+    """K2 with a per-lane query offset: lanes at 0, 3 and Sk - S (the
+    extremes and a middle) in one launch, 6 heads of 64 as the decoder
+    runs them (and a ragged S past one query tile), against the plain
+    version; the offset 0 against no offset at all."""
+    gen = torch.Generator(device=dev).manual_seed(S + Sk)
+    H, D = 6, 64
+    q = _randn(gen, (B, H, S, D), dtype, dev)
+    k = _randn(gen, (B, H, Sk, D), dtype, dev)
+    v = _randn(gen, (B, H, Sk, D), dtype, dev)
+    offs = [(0, 3, Sk - S)[b % 3] for b in range(B)]
+    off = torch.tensor(offs, dtype=torch.int32, device=dev)
+    n0 = t_fa.launches
+    got = ops.flash_attention(q, k, v, causal=causal, q_offset=off)
+    want = ops.flash_attention(q, k, v, causal=causal, q_offset=off,
+                               impl="ref")
+    torch.cuda.synchronize()
+    assert t_fa.launches == n0 + 1
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    zero = torch.zeros(B, dtype=torch.int32, device=dev)
+    if causal:      # at offset 0 the kernel's mask already ends at S
+        torch.testing.assert_close(
+            ops.flash_attention(q, k, v, causal=True, q_offset=zero),
+            ops.flash_attention(q, k, v, causal=True))
+
+
+@pytest.mark.parametrize("kv", [8, 16, 128])
+def test_flash_decode_f32_decoder_shapes(dev, kv):
+    """K3 in float32 at the decoder's heads (H = Hkv = 6, D 64), kv_len
+    at 1, in the middle and at the full bucket, over three lanes."""
+    gen = torch.Generator(device=dev).manual_seed(kv)
+    q = _randn(gen, (3, 6, 64), torch.float32, dev)
+    k = _randn(gen, (3, 6, kv, 64), torch.float32, dev)
+    v = _randn(gen, (3, 6, kv, 64), torch.float32, dev)
+    kv_len = torch.tensor([1, kv // 2 + 1, kv], dtype=torch.int32,
+                          device=dev)
+    got = ops.flash_decode(q, k, v, kv_len=kv_len, sm_scale=0.125)
+    want = ops.flash_decode(q, k, v, kv_len=kv_len, sm_scale=0.125,
+                            impl="ref")
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("M", [1, 64])
+def test_neutron_matmul_logits_width_into_strided_output(dev, M):
+    """K1 at the decoder's logits (K 384, N 51865: not a multiple of the
+    64-wide tile, an odd int8 row pitch), both contracts, the output a
+    view at a batch stride of a wider buffer (the arena's): the plan
+    contract's ints equal the plain version's, the float32 contract
+    within 2e-3 / 1e-3, nothing written outside the view."""
+    gen = torch.Generator(device=dev).manual_seed(M)
+    B, K, N, pitch = 2, 384, 51865, M * 51865 + 77
+    x = torch.randint(-128, 128, (B, M, K), generator=gen, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (N, K), generator=gen, device=dev,
+                      dtype=torch.int8)
+    bias = torch.randint(-5000, 5000, (N,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    sc = torch.rand((1,), generator=gen, device=dev) * 1e-4 + 1e-5
+    arena = torch.zeros((B, pitch), dtype=torch.int8, device=dev)
+    out = arena[:, 13:13 + M * N].view(B, M, N)
+    ops.neutron_matmul_plan(x, w, bias, sc, "none", 0.05, 7, -128, 127, out)
+    want = ops.neutron_matmul_plan(x, w, bias, sc, "none", 0.05, 7, -128,
+                                   127, torch.empty_like(out), impl="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert not arena[:, :13].any() and not arena[:, 13 + M * N:].any()
+
+    xf = _randn(gen, (B, M, K), torch.float32, dev)
+    wt = _randn(gen, (N, K), torch.float32, dev) / math.sqrt(K)
+    bf = _randn(gen, (N,), torch.float32, dev)
+    buf = torch.zeros((B, pitch), dtype=torch.float32, device=dev)
+    outf = buf[:, 13:13 + M * N].view(B, M, N)
+    ops.neutron_matmul_nk(xf, wt, bf, "none", outf)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        wantf = ref.neutron_matmul_nk_ref(xf, wt, bf, "none")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.testing.assert_close(outf, wantf, atol=2e-3, rtol=1e-3)
+    assert not buf[:, :13].any() and not buf[:, 13 + M * N:].any()
+
+
+@pytest.mark.parametrize("precision", ["float32", "int8"])
+def test_decode_step_at_full_width_matches_cpu(dev, precision):
+    """One prefill and one decode step of the whisper-tiny decoder at full
+    width (4 layers, d 384, 6 x 64, d_ff 1536, vocab 51865) on the card
+    against the same compiled model on the CPU, fed the same inputs:
+    float32 within float_plan_tol, int8 stored ints within one step; K1
+    25, K2 4 and K3 4 launches."""
+    import tempfile
+
+    import repro_torch.api as tapi
+    from repro_torch.core.executor import float_plan_tol
+    from repro_torch.frontends import lm
+
+    spec = lm.tiny_spec(scale=1, n_layers=4, vocab=51865)
+    sess = tapi.DecodeSession(spec=spec, precision=precision, device=dev)
+    cpu = tapi.DecodeSession(spec=spec, precision=precision, device="cpu")
+    with tempfile.TemporaryDirectory() as d:
+        for key in ((8, 8), (1, 8)):
+            cpu._models[key] = tapi.load(
+                sess.model(*key).save(f"{d}/m.rpa"), device="cpu")
+    outs = {}
+    for s in (sess, cpu):
+        run = s._run
+
+        def capture(m, feed, s=s, run=run):
+            outs[s] = (m, run(m, feed))
+            return outs[s][1]
+        s._run = capture
+    prompt = [3, 17, 42, 5, 9, 1]
+    n = (t_fa.launches, t_fd.launches, t_k1.launches)
+    rid, tok = sess.prefill(prompt)
+    prid, _ = cpu.prefill(prompt)
+    checks = [dict(outs)]
+    r, pr = sess._requests[rid], cpu._requests[prid]
+    pr.caches = {k: v.cpu() for k, v in r.caches.items()}
+    pr.tokens = list(r.tokens)
+    sess.step(rid)
+    cpu.step(prid)
+    checks.append(dict(outs))
+    assert (t_fa.launches - n[0], t_fd.launches - n[1],
+            t_k1.launches - n[2]) == (4, 4, 50)
+    for got in checks:
+        m, want = got[cpu]
+        card = got[sess][1]
+        for name, w in want.items():
+            g = card[name].cpu()
+            assert torch.isfinite(g).all()
+            if precision == "float32":
+                assert float((g - w).abs().max()) <= float_plan_tol(
+                    w.numpy()), name
+            else:
+                step = m.semantics._scale(name)
+                assert float((g - w).abs().max()) <= 1.5 * step, name

@@ -157,21 +157,32 @@ def test_reference_float32_artifact_serves_in_port(pairs, key, tmp_path):
 
 
 def test_causal_kinds_raise_naming_item_8():
+    """ROADMAP item 8 is done: the causal kinds that raised naming it now
+    lower, and each one-op graph's plan and compiled model agree with the
+    reference's float32 plan within ``float_plan_tol``."""
+    from repro.core.ir import GraphBuilder as JGraphBuilder
     from repro_torch.core.ir import GraphBuilder
     for kind in ("matmul", "layernorm", "softmax"):
-        b = GraphBuilder(f"causal_{kind}", seed=0)
-        x = b.input((4, 1, 8))
-        y = {"matmul": lambda: b.matmul(x, 8),
-             "layernorm": lambda: b.layernorm(x),
-             "softmax": lambda: b.softmax(x)}[kind]()
-        b.mark_output(y)
-        g = b.build()
-        with pytest.raises(NotImplementedError, match="item 8"):
-            lower_plan(None, g, None, b._weights, FLOAT_SEMANTICS,
-                       device="cpu")
+        outs = []
+        for builder in (GraphBuilder, JGraphBuilder):
+            b = builder(f"causal_{kind}", seed=0)
+            x = b.input((4, 1, 8))
+            y = {"matmul": lambda: b.matmul(x, 8, act="gelu"),
+                 "layernorm": lambda: b.layernorm(x),
+                 "softmax": lambda: b.softmax(x)}[kind]()
+            b.mark_output(y)
+            outs.append((b.build(), b))
+        (g, b), (gj, bj) = outs
+        xin = np.random.default_rng(1).normal(
+            size=(3,) + g.inputs[0].shape).astype(np.float32)
+        plan = lower_plan(None, g, None, b._weights, FLOAT_SEMANTICS,
+                          capacity=4, device="cpu")
+        want = japi.compile((gj, bj), cache=False).plan_for(4).run(
+            {gj.inputs[0].name: xin}, n=3)
+        _within_tol(plan.run({g.inputs[0].name: xin}, n=3), want, kind)
         m = tapi.compile((g, b), cache=False, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 8"):
-            m(np.zeros(g.inputs[0].shape, np.float32))
+        _within_tol({k: v[None] for k, v in m(xin[0]).items()},
+                    {k: v[:1] for k, v in want.items()}, kind)
 
 
 @pytest.mark.parametrize("act", ["none", "relu6", "hswish", "gelu", "leaky"])

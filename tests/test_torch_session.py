@@ -478,13 +478,30 @@ def test_pool_recycles_stalled_worker_zero_ticket_loss():
 
 @pytest.mark.chaos
 def test_pool_deadline_auto_flush_is_latency_bounded():
+    """The deadline submission is dispatched by the deadline-driven
+    auto-flush, not the 500 ms linger: its queue wait (submit -> the
+    batch's start, the session's own ``repro_queue_wait_ms`` record) stays
+    under 0.4 s.  The bound is held on the queue wait, which the pool
+    controls; the batch's CPU service and the oracle check behind it are
+    not part of the flush, and on a host loaded by the suite's other
+    workers they alone can take longer than the flush.  The breakdown is
+    in the message."""
     sess = _session(workers=1, linger_ms=500.0)
     x = _feed(sess)
     sess.run("m0", x)                       # lower + arena before timing
     t0 = time.monotonic()
     t = sess.submit("m0", x, deadline_ms=100.0)
-    _check_output(sess, "m0", t.result(timeout=10), x)
-    assert (time.monotonic() - t0) < 0.4    # NOT the 500 ms linger
+    out = t.result(timeout=10)
+    result_s = time.monotonic() - t0
+    _check_output(sess, "m0", out, x)
+    snap = sess.registry.snapshot()
+    wait = snap["repro_queue_wait_ms"]["model=m0"]
+    service = snap["repro_batch_service_ms"]["model=m0"]
+    assert wait["count"] == 1
+    assert wait["max_ms"] < 400.0, (         # NOT the 500 ms linger
+        f"queue wait {wait['max_ms']:.1f} ms, batch service "
+        f"{service['max_ms']:.1f} ms, submit to result "
+        f"{result_s * 1e3:.1f} ms")
     sess.close()
 
 

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import repro.api as api
+from repro import quant as jquant
 from repro.core.execplan import assign_slots as j_assign_slots
 from repro.core.ir import _apply_act as j_apply_act
 from repro.frontends import vision as jvision
@@ -447,18 +448,33 @@ def test_serve_vision_raises_without_a_gpu(monkeypatch):
 
 
 def test_unported_paths_raise_naming_their_item():
+    """ROADMAP item 8 is done: a causal graph that raised naming it now
+    lowers under both semantics, and its int8 plan's stored ints equal
+    the reference plan's (the matmul has no activation, so the plan is
+    exact)."""
+    from repro.core.ir import GraphBuilder as JGraphBuilder
     from repro_torch.core.executor import FLOAT_SEMANTICS
     from repro_torch.core.ir import GraphBuilder
     b = GraphBuilder("causal", seed=0)
     x = b.input((4, 1, 8))
     b.mark_output(b.matmul(x, 8))
     g = b.build()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        lower_plan(None, g, None, b._weights, FLOAT_SEMANTICS,
-                   device="cpu")
+    lower_plan(None, g, None, b._weights, FLOAT_SEMANTICS, device="cpu")
     cal = tquant.synthetic_calibration(g, samples=1)
     qm = tquant.quantize_graph(g, b._weights,
                                tquant.calibrate(g, b._weights, cal))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        lower_plan(None, g, None, qm.weights_f, QuantSemantics(qm),
-                   device="cpu")
+    plan = lower_plan(None, g, None, qm.weights_f, QuantSemantics(qm),
+                      capacity=2, device="cpu")
+    bj = JGraphBuilder("causal", seed=0)
+    xj = bj.input((4, 1, 8))
+    bj.mark_output(bj.matmul(xj, 8))
+    gj = bj.build()
+    qmj = jquant.quantize_graph(gj, bj._weights,
+                                jquant.calibrate(gj, bj._weights, cal))
+    ref_plan = api.compile(qmj, cache=False).plan_for(2)
+    xs = np.random.default_rng(0).normal(size=(2, 4, 1, 8)) \
+        .astype(np.float32)
+    want = ref_plan.run({x: xs}, n=2, decode=False)
+    got = plan.run({x: xs}, n=2, decode=False)
+    for name, w in want.items():
+        assert np.array_equal(got[name].numpy(), w), name
