@@ -19,7 +19,10 @@ each of which ends the run with a nonzero exit and no result on failure:
    contract: f32, bf16, int8 requant, per-channel scale; K1 at both
    contracts, K2 and K3 in float32 at phase 13's decoder shapes, K2 with
    its query offset, which probes hold at lanes of different offsets;
-   ``strided_ms``, the call on the plan's cache-slot views), timed beside its
+   ``strided_ms``, the call on the plan's cache-slot views; K2 not causal
+   with Sq != Sk at phase 14's shapes, held also on a probe that its key
+   tail decides; ``expand_ms``, whisper's cross-attention with the
+   cached K/V's expansion to the padded heads), timed beside its
    plain version, one PyTorch library call for the same function where
    there is one (for K1 `torch._int_mm`, on zero-padded copies where its
    shape rules refuse the shape; for K1's float32 rows, at the float32
@@ -90,7 +93,20 @@ each of which ends the run with a nonzero exit and no result on failure:
    step and K2 4 a prefill (by shape, at shapes phase 2 times), every
    plan built once.  Prefill ms, decode ms per token, tokens/s, the
    device busy share of a decode step (torch.profiler) and kernels a
-   step are printed.
+   step are printed;
+14. whisper-tiny (encoder-decoder) at full width, nothing cut (4 encoder
+   layers over 1500 audio frames, 4 decoder layers, d_model 384, 6 heads
+   of 64 padded to 16, vocab 51865): ``serve`` runs the encoder and every
+   layer's cross K/V once, then each step's cross-attention on K2 (one
+   query row against 1500 keys, not causal) and self-attention on K3;
+   prefill runs the encoder, the causal self-attention and the
+   cross-attention of the prompt on K2.  The encoder's and the cross
+   K/V's wall times are printed;
+15. qwen2-vl-2b at full width, nothing cut (28 layers, d_model 1536, 12
+   heads over 2 padded to 16, M-RoPE), a prompt of its 256 vision tokens
+   and 32 text tokens: the vision embeddings replace the first 256
+   positions' in ``serve``'s steps and in prefill (which rotates by
+   M-RoPE, the steps by RoPE).
 
 For the two SSM paths the prefill-vs-replay agreement is held in
 float32 at full width (TF32 off) and reported in bf16, beside how far
@@ -98,7 +114,7 @@ bf16 moves each path's logits from float32 (see ``ZAMBA`` below).  The
 MoE paths hold it at a capacity that drops nothing (see
 ``GRANITE_MOE``).
 
-In phases 3-10 the weights are random from the seed.  Each path runs
+In phases 3-10, 14 and 15 the weights are random from the seed.  Each path runs
 with the launch counters set to 0 just before it and read just after,
 and must launch each kernel exactly as often as its layers say.  The
 decode replay and the prefill must agree at the last prompt position,
@@ -143,8 +159,8 @@ class ServingPath(NamedTuple):
     `serve` and `prefill` must make, the reduced config held against the
     CPU, and the limit on max|d|/max|logit| between prefill and the
     decode replay in bf16; with None, that comparison is held in float32
-    at full width instead.  `layers` cuts the depth of the served model
-    (None: full depth)."""
+    at full width instead (with `f32_also`, in both).  `layers` cuts the
+    depth of the served model (None: full depth)."""
     arch: str
     batch: int
     prompt_len: int
@@ -155,6 +171,7 @@ class ServingPath(NamedTuple):
     small: dict
     bf16_limit: Optional[float] = 5e-2
     layers: Optional[int] = None
+    f32_also: bool = False
 
 
 # (layers, d_model) and launches follow the configs: minitron-4b runs K3 in
@@ -206,7 +223,28 @@ DEEPSEEK = ServingPath("deepseek-v3-671b", 4, 100, 8, (4, 7168),
 GEMMA = ServingPath("gemma3-27b", 4, 1040, 8, (62, 5376),
                     serve=(0, 62 * 1048, 0, 0), prefill=(62, 0, 0, 0),
                     small={})
-LM_PATHS = (MINITRON, ZAMBA, MAMBA, GRANITE, GRANITE_MOE, DEEPSEEK, GEMMA)
+# whisper-tiny, nothing cut: 4 encoder layers over 1500 audio frames (K2
+# not causal, S = Sk = 1500), 4 decoder layers of 6 heads padded to 16.
+# serve runs the encoder once (4) and, at each of 48 steps, the
+# cross-attention of every decoder layer (K2, one query row against 1500
+# keys) and its self-attention (K3); prefill runs the encoder, the causal
+# self-attention and the cross-attention of the 16 prompt rows (4 each).
+# The reduced config is padded (3 heads over 1, to 4), as at full width.
+PADDED_SMALL = dict(n_heads=3, n_kv_heads=1, d_head=32, tp_pad=4)
+WHISPER = ServingPath("whisper-tiny", 4, 16, 32, (4, 384),
+                      serve=(4 + 4 * 48, 4 * 48, 0, 0),
+                      prefill=(12, 0, 0, 0), small=PADDED_SMALL)
+# qwen2-vl-2b, nothing cut: 28 layers, 12 query heads over 2 (padded to
+# 16), M-RoPE; a prompt of 288 = its 256 vision tokens and 32 text
+# tokens, as a user sends an image and a short question.  Its vision
+# embeddings (normals, 50 times the token embeddings' scale) make the
+# bf16 agreement the loosest of the paths (0.039 of the 5e-2 on an H100
+# 80GB HBM3), so it is also held in float32 at full width.
+QWEN = ServingPath("qwen2-vl-2b", 4, 288, 16, (28, 1536),
+                   serve=(0, 28 * 304, 0, 0), prefill=(28, 0, 0, 0),
+                   small=PADDED_SMALL, f32_also=True)
+LM_PATHS = (MINITRON, ZAMBA, MAMBA, GRANITE, GRANITE_MOE, DEEPSEEK, GEMMA,
+            WHISPER, QWEN)
 
 
 class AttnShape(NamedTuple):
@@ -214,7 +252,10 @@ class AttnShape(NamedTuple):
     (a decode step's q against the cache at the last step, kv_len = S),
     and how many launches of the path's drive (serve, then prefill) the
     config says it takes; the run counts them under the wrapper's
-    ``shape_key``."""
+    ``shape_key``.  K2 attends to `Sk` keys (0: S), causally or not;
+    `expand` (the config's H, Hkv) marks whisper's cross-attention, whose
+    cached K/V at Hkv heads are expanded to the padded heads in every
+    call."""
     tag: str
     B: int
     H: int
@@ -224,6 +265,9 @@ class AttnShape(NamedTuple):
     Dv: int
     window: Optional[int]
     launches: int
+    Sk: int = 0
+    causal: bool = True
+    expand: Optional[Tuple[int, int]] = None
 
 
 def attention_shapes(path: ServingPath, cfg):
@@ -242,6 +286,18 @@ def attention_shapes(path: ServingPath, cfg):
     Hp = cfg.padded_heads
     # prefill expands the kv heads to the padded query heads (group 1)
     H2, Hkv2 = (Hp, Hp) if Hp != H else (H, Hkv)
+    if cfg.enc_dec:
+        Se, Le = cfg.n_audio_frames, cfg.n_enc_layers
+        t = path.arch
+        return ([AttnShape(f"{t} encoder", B, H2, Hkv2, Se, hd, hd, None,
+                           2 * Le, causal=False),
+                 AttnShape(f"{t} self", B, H2, Hkv2, P, hd, hd, None, L),
+                 AttnShape(f"{t} cross decode", B, H2, Hkv2, 1, hd, hd,
+                           None, L * S, Sk=Se, causal=False,
+                           expand=(H, Hkv)),
+                 AttnShape(f"{t} cross prefill", B, H2, Hkv2, P, hd, hd,
+                           None, L, Sk=Se, causal=False, expand=(H, Hkv))],
+                [AttnShape(t, B, H, Hkv, S, hd, hd, None, L * S)])
     if cfg.local_global_ratio:
         R = cfg.local_global_ratio
         G = L // (R + 1)
@@ -590,31 +646,84 @@ def k3_boundary_probe(torch, ops, randn, a: AttnShape) -> float:
         ops.flash_decode(q, k, v, kv_len=kv_len, impl="ref"), "bfloat16")
 
 
+def k2_tail_probe(torch, ops, a: AttnShape, Sk: int) -> float:
+    """K2 not causal at a's shape over Sk keys, on inputs on which the key
+    tail decides the output: q = 1 and k = -4, so every real key scores
+    -4 sqrt(D) and a key read past Sk (zero-filled, score 0) would take
+    nearly all the weight; v = 0 but for markers Sk / 2 at keys 0 and
+    Sk - 1.  Every output is (v[0] + v[Sk-1]) / Sk, about 1: a tail read
+    one key too far gives about 0, the last key dropped about 0.5.  Held
+    against that value and the plain version."""
+    q = torch.ones((a.B, a.H, a.S, a.D), dtype=torch.bfloat16,
+                   device="cuda")
+    k = torch.full((a.B, a.Hkv, Sk, a.D), -4.0, dtype=torch.bfloat16,
+                   device="cuda")
+    v = torch.zeros((a.B, a.Hkv, Sk, a.Dv), dtype=torch.bfloat16,
+                    device="cuda")
+    v[:, :, 0] = Sk / 2
+    v[:, :, Sk - 1] = Sk / 2
+    got = ops.flash_attention(q, k, v, causal=False)
+    want = (v[:, :, 0].float() + v[:, :, Sk - 1].float()) / Sk
+    want = want.repeat_interleave(a.H // a.Hkv, dim=1)[:, :, None]
+    what = f"flash_attention bf16 {a.tag} tail probe Sk={Sk}"
+    check_close(torch, what, got, want.expand_as(got), "bfloat16")
+    return check_close(torch, what, got,
+                       ops.flash_attention(q, k, v, causal=False,
+                                           impl="ref"), "bfloat16")
+
+
 def k2_row(torch, F, ops, randn, a: AttnShape) -> dict:
-    """K2 at a path's prefill shape (bf16, causal, a.window) against its
-    plain version, timed beside SDPA on the same inputs (with the window
-    as a boolean mask, made outside the timed call)."""
+    """K2 at a path's prefill shape (bf16; causal with a.window, or not
+    causal over a.Sk keys) against its plain version, timed beside SDPA
+    on the same inputs (with the window as a boolean mask, made outside
+    the timed call).  Where the path expands cached K/V to the padded
+    heads in every call (a.expand), ``expand_ms`` is the device time of
+    that expansion and the kernel together; at one query row not causal,
+    ``as_k3_ms`` is K3's time for the same function (kv_len = Sk)."""
     from repro_torch.kernels import flash_attention
+    from repro_torch.models.attention import _kv_index
+    Sk = a.Sk or a.S
     q = randn(a.B, a.H, a.S, a.D)
-    k, v = randn(a.B, a.Hkv, a.S, a.D), randn(a.B, a.Hkv, a.S, a.Dv)
+    k, v = randn(a.B, a.Hkv, Sk, a.D), randn(a.B, a.Hkv, Sk, a.Dv)
 
     def kernel():
-        return ops.flash_attention(q, k, v, causal=True, window=a.window)
+        return ops.flash_attention(q, k, v, causal=a.causal, window=a.window)
 
     def plain():
-        return ops.flash_attention(q, k, v, causal=True, window=a.window,
+        return ops.flash_attention(q, k, v, causal=a.causal, window=a.window,
                                    impl="ref")
 
     got = kernel()
     err = check_close(torch, f"flash_attention bf16 {a.tag}", got, plain(),
                       "bfloat16")
+    if not a.causal:
+        e = k2_tail_probe(torch, ops, a, Sk)
+        print(f"  flash_attention [{a.tag}] tail probe at Sk={Sk} (q = 1, "
+              f"k = -4, markers at the first and last key): max|err| "
+              f"{e:.3g}")
     # the window also at S = 2100, where it hides half of the keys
-    for S in (a.S,) + ((2100,) if a.window else ()):
+    for S in () if not a.causal else (a.S,) + ((2100,) if a.window
+                                              else ()):
         e = k2_boundary_probe(torch, ops, randn, a, S)
         print(f"  flash_attention [{a.tag}] boundary probe at S={S} "
               f"(k = 0, a marker in v every {PROBE_EVERY} keys): max|err| "
               f"{e:.3g}")
-    if a.window is None:
+    extra = {}
+    if a.expand:
+        idx = _kv_index(*a.expand, a.H, "cuda")
+        kc = randn(a.B, a.expand[1], Sk, a.D)
+        vc = randn(a.B, a.expand[1], Sk, a.Dv)
+        extra["expand_ms"] = device_ms(
+            torch, lambda: ops.flash_attention(
+                q, kc.index_select(1, idx), vc.index_select(1, idx),
+                causal=False))
+    if a.S == 1 and not a.causal:
+        extra["as_k3_ms"] = device_ms(
+            torch, lambda: ops.flash_decode(q[:, :, 0], k, v))
+    if not a.causal:
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+    elif a.window is None:
         def library():
             return F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                   enable_gqa=True)
@@ -626,7 +735,8 @@ def k2_row(torch, F, ops, randn, a: AttnShape) -> dict:
         def library():
             return F.scaled_dot_product_attention(q, k, v, attn_mask=band,
                                                   enable_gqa=True)
-    pairs = a.B * a.H * causal_pairs(a.S, a.window)
+    pairs = a.B * a.H * (causal_pairs(a.S, a.window) if a.causal
+                         else a.S * Sk)
     b_ms, b_by = bound(nbytes(q, k, v, got), 2 * pairs * (a.D + a.Dv),
                        "bfloat16")
     win = "" if a.window is None else f", window {a.window}"
@@ -634,10 +744,11 @@ def k2_row(torch, F, ops, randn, a: AttnShape) -> dict:
         name="flash_attention", path=a.tag, route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:116",
-        shape=f"q ({a.B},{a.H},{a.S},{a.D}), k ({a.B},{a.Hkv},{a.S},"
-              f"{a.D}), v Dv {a.Dv} bf16 causal{win}",
+        shape=f"q ({a.B},{a.H},{a.S},{a.D}), k ({a.B},{a.Hkv},{Sk},"
+              f"{a.D}), v Dv {a.Dv} bf16 "
+              f"{'causal' if a.causal else 'not causal'}{win}",
         key=flash_attention.shape_key(q, k, v, a.window), expect=a.launches,
-        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **extra,
         **timings(torch, kernel, plain, library))
 
 
@@ -790,6 +901,11 @@ def phase_kernels(torch, F, ops):
             f"{r['library_ms']:.4f} (call {r['library_call_ms']:.4f})"
         strided = "" if "strided_ms" not in r else \
             f", {r['strided_ms']:.4f} from the slots' views"
+        if "expand_ms" in r:
+            strided += (f", {r['expand_ms']:.4f} with the cached K/V's "
+                        f"expansion to the padded heads")
+        if "as_k3_ms" in r:
+            strided += f", K3 on the same inputs {r['as_k3_ms']:.4f}"
         print(f"  {r['name']} [{r['path']}] {r['shape']}: device "
               f"{r['ms']:.4f} ms{strided}, call {r['call_ms']:.4f} (plain "
               f"{r['plain_ms']:.4f}, library {lib}, bound "
@@ -1013,11 +1129,11 @@ def agreement(torch, replay, last):
     return rel, same.tolist(), bool((same | tie).all())
 
 
-def run_prefill(torch, lm, cfg, model, prompts):
+def run_prefill(torch, lm, cfg, model, batch):
     torch.cuda.synchronize()
     t0 = time.monotonic()
     with torch.no_grad():
-        out = lm.prefill(cfg, model, {"tokens": prompts})
+        out = lm.prefill(cfg, model, batch)
     torch.cuda.synchronize()
     return out, time.monotonic() - t0
 
@@ -1029,7 +1145,8 @@ def moe_layers(model):
 
 def phase_path(torch, rows, path, f32_last=None):
     import dataclasses
-    from repro_torch.launch.serve import generate, serve
+    from repro_torch.launch.serve import (decode_aux, draw_inputs, generate,
+                                          serve)
     from repro_torch.models import lm
     from repro_torch.models.registry import get_arch
 
@@ -1057,6 +1174,11 @@ def phase_path(torch, rows, path, f32_last=None):
     print(f"  first stream: {res.tokens[0].tolist()}")
     out = dict(prompt_replay_ms=res.prefill_s * 1e3,
                decode_tok_s=decode_tok_s)
+    if served.aux_s:        # whisper: the encoder and the cross K/V, once
+        out.update({k[:-2] + "_ms": v * 1e3
+                    for k, v in served.aux_s.items()})
+        print(f"  before the replay: encoder {out['encode_ms']:.1f} ms, "
+              f"cross K/V {out['cross_kv_ms']:.1f} ms (wall)")
     moes = moe_layers(served.model)
     if moes:
         dropped = sum(int(m.dropped) for m in moes)
@@ -1068,19 +1190,20 @@ def phase_path(torch, rows, path, f32_last=None):
 
     reset_launches()
     last, prefill_cold_s = run_prefill(torch, lm, cfg, served.model,
-                                       served.prompts)
+                                       served.batch)
     prefill_launches = read_launches()
     prefill_shapes = read_launches_by_shape()
     _, prefill_s = run_prefill(torch, lm, cfg, served.model,
-                               served.prompts)     # warm: timed, not counted
+                               served.batch)       # warm: timed, not counted
     if prefill_launches != path.prefill:
         fail(f"{path.arch}: prefill launched {names} = {prefill_launches}, "
              f"expected {path.prefill}")
     # the path's rows of phase 2, one per shape at which it runs a kernel:
     # each row's launches are those counted under its shape in this run
     # (K2 and K3 count by shape; K4 runs at one shape per path), and must
-    # be what the config says
-    mine = [r for r in rows.values() if r["path"].split()[0] == path.arch]
+    # be what the config says (phase 13's decoder rows are its own)
+    mine = [r for r in rows.values() if r["path"].split()[0] == path.arch
+            and not r["path"].startswith(DECODER_PATH)]
     for name, n_serve, n_prefill in zip(names, serve_launches,
                                         prefill_launches):
         kr = [r for r in mine if r["name"] == name]
@@ -1121,7 +1244,7 @@ def phase_path(torch, rows, path, f32_last=None):
         before = sum(int(m.dropped) for m in moes)
         replay = generate(nd, served.model, served.prompts, gen=0)
         with torch.no_grad():
-            last_nd = lm.prefill(nd, served.model, {"tokens": served.prompts})
+            last_nd = lm.prefill(nd, served.model, served.batch)
         if sum(int(m.dropped) for m in moes) != before:
             fail(f"{path.arch}: capacity_factor {nd.capacity_factor} "
                  f"dropped assignments")
@@ -1131,18 +1254,20 @@ def phase_path(torch, rows, path, f32_last=None):
               f"prefill vs decode replay max|d|/max|logit| {rel:.3g}, "
               f"argmax equal {same}")
         del replay, last_nd
-    if path.bf16_limit is None:
+    if f32_last is not None:
         # the same weights in float32 (rounded to bf16 here): how far bf16
         # rounding alone moves each path's logits
         f32_last = f32_last.to(last.device)
         out["bf16_prefill_vs_f32"] = agreement(torch, f32_last, last)[0]
         out["bf16_replay_vs_f32"] = agreement(torch, f32_last,
                                               res.prompt_logits)[0]
+        held = ("held as well" if path.bf16_limit is not None else
+                "reported, not held")
         print(f"  bf16 against float32 prefill: prefill "
               f"{out['bf16_prefill_vs_f32']:.3g}, replay "
               f"{out['bf16_replay_vs_f32']:.3g}; the bf16 agreement is "
-              f"reported, not held: it is held in float32 at full width")
-    elif rel >= path.bf16_limit or not ok:
+              f"{held}: it is held in float32 at full width")
+    if path.bf16_limit is not None and (rel >= path.bf16_limit or not ok):
         fail(f"{path.arch}: prefill and decode replay disagree")
     del served, last, res, moes
     torch.cuda.empty_cache()
@@ -1153,15 +1278,18 @@ def phase_path(torch, rows, path, f32_last=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     small = get_arch(path.arch).reduced(dtype="float32", **path.small)
     cpu_model = lm.init_params(small, SEED, device="cpu")
-    prompts = np.random.default_rng(SEED).integers(
-        0, small.vocab, size=(path.batch, 19)).astype(np.int32)
-    on_cpu = generate(small, cpu_model, prompts, gen=6)
+    prompts, extra = draw_inputs(small, np.random.default_rng(SEED),
+                                 path.batch, 19)
+    batch = {"tokens": prompts, **extra}
+    on_cpu = generate(small, cpu_model, prompts, gen=6,
+                      aux=decode_aux(small, cpu_model, extra)[0])
     with torch.no_grad():
-        pre_cpu = lm.prefill(small, cpu_model, {"tokens": prompts})
+        pre_cpu = lm.prefill(small, cpu_model, batch)
     gpu_model = cpu_model.to("cuda")
-    on_gpu = generate(small, gpu_model, prompts, gen=6)
+    on_gpu = generate(small, gpu_model, prompts, gen=6,
+                      aux=decode_aux(small, gpu_model, extra)[0])
     with torch.no_grad():
-        pre_gpu = lm.prefill(small, gpu_model, {"tokens": prompts})
+        pre_gpu = lm.prefill(small, gpu_model, batch)
     err = max(float((on_gpu.prompt_logits.cpu() - on_cpu.prompt_logits)
                     .abs().max()),
               float((pre_gpu.cpu() - pre_cpu).abs().max()))
@@ -1181,17 +1309,20 @@ def phase_f32_agreement(torch, path):
     activations and of the decode state.  Returns max|d|/max|logit| and
     the float32 prefill logits."""
     import dataclasses
-    from repro_torch.launch.serve import generate
+    from repro_torch.launch.serve import decode_aux, draw_inputs, generate
     from repro_torch.models import lm
     from repro_torch.models.registry import get_arch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(get_arch(path.arch), dtype="float32")
     model = lm.init_params(cfg, SEED, device="cuda")
-    prompts = np.random.default_rng(SEED).integers(
-        0, cfg.vocab, size=(path.batch, path.prompt_len)).astype(np.int32)
-    res = generate(cfg, model, prompts, gen=0)
-    last, _ = run_prefill(torch, lm, cfg, model, prompts)
+    # serve's inputs for the same seed
+    prompts, extra = draw_inputs(cfg, np.random.default_rng(SEED),
+                                 path.batch, path.prompt_len)
+    res = generate(cfg, model, prompts, gen=0,
+                   aux=decode_aux(cfg, model, extra)[0])
+    last, _ = run_prefill(torch, lm, cfg, model, {"tokens": prompts,
+                                                  **extra})
     rel, same, ok = agreement(torch, res.prompt_logits, last)
     print(f"  float32 at full width ({cfg.n_layers} layers, "
           f"{sum(p.numel() for p in model.parameters()) * 4 / 1e9:.1f} GB "
@@ -2244,7 +2375,8 @@ def phase_lm(torch, rows, n, path) -> dict:
         else "full depth"
     print(f"== phase {n}: {path.arch} at full width, {depth}")
     f32, f32_last = (phase_f32_agreement(torch, path)
-                     if path.bf16_limit is None else (None, None))
+                     if path.bf16_limit is None or path.f32_also
+                     else (None, None))
     out = phase_path(torch, rows, path, f32_last)
     if f32 is not None:
         out["prefill_vs_replay_f32"] = f32
@@ -2320,6 +2452,8 @@ def main() -> None:
     out = phase_decode(torch, rows)
     print(f"  decode: {json.dumps(out)}")
     print(f"  phase 13 wall time {time.monotonic() - t:.1f} s")
+    for n, path in ((14, WHISPER), (15, QWEN)):
+        paths[path.arch] = phase_lm(torch, rows, n, path)
 
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",

@@ -5,6 +5,9 @@
 
 Every arch that ``launch/serve.py`` serves runs here; ``--layers N``
 cuts the depth (deepseek-v3-671b at full width fits one card at 4).
+whisper-tiny's encoder and cross K/V, and qwen2-vl-2b's vision
+embeddings, are made as ``serve`` makes them (``serve.decode_aux``),
+outside the timed steps.
 
 Replays a random prompt through ``decode_step`` (warm-up), times
 ``--steps`` further steps on the host clock around
@@ -28,7 +31,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import resolve_device
-from repro_torch.launch.serve import arch_config, synchronize
+from repro_torch.launch.serve import (arch_config, decode_aux, draw_inputs,
+                                     synchronize)
 from repro_torch.models import lm
 from repro_torch.models.config import ArchConfig
 
@@ -39,18 +43,21 @@ HBM_BYTES_S = 3.35e12          # H100 SXM device memory, published peak
 def profile_decode(cfg: ArchConfig, model: lm.LM, batch: int,
                    prompt_len: int, steps: int, seed: int = 0) -> dict:
     device = model.device
-    rng = np.random.default_rng(seed)
-    prompts = rng.integers(0, cfg.vocab, size=(batch, prompt_len))
+    prompts, extra = draw_inputs(cfg, np.random.default_rng(seed), batch,
+                                 prompt_len)
+    aux, _ = decode_aux(cfg, model, extra)
     cache = lm.init_cache(cfg, batch, prompt_len + 2 * steps, device=device)
     for t in range(prompt_len):
-        logits, cache = lm.decode_step(cfg, model, cache, prompts[:, t], t)
+        logits, cache = lm.decode_step(cfg, model, cache, prompts[:, t], t,
+                                       aux=aux)
     tok = torch.argmax(logits, dim=-1)
     pos = prompt_len
 
     synchronize(device)
     t0 = time.monotonic()
     for _ in range(steps):
-        logits, cache = lm.decode_step(cfg, model, cache, tok, pos)
+        logits, cache = lm.decode_step(cfg, model, cache, tok, pos,
+                                       aux=aux)
         tok = torch.argmax(logits, dim=-1)
         pos += 1
     synchronize(device)
@@ -66,7 +73,8 @@ def profile_decode(cfg: ArchConfig, model: lm.LM, batch: int,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            logits, cache = lm.decode_step(cfg, model, cache, tok, pos)
+            logits, cache = lm.decode_step(cfg, model, cache, tok, pos,
+                                           aux=aux)
             tok = torch.argmax(logits, dim=-1)
             pos += 1
         synchronize(device)
@@ -78,10 +86,15 @@ def profile_decode(cfg: ArchConfig, model: lm.LM, batch: int,
             n_kernels += 1
     busy_ms = sum(by_name.values()) / 1e3 / steps
     # Weights a step must read: all but the embedding table, of which it
-    # gathers `batch` rows (unless the table is also the LM head).
+    # gathers `batch` rows (unless the table is also the LM head), and
+    # whisper's encoder (`enc_*`), which runs once before the steps.
     weight_bytes = sum(p.numel() * p.element_size()
                        for n, p in model.named_parameters()
-                       if n != "embed" or model.lm_head is None)
+                       if (n != "embed" or model.lm_head is None)
+                       and not n.startswith("enc_"))
+    if cfg.enc_dec:     # the cross K/V every step reads besides
+        out["cross_kv_bytes_per_step"] = sum(
+            t.numel() * t.element_size() for t in aux["cross_kv"].values())
     out.update(
         device_name=torch.cuda.get_device_name(device),
         weight_bytes_per_step=weight_bytes,

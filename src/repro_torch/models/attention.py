@@ -2,7 +2,8 @@
 
 Counterpart of ``repro/models/attention.py`` (``init_attention``,
 ``_expand_kv``, ``_mask_padded``, ``attention``, ``decode_windowed``,
-``init_mla``, ``mla_attention``).  Two modes each:
+``init_mla``, ``mla_attention``; M-RoPE in the full mode of ``attention``
+for qwen2-vl).  Two modes each:
   * full   - a whole sequence (prefill), through ``ops.flash_attention``;
   * decode - one new token against the cache, through
     ``ops.flash_decode``.
@@ -23,7 +24,7 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from .config import ArchConfig
-from .layers import apply_rope, dense_init, param, rms_norm
+from .layers import apply_mrope, apply_rope, dense_init, param, rms_norm
 
 
 class Attention(nn.Module):
@@ -54,14 +55,18 @@ def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
     return x.reshape(B, S, n, -1)
 
 
-def _expand_kv(k: torch.Tensor, H: int, Hkv: int, Hp: int) -> torch.Tensor:
-    """(B,S,Hkv,hd) -> (B,S,Hp,hd) with the original H//Hkv group map
-    (padded q heads clamp to the last kv head; their outputs are masked
-    away)."""
+def _kv_index(H: int, Hkv: int, Hp: int, device) -> torch.Tensor:
+    """The kv head each of the Hp padded query heads reads: the original
+    H//Hkv group map, padded q heads clamped to the last kv head (their
+    outputs are masked away)."""
     group = max(H // max(Hkv, 1), 1)
-    idx = torch.clamp(torch.arange(Hp, device=k.device) // group,
-                      max=Hkv - 1)
-    return k.index_select(2, idx)
+    return torch.clamp(torch.arange(Hp, device=device) // group,
+                       max=Hkv - 1)
+
+
+def _expand_kv(k: torch.Tensor, H: int, Hkv: int, Hp: int) -> torch.Tensor:
+    """(B,S,Hkv,hd) -> (B,S,Hp,hd) by ``_kv_index``."""
+    return k.index_select(2, _kv_index(H, Hkv, Hp, k.device))
 
 
 def _mask_padded(o2d: torch.Tensor, H: int, Hp: int, hd: int
@@ -77,6 +82,7 @@ def _mask_padded(o2d: torch.Tensor, H: int, Hp: int, hd: int
 def attention(p: Attention, x: torch.Tensor, cfg: ArchConfig,
               positions: torch.Tensor,
               window: Optional[int] = None,
+              mrope_positions: Optional[torch.Tensor] = None,
               kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               cache_pos: Optional[int] = None,
               ) -> Tuple[torch.Tensor,
@@ -84,15 +90,22 @@ def attention(p: Attention, x: torch.Tensor, cfg: ArchConfig,
     """x (B, S, d).  Full mode when kv_cache is None; decode mode (S == 1)
     writes the new k/v at `cache_pos` and attends to the valid prefix.
     `window`: None -> the arch default; 0 -> full attention; int ->
-    that window."""
+    that window.  With ``cfg.mrope`` and `mrope_positions` (3, B, S) the
+    rotation is M-RoPE, else RoPE at `positions` (decode passes none)."""
     B, S, d = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     Hp = cfg.padded_heads
     q = _split_heads(x @ p.wq, Hp)
     k = _split_heads(x @ p.wk, Hkv)
     v = _split_heads(x @ p.wv, Hkv)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope and mrope_positions is not None:
+        q = apply_mrope(q, mrope_positions, cfg.mrope_sections,
+                        cfg.rope_theta)
+        k = apply_mrope(k, mrope_positions, cfg.mrope_sections,
+                        cfg.rope_theta)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     if kv_cache is None:
         if window is None:

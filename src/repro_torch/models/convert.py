@@ -18,6 +18,9 @@ of the stacked layers:
     hybrid   groups.ssm.{norm, ssm.*}               over (G, R)
              groups.lora.{q_a, q_b, in_a, in_b}     over (G,)
              shared.{norm1, norm2, attn.*, mlp.*}   one block
+    enc_dec  enc_pos (n_audio_frames, d), enc_norm  top level
+             enc_layers.{norm1, norm2, attn.*, mlp.*}  over (n_enc_layers,)
+             dec_layers.{..., xattn.*, norm3}       over (L,)
 
 so ``tree["layers"]["attn"]["wq"]`` has shape (L, d, Hp*hd).  Weights
 keep the JAX layout, so ``x @ w`` is the same product on both sides.  A
@@ -108,8 +111,8 @@ def params_from_numpy(cfg: ArchConfig, tree: Dict, device) -> LM:
             put(dst, s[key][idx], ".".join(where + [name]),
                 ".".join(path + tuple(sub) + (key,)))
 
-    for key in ("embed", "final_norm", "lm_head"):
-        if getattr(model, key) is not None:
+    for key in ("embed", "final_norm", "lm_head", "enc_pos", "enc_norm"):
+        if getattr(model, key, None) is not None:
             put(getattr(model, key), tree[key], key, key)
 
     def layers(mods, path):
@@ -135,6 +138,9 @@ def params_from_numpy(cfg: ArchConfig, tree: Dict, device) -> LM:
                 module(layer, local, (g, r), ("groups", "local"))
             module(group.global_, glob, g, ("groups", "global"))
         layers(model.tail, ("tail",))
+    elif cfg.enc_dec:
+        layers(model.enc_layers, ("enc_layers",))
+        layers(model.dec_layers, ("dec_layers",))
     else:
         if cfg.family != "ssm":
             layers(model.dense_layers, ("dense_layers",))

@@ -10,7 +10,7 @@ explicit ``torch.Generator`` on the target device.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -75,6 +75,15 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) * 2 / head_dim))
 
 
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """Rotate the two halves of x's last axis by the angles `ang`
+    (broadcast against x's first half), in float32; x's dtype out."""
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float = 1e4) -> torch.Tensor:
     """x (..., S, H, D) or (..., S, D); positions (..., S)."""
@@ -83,10 +92,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     ang = positions.float()[..., None] * freqs             # (..., S, D/2)
     if x.dim() == ang.dim() + 1:                            # head axis
         ang = ang[..., None, :]
-    cos, sin = torch.cos(ang), torch.sin(ang)
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+    return _rotate(x, ang)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                sections: Sequence[int], theta: float = 1e4
+                ) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  x (B, S, H, D); positions3 (3, B, S),
+    the temporal / height / width position ids.  `sections` split the
+    D/2 frequencies into three bands, in order; a band's angles come from
+    its axis's positions."""
+    D = x.shape[-1]
+    half = D // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
+                         f"head_dim / 2 = {half}")
+    freqs = rope_freqs(D, theta, x.device)                  # (half,)
+    # which of t/h/w drives each frequency
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(list(sections), device=x.device))      # (half,)
+    ang = positions3.float()[..., None] * freqs             # (3, B, S, half)
+    idx = sec_id.expand(1, *ang.shape[1:])
+    ang = ang.gather(0, idx)[0]                             # (B, S, half)
+    return _rotate(x, ang[..., None, :])                    # head axis
 
 
 # --------------------------------------------------------------------------

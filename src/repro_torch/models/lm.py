@@ -1,21 +1,30 @@
-"""Language-model stack of the port: the decoder-only families.
+"""Language-model stack of the port.
 
-Counterpart of the ``decoder`` (dense, MoE, MLA), ``grouped`` (gemma3),
-``ssm`` (mamba2) and ``hybrid`` (zamba2) backbones of
-``repro/models/lm.py``:
+Counterpart of the backbones of ``repro/models/lm.py``: ``decoder``
+(dense, MoE, MLA, and the vision-language model qwen2-vl: M-RoPE and
+vision tokens written over the first prompt positions), ``grouped``
+(gemma3), ``ssm`` (mamba2), ``hybrid`` (zamba2) and the encoder-decoder
+(whisper: a bidirectional encoder over the audio frames, decoder layers
+with cross-attention to it):
 
     init_params(cfg, seed, device)          -> LM module
     forward(cfg, model, batch)              -> logits (B, S, V)
     prefill(cfg, model, batch)              -> last-position logits (B, V)
     init_cache(cfg, batch, max_len, device) -> decode caches (see there)
-    decode_step(cfg, model, cache, tok, pos) -> (logits (B, V), cache)
+    decode_step(cfg, model, cache, tok, pos, aux=None)
+                                            -> (logits (B, V), cache)
+    encode_audio(cfg, model, audio_embed)   -> encoder states (B, Se, d)
+    cross_kv(cfg, model, enc)               -> per-layer cross K/V
 
-The JAX package scans over layer-stacked parameters; here the layers are
-``ModuleList``s walked by Python loops, run eagerly, and the caches are
-updated in place.  deepseek-v3's multi-token-prediction block serves
-only the training loss and is not built.  The encoder-decoder (whisper)
-and the vision-language model (qwen2-vl) raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item.
+`batch` holds "tokens" (B, S) and, for whisper, "audio_embed"
+(B, n_audio_frames, d) or, for qwen2-vl, optionally "vision_embed"
+(B, Nv, d) with Nv <= S.  `aux` carries what a decode step needs beside
+the cache: whisper's {"enc_states", "cross_kv"}, qwen2-vl's
+{"vision_embed"}.  The JAX package scans over layer-stacked parameters;
+here the layers are ``ModuleList``s walked by Python loops, run eagerly,
+and the caches are updated in place.  deepseek-v3's
+multi-token-prediction block serves only the training loss and is not
+built.
 """
 from __future__ import annotations
 
@@ -27,29 +36,24 @@ import torch
 from torch import nn
 
 from repro_torch import resolve_device
-from .attention import (MLA, Attention, attention, decode_windowed,
-                        init_attention, init_mla, mla_attention)
+from repro_torch.kernels import ops
+from .attention import (MLA, Attention, _expand_kv, _kv_index, _mask_padded,
+                        attention, decode_windowed, init_attention, init_mla,
+                        mla_attention)
 from .config import ArchConfig
 from .layers import (MLP, dense_init, dtype_of, embed, embed_init,
                      init_mlp, lm_logits, mlp, param, rms_norm)
 from .moe import MoE, init_moe, moe
 from .ssm import SSM, SSMState, init_ssm, init_ssm_state, ssm_block
 
-_TODO = "not ported yet (ROADMAP.md, 'Modules still to port', item {})"
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for the families the port leaves out."""
-    if cfg.enc_dec or cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: the whisper encoder-decoder is " + _TODO.format(4))
-    if cfg.family == "vlm" or cfg.mrope:
-        raise NotImplementedError(
-            f"{cfg.name}: qwen2-vl (M-RoPE, vision tokens) is "
-            + _TODO.format(4))
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    """Raise NotImplementedError for a family the port does not know."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is "
-                                  "not ported (ROADMAP.md)")
+                                  f"not one of the port's {FAMILIES}")
 
 
 # ==========================================================================
@@ -72,6 +76,16 @@ class DecoderLayer(nn.Module):
         else:
             self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device,
                            gated=cfg.gated_mlp)
+
+
+class EncDecLayer(DecoderLayer):
+    """A whisper decoder layer: a DecoderLayer plus the cross-attention
+    `xattn` and its pre-norm `norm3` (d,)."""
+
+    def __init__(self, cfg: ArchConfig, dtype: torch.dtype, device):
+        super().__init__(cfg, dtype, device)
+        self.xattn = Attention(cfg, dtype, device)
+        self.norm3 = param((cfg.d_model,), dtype, device)
 
 
 class GemmaGroup(nn.Module):
@@ -146,7 +160,10 @@ class LM(nn.Module):
       * grouped (gemma3): `groups` (GemmaGroups), then the windowed
         `tail` layers;
       * ssm: `layers` (SSMLayers);
-      * hybrid: `groups` (ZambaGroups) and the `shared` DecoderLayer.
+      * hybrid: `groups` (ZambaGroups) and the `shared` DecoderLayer;
+      * enc_dec (whisper): `enc_pos` (n_audio_frames, d), `enc_layers`
+        (DecoderLayers, bidirectional), `enc_norm` (d,) and `dec_layers`
+        (EncDecLayers).
     Parameters uninitialised."""
 
     def __init__(self, cfg: ArchConfig, device):
@@ -176,6 +193,12 @@ class LM(nn.Module):
             self.groups = nn.ModuleList(GemmaGroup(cfg, dtype, device)
                                         for _ in range(G))
             self.tail = stack(tail)
+        elif cfg.enc_dec:
+            self.enc_pos = param((cfg.n_audio_frames, d), dtype, device)
+            self.enc_layers = stack(cfg.n_enc_layers)
+            self.enc_norm = param((d,), dtype, device)
+            self.dec_layers = nn.ModuleList(EncDecLayer(cfg, dtype, device)
+                                            for _ in range(cfg.n_layers))
         else:
             n_dense, n_moe = _moe_flags(cfg)
             self.dense_layers = stack(n_dense if n_moe else 0)
@@ -216,6 +239,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> LM:
             group.lora.in_b.zero_()
         _init_decoder_layer(gen, model.shared)
     else:
+        if cfg.enc_dec:
+            embed_init(gen, model.enc_pos)
+            model.enc_norm.zero_()
         for layer in model.modules():
             if isinstance(layer, DecoderLayer):
                 _init_decoder_layer(gen, layer)
@@ -231,6 +257,9 @@ def _init_decoder_layer(gen: torch.Generator, layer: DecoderLayer) -> None:
         init_moe(gen, layer.moe)
     else:
         init_mlp(gen, layer.mlp)
+    if isinstance(layer, EncDecLayer):
+        init_attention(gen, layer.xattn)
+        layer.norm3.zero_()
 
 
 def _init_ssm_layer(gen: torch.Generator, layer: SSMLayer) -> None:
@@ -245,15 +274,18 @@ def _init_ssm_layer(gen: torch.Generator, layer: SSMLayer) -> None:
 
 def _decoder_layer(p: DecoderLayer, h: torch.Tensor, cfg: ArchConfig,
                    positions: torch.Tensor, window: Optional[int] = None,
+                   mrope_positions: Optional[torch.Tensor] = None,
                    kv_cache=None, cache_pos=None):
-    """Pre-norm attention then pre-norm MLP or MoE.  `window` reaches the
-    GQA attention of the full mode (None: the arch default; 0: full)."""
+    """Pre-norm attention then pre-norm MLP or MoE.  `window` and
+    `mrope_positions` reach the GQA attention (window None: the arch
+    default; 0: full)."""
     hn = rms_norm(p.norm1, h, cfg.norm_eps)
     if isinstance(p.attn, MLA):
         a, new_cache = mla_attention(p.attn, hn, cfg, positions,
                                      kv_cache=kv_cache, cache_pos=cache_pos)
     else:
         a, new_cache = attention(p.attn, hn, cfg, positions, window=window,
+                                 mrope_positions=mrope_positions,
                                  kv_cache=kv_cache, cache_pos=cache_pos)
     h = h + a
     return h + _feed_forward(p, rms_norm(p.norm2, h, cfg.norm_eps),
@@ -296,18 +328,46 @@ def _lora_apply(shared: DecoderLayer, lora: LoRA) -> SimpleNamespace:
                             w_out=m.w_out, w_gate=m.w_gate))
 
 
-def _as_tokens(x, device) -> torch.Tensor:
+def _as_tensor(x, device) -> torch.Tensor:
+    """A numpy array or a tensor as a tensor on `device`, its dtype kept."""
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(x))
-    return x.to(device=device, dtype=torch.long)
+    return x.to(device)
+
+
+def _as_tokens(x, device) -> torch.Tensor:
+    return _as_tensor(x, device).long()
+
+
+def _embed_inputs(cfg: ArchConfig, model: LM, batch: Dict) -> torch.Tensor:
+    """Token embeddings (B, S, d); for the vlm, `vision_embed` (B, Nv, d),
+    cast to the model dtype, written over positions 0 .. Nv-1 (as the
+    reference's dynamic_update_slice, which refuses Nv > S)."""
+    h = embed(model.embed, _as_tokens(batch["tokens"], model.device))
+    if cfg.family == "vlm" and batch.get("vision_embed") is not None:
+        ve = _as_tensor(batch["vision_embed"], h.device)
+        if ve.dim() != 3 or ve.shape[0] != h.shape[0] or \
+                ve.shape[1] > h.shape[1] or ve.shape[2] != h.shape[2]:
+            raise ValueError(f"vision_embed {tuple(ve.shape)} does not fit "
+                             f"the token embeddings {tuple(h.shape)}: it "
+                             f"takes (B, Nv <= S, d)")
+        h[:, :ve.shape[1]] = ve.to(h.dtype)
+    return h
+
+
+def _mrope_pos(cfg: ArchConfig, positions: torch.Tensor
+               ) -> Optional[torch.Tensor]:
+    """The (3, B, S) M-RoPE positions: `positions` on all three axes."""
+    if not cfg.mrope:
+        return None
+    return positions[None].expand(3, *positions.shape)
 
 
 def forward_hidden(cfg: ArchConfig, model: LM, batch: Dict
                    ) -> torch.Tensor:
     """Full-sequence forward -> final-norm hidden states (B, S, d)."""
-    tokens = _as_tokens(batch["tokens"], model.device)
-    B, S = tokens.shape
-    h = embed(model.embed, tokens)
+    h = _embed_inputs(cfg, model, batch)
+    B, S, _ = h.shape
     positions = torch.arange(S, device=h.device)[None].expand(B, S)
     if cfg.family == "hybrid":
         h0 = h      # the step's own embeddings feed every shared block
@@ -328,9 +388,17 @@ def forward_hidden(cfg: ArchConfig, model: LM, batch: Dict
             h, _ = _decoder_layer(group.global_, h, cfg, positions, window=0)
         for layer in model.tail:
             h, _ = _decoder_layer(layer, h, cfg, positions, window=W)
+    elif cfg.enc_dec:
+        xkv = cross_kv(cfg, model,
+                       encode_audio(cfg, model, batch["audio_embed"]))
+        for i, layer in enumerate(model.dec_layers):
+            h, _ = _encdec_layer(layer, h, cfg, positions,
+                                 (xkv["k"][i], xkv["v"][i]))
     else:
+        mropep = _mrope_pos(cfg, positions)
         for layer in (*model.dense_layers, *model.layers):
-            h, _ = _decoder_layer(layer, h, cfg, positions)
+            h, _ = _decoder_layer(layer, h, cfg, positions,
+                                  mrope_positions=mropep)
     return rms_norm(model.final_norm, h, cfg.norm_eps)
 
 
@@ -343,6 +411,96 @@ def prefill(cfg: ArchConfig, model: LM, batch: Dict) -> torch.Tensor:
     """Prompt processing: full-sequence forward returning last-position
     logits (B, V)."""
     return forward(cfg, model, batch)[:, -1]
+
+
+# ==========================================================================
+# The encoder-decoder (whisper)
+# ==========================================================================
+
+
+def _bidir_attention(p: Attention, x: torch.Tensor, cfg: ArchConfig
+                     ) -> torch.Tensor:
+    """The encoder's self-attention: no rotation, not causal (K2 at
+    S = Sk), kv expanded to the padded query heads."""
+    B, S, _ = x.shape
+    H, Hkv, hd, Hp = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        cfg.padded_heads
+    q = (x @ p.wq).reshape(B, S, Hp, hd)
+    k = (x @ p.wk).reshape(B, S, Hkv, hd)
+    v = (x @ p.wv).reshape(B, S, Hkv, hd)
+    if Hp != H:
+        k = _expand_kv(k, H, Hkv, Hp)
+        v = _expand_kv(v, H, Hkv, Hp)
+    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=False,
+                            block_k=cfg.attn_block_k)
+    o = o.transpose(1, 2).reshape(B, S, Hp * hd)
+    return _mask_padded(o, H, Hp, hd) @ p.wo
+
+
+def _cross_attention(p: Attention, x: torch.Tensor,
+                     kv: Tuple[torch.Tensor, torch.Tensor], cfg: ArchConfig
+                     ) -> torch.Tensor:
+    """x (B, S, d) attends to the encoder states' keys and values `kv`,
+    each (B, Hkv, Se, hd) (``cross_kv``), not causal: K2 at Sq = S against
+    Sk = Se keys.  They are expanded to the padded query heads in every
+    call, as the reference does (here along the head axis of their
+    layout, which gives K2 contiguous operands)."""
+    B, S, _ = x.shape
+    H, Hkv, hd, Hp = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        cfg.padded_heads
+    q = (x @ p.wq).reshape(B, S, Hp, hd).transpose(1, 2)
+    k, v = kv
+    if Hp != H:
+        idx = _kv_index(H, Hkv, Hp, k.device)
+        k, v = k.index_select(1, idx), v.index_select(1, idx)
+    o = ops.flash_attention(q, k, v, causal=False, block_k=cfg.attn_block_k)
+    o = o.transpose(1, 2).reshape(B, S, Hp * hd)
+    return _mask_padded(o, H, Hp, hd) @ p.wo
+
+
+def _encdec_layer(p: EncDecLayer, h: torch.Tensor, cfg: ArchConfig,
+                  positions: torch.Tensor, xkv, kv_cache=None,
+                  cache_pos=None):
+    """A decoder layer: causal self-attention, then norm3 and the
+    cross-attention to this layer's encoder keys and values `xkv`, then
+    the MLP."""
+    a, new_cache = attention(p.attn, rms_norm(p.norm1, h, cfg.norm_eps),
+                             cfg, positions, kv_cache=kv_cache,
+                             cache_pos=cache_pos)
+    h = h + a
+    h = h + _cross_attention(p.xattn, rms_norm(p.norm3, h, cfg.norm_eps),
+                             xkv, cfg)
+    return h + _feed_forward(p, rms_norm(p.norm2, h, cfg.norm_eps),
+                             cfg), new_cache
+
+
+@torch.no_grad()
+def encode_audio(cfg: ArchConfig, model: LM, audio_embed) -> torch.Tensor:
+    """The whisper encoder alone: audio_embed (B, n_audio_frames, d), cast
+    to the model dtype, plus `enc_pos`, through the bidirectional layers
+    and `enc_norm` -> encoder states (B, Se, d)."""
+    x = _as_tensor(audio_embed, model.device).to(model.enc_pos.dtype)
+    x = x + model.enc_pos
+    for layer in model.enc_layers:
+        x = x + _bidir_attention(layer.attn,
+                                 rms_norm(layer.norm1, x, cfg.norm_eps), cfg)
+        x = x + _feed_forward(layer, rms_norm(layer.norm2, x, cfg.norm_eps),
+                              cfg)
+    return rms_norm(model.enc_norm, x, cfg.norm_eps)
+
+
+@torch.no_grad()
+def cross_kv(cfg: ArchConfig, model: LM, enc: torch.Tensor) -> Dict:
+    """Each decoder layer's cross-attention keys and values from the
+    encoder states: {"k", "v"}, each (L, B, Hkv, Se, hd)."""
+    B, Se, _ = enc.shape
+    Hkv, hd = cfg.n_kv_heads, cfg.head_dim
+
+    def heads(w):
+        return (enc @ w).reshape(B, Se, Hkv, hd).transpose(1, 2)
+    return {"k": torch.stack([heads(l.xattn.wk) for l in model.dec_layers]),
+            "v": torch.stack([heads(l.xattn.wv) for l in model.dec_layers])}
 
 
 # ==========================================================================
@@ -362,7 +520,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None
         min(window, max_len) positions, and {"global"} over (G,);
       * ssm: {"ssm": SSMState} stacked over (L,);
       * hybrid: {"ssm": SSMState} stacked over (G, R) and the shared
-        block's {"shared"} over (G,)."""
+        block's {"shared"} over (G,);
+      * enc_dec: the decoder's {"self"} over (L,) and "cross": None (the
+        cross K/V travel in decode_step's `aux`)."""
     check_supported(cfg)
     device = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
@@ -389,6 +549,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None
         if tail:
             c["tail"] = kv((tail,), W)
         return c
+    if cfg.enc_dec:
+        return {"self": kv((cfg.n_layers,), max_len), "cross": None}
     n_dense, n_moe = _moe_flags(cfg)
     if cfg.mla:
         width = cfg.kv_lora_rank + cfg.d_rope
@@ -423,13 +585,21 @@ def _decoder_caches(cfg: ArchConfig, cache: Dict):
             for kv in zip(st["k"], st["v"])]
 
 
-def decode_step(cfg: ArchConfig, model: LM, cache: Dict, token, pos: int):
+def decode_step(cfg: ArchConfig, model: LM, cache: Dict, token, pos: int,
+                aux: Optional[Dict] = None):
     """token (B,) int; pos an int.  Returns (logits (B, V), cache); the
-    cache is updated in place and returned."""
+    cache is updated in place and returned.  `aux`: whisper needs
+    {"cross_kv": cross_kv(...)} (its "enc_states" are not read here); for
+    the vlm, {"vision_embed": (B, Nv, d)} replaces the token's embedding
+    with the vision embedding at `pos` while pos < Nv."""
     pos = int(pos)
     token = _as_tokens(token, model.device)
     B = token.shape[0]
     h = embed(model.embed, token[:, None])
+    if cfg.family == "vlm" and aux is not None and "vision_embed" in aux:
+        ve = aux["vision_embed"]                    # (B, Nv, d)
+        if pos < ve.shape[1]:
+            h = _as_tensor(ve[:, pos:pos + 1], h.device).to(h.dtype)
     positions = torch.full((B, 1), pos, dtype=torch.long, device=h.device)
     if cfg.family == "hybrid":
         st, ks, vs = cache["ssm"], cache["shared"]["k"], cache["shared"]["v"]
@@ -456,6 +626,15 @@ def decode_step(cfg: ArchConfig, model: LM, cache: Dict, token, pos: int):
         for i, layer in enumerate(model.tail):
             h = _local_decode(layer, h, cfg, (cache["tail"]["k"][i],
                                               cache["tail"]["v"][i]), pos)
+    elif cfg.enc_dec:
+        if aux is None or aux.get("cross_kv") is None:
+            raise ValueError(f"{cfg.name}: decode_step needs aux = "
+                             f"{{'cross_kv': lm.cross_kv(...)}}")
+        ks, vs = cache["self"]["k"], cache["self"]["v"]
+        xk, xv = aux["cross_kv"]["k"], aux["cross_kv"]["v"]
+        for i, layer in enumerate(model.dec_layers):
+            h, _ = _encdec_layer(layer, h, cfg, positions, (xk[i], xv[i]),
+                                 kv_cache=(ks[i], vs[i]), cache_pos=pos)
     else:
         for layer, layer_cache in zip((*model.dense_layers, *model.layers),
                                       _decoder_caches(cfg, cache)):

@@ -120,6 +120,10 @@ def test_flash_attention_kernel_matches_plain(dev, B, H, Hkv, S, D, Dv,
     (4, 32, 16, 1024, 128, 128, (1024, 1024, 1024, 1024)),  # gemma3 ring
     (4, 32, 16, 1048, 128, 128, (1048, 1048, 1048, 1048)),  # its global
     (4, 16, 8, 116, 64, 64, (116, 116, 116, 116)),     # granite-moe
+    (4, 6, 6, 48, 64, 64, (48, 48, 48, 48)),           # whisper-tiny
+    (4, 6, 6, 48, 64, 64, (1, 16, 17, 48)),
+    (4, 12, 2, 304, 128, 128, (304, 304, 304, 304)),   # qwen2-vl-2b
+    (4, 12, 2, 304, 128, 128, (1, 256, 257, 304)),
 ])
 def test_flash_decode_kernel_matches_plain(dev, B, H, Hkv, S, D, Dv, lens,
                                            dtype):
@@ -968,3 +972,120 @@ def test_decode_step_at_full_width_matches_cpu(dev, precision):
             else:
                 step = m.semantics._scale(name)
                 assert float((g - w).abs().max()) <= 1.5 * step, name
+
+
+# --------------------------------------------------------------------------
+# whisper-tiny and qwen2-vl-2b (ROADMAP item 4): K2 not causal with
+# Sq != Sk and no offset (the cross-attention), the encoder at S = 1500
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,Hkv,S,Sk,D", [
+    (4, 16, 16, 1, 1500, 64),       # whisper cross-attention, decode step
+    (4, 16, 16, 16, 1500, 64),      # ... in forward, prompt 16
+    (4, 16, 16, 1500, 1500, 64),    # whisper encoder
+    (2, 6, 2, 1, 130, 128),         # one row, GQA, a 2-key tail
+    (2, 4, 2, 5, 77, 32),
+    (1, 2, 2, 3, 300, 64),
+    (2, 4, 4, 129, 1500, 64),       # two query tiles, the second of one row
+    (4, 16, 16, 288, 288, 128),     # qwen2-vl's prompt, not causal
+])
+def test_flash_attention_cross_matches_plain(dev, dtype, B, H, Hkv, S, Sk,
+                                             D):
+    """Not causal, Sq != Sk, no offset: every row sees all Sk keys; rows
+    past S are never stored (a stray store would overwrite another head's
+    rows, which differ here)."""
+    gen = torch.Generator(device=dev).manual_seed(S + Sk + D)
+    q = _randn(gen, (B, H, S, D), dtype, dev)
+    k = _randn(gen, (B, Hkv, Sk, D), dtype, dev)
+    v = _randn(gen, (B, Hkv, Sk, D), dtype, dev)
+    n0 = t_fa.launches
+    got = ops.flash_attention(q, k, v, causal=False)
+    want = ops.flash_attention(q, k, v, causal=False, impl="ref")
+    torch.cuda.synchronize()
+    assert t_fa.launches == n0 + 1
+    assert got.shape == (B, H, S, D)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+def cross_tail_probe(B, H, Hkv, S, Sk, D, dtype, dev):
+    """Inputs on which K2's key tail decides the output, not causal: q = 1
+    and k = -4, so that every real key scores -4 sqrt(D) and a key read
+    past Sk (zero-filled, score 0) would take nearly all the weight; v = 0
+    but for markers at key 0 and at key Sk - 1.  Every output is
+    (v[0] + v[Sk-1]) / Sk, about 1; a tail read one key too far gives
+    about 0, the last key dropped about 0.5.  Returns (q, k, v, want)."""
+    q = torch.ones((B, H, S, D), dtype=dtype, device=dev)
+    k = torch.full((B, Hkv, Sk, D), -4.0, dtype=dtype, device=dev)
+    v = torch.zeros((B, Hkv, Sk, D), dtype=dtype, device=dev)
+    v[:, :, 0] = Sk / 2
+    v[:, :, Sk - 1] = Sk / 2
+    want = (v[:, :, 0].float() + v[:, :, Sk - 1].float()) / Sk
+    want = want.repeat_interleave(H // Hkv, dim=1)[:, :, None]
+    return q, k, v, want.expand(B, H, S, D)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,Hkv,S,Sk,D", [
+    (4, 16, 16, 1, 1500, 64), (4, 16, 16, 16, 1500, 64),
+    (2, 6, 2, 1, 130, 128), (1, 4, 4, 3, 65, 16), (1, 4, 4, 1500, 1500, 64),
+])
+def test_flash_attention_cross_tail_probe(dev, dtype, B, H, Hkv, S, Sk, D):
+    q, k, v, want = cross_tail_probe(B, H, Hkv, S, Sk, D, dtype, dev)
+    got = ops.flash_attention(q, k, v, causal=False)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
+    torch.testing.assert_close(
+        got.float(), ops.flash_attention(q, k, v, causal=False,
+                                         impl="ref").float(),
+        atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "qwen2-vl-2b"])
+def test_encdec_and_vlm_on_the_card_match_cpu(dev, arch):
+    """The reduced config, padded (3 heads over 1, to 4), in float32 on
+    the card against the plain path on the CPU: forward, and the decode
+    replay with its aux, within 2e-3; on the card the encoder, the
+    cross-attention and the self-attention run K2 and K3 only."""
+    import numpy as np
+
+    from repro_torch.launch.serve import decode_aux, draw_inputs, generate
+    from repro_torch.models import lm
+    from repro_torch.models.registry import get_arch
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = get_arch(arch).reduced(dtype="float32", n_heads=3,
+                                     n_kv_heads=1, d_head=32, tp_pad=4)
+        prompts, extra = draw_inputs(cfg, np.random.default_rng(0), 2, 12)
+        batch = {"tokens": prompts, **extra}
+        cpu = lm.init_params(cfg, 0, device="cpu")
+        want = lm.forward(cfg, cpu, batch)
+        want_gen = generate(cfg, cpu, prompts, 4,
+                            aux=decode_aux(cfg, cpu, extra)[0])
+        card = cpu.to(dev)
+        n = (t_fa.launches, t_fd.launches)
+        got = lm.forward(cfg, card, batch)
+        fwd = (t_fa.launches - n[0], t_fd.launches - n[1])
+        got_gen = generate(cfg, card, prompts, 4,
+                           aux=decode_aux(cfg, card, extra)[0])
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    L = cfg.n_layers
+    if cfg.enc_dec:     # encoder, self and cross in forward; then the
+        #                 encoder once and a cross launch a layer a step
+        assert fwd == (cfg.n_enc_layers + 2 * L, 0)
+        assert (t_fa.launches - n[0], t_fd.launches - n[1]) == (
+            2 * cfg.n_enc_layers + 2 * L + L * 16, L * 16)
+    else:
+        assert fwd == (L, 0)
+        assert (t_fa.launches - n[0], t_fd.launches - n[1]) == (L, L * 16)
+    torch.testing.assert_close(got.cpu(), want, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(got_gen.prompt_logits.cpu(),
+                               want_gen.prompt_logits, atol=2e-3, rtol=2e-3)
+    assert (got_gen.tokens == want_gen.tokens).all()

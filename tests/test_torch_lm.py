@@ -196,13 +196,9 @@ def test_profile_decode_runs_and_measures_no_device_on_cpu():
                                   "granite-moe-1b-a400m", "whisper-tiny",
                                   "qwen2-vl-2b"])
 def test_other_families_raise_with_roadmap_item(arch):
-    """whisper-tiny and qwen2-vl-2b still raise, naming their ROADMAP.md
-    item; the families ported since (gemma3, MoE, MLA) build."""
+    """Every family of the zoo is ported now (whisper-tiny and qwen2-vl-2b
+    last, ROADMAP.md item 4): each builds with finite weights."""
     cfg = tget_arch(arch).reduced()
-    if arch in ("whisper-tiny", "qwen2-vl-2b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tlm.init_params(cfg, 0, device="cpu")
-    else:
-        tlm.check_supported(cfg)
-        model = tlm.init_params(cfg, 0, device="cpu")
-        assert all(torch.isfinite(p).all() for p in model.parameters())
+    tlm.check_supported(cfg)
+    model = tlm.init_params(cfg, 0, device="cpu")
+    assert all(torch.isfinite(p).all() for p in model.parameters())
