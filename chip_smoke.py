@@ -106,7 +106,36 @@ each of which ends the run with a nonzero exit and no result on failure:
    heads over 2 padded to 16, M-RoPE), a prompt of its 256 vision tokens
    and 32 text tokens: the vision embeddings replace the first 256
    positions' in ``serve``'s steps and in prefill (which rotates by
-   M-RoPE, the steps by RoPE).
+   M-RoPE, the steps by RoPE);
+16. ``CompiledModel.profile(batch=8)`` on the card, of phase 11's int8
+   mobilenet_v2 and resnet50_v1 and phase 12's float32 mobilenet_v2,
+   each loaded from the artifact its phase saved: the modeled block, the
+   measured block and the top five ops printed; one measured kernel per
+   plan step, every step label an op of the graph, the steps' times
+   (CUDA events around each step) summing within the replay's wall (CUDA
+   events around the replay), the modeled block equal to that of a
+   ``device="cpu"`` load of the same artifact, K1 launched once per conv
+   and fc of each replay; a device spin added to one step shows in that
+   step's time.  Then the whisper-tiny decoder's int8 models of phase 13
+   at (seq 1, kv 64) and (64, 64): its ops by device time and by host
+   enqueue time (the tracer's spans), K1 with K3 for the step and with
+   K2 for the prefill;
+17. ``Session(workers=("process", 2))`` on the card, serving phase 11's
+   int8 mobilenet_v2 from its artifact: requests/s of the same stream
+   of 192 requests through 1 and 2 worker threads and 1 and 2 worker
+   processes, side by side; every output equal to phase 6's stored
+   ints; the children other processes, ready on cuda, launching K1 36
+   times a batch (their counts, read before and after) while the parent
+   launches nothing.  Then, on the 2-process pool, a child killed with
+   its batch in flight (SIGKILL from the parent, SIGSEGV, the OOM exit)
+   and a reply frame bit-flipped: every ticket settles with phase 6's
+   ints, the batch is re-dispatched, a replacement child becomes ready
+   on the card.  Then ``Session.fleet(replicas=2, workers=2)``: both
+   replicas serve, K1 36 times a batch; a replica that corrupts its
+   outputs is caught by the auditor (the host interpreter) and
+   quarantined; an update whose canary is corrupted raises
+   ``UpdateRejected`` and touches no replica; a killed replica's
+   requests fail over with no ticket lost.
 
 For the two SSM paths the prefill-vs-replay agreement is held in
 float32 at full width (TF32 off) and reported in bf16, beside how far
@@ -130,9 +159,12 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -396,6 +428,26 @@ DECODER_K1_SHAPES = (
     K1Shape(DECODER_PATH, "ff out (K 1536)", 1, 1536, 384, "none"),
     K1Shape(DECODER_PATH, "ff in (gelu)", 1, 384, 1536, "gelu"),
 )
+
+# phase 16: replays timed per profile (after one warm replay), and the
+# device spin that shows a step's time is the card's (4e6 cycles is 2 ms
+# at the H100's top clock of 1.98 GHz)
+PROFILE_RUNS = 3
+DECODE_PROFILE_RUNS = 5
+SPIN_CYCLES = 4_000_000
+SPIN_MIN_MS = 1.0
+# phase 17: the request stream of the thread-versus-process comparison,
+# its submitter threads, the process pool's children, the heartbeat
+# timeout of its sessions and of the fleet's replicas, the requests of
+# each chaos case, the fleet's request bursts and the audit's
+PROC_REQUESTS = 192
+PROC_SUBMITTERS = 4
+PROC_WORKERS = 2
+PROC_HEARTBEAT_S = 2.0
+PROC_CHAOS_REQUESTS = 32
+FLEET_REQUESTS = 32
+FLEET_AUDIT_BURST = 4
+FLEET_AUDIT_BURSTS = 6
 
 
 def fail(msg: str) -> None:
@@ -1828,13 +1880,11 @@ def _session_chaos(torch, api, model, name, images, want):
         sess.close()
 
 
-def phase_session(torch, rows, int8_models, images) -> dict:
+def phase_session(torch, rows, int8_models, images, rpa) -> dict:
     """``repro_torch.api.Session`` on the card (see the module
     docstring): the int8 models of phase 11 and mobilenet_v2 compiled at
     float32, served by 2 worker threads and then by 1, then the chaos
-    ladder."""
-    import tempfile
-
+    ladder.  The float32 model's artifact goes into ``rpa["f32"]``."""
     from repro_torch import api
 
     t0 = time.monotonic()
@@ -1852,10 +1902,10 @@ def phase_session(torch, rows, int8_models, images) -> dict:
     # saved and loaded there)
     want = {n: [{k: v.cpu() for k, v in models[n](img).items()}
                 for img in images] for n in (MOBILENET.name, RESNET.name)}
-    with tempfile.TemporaryDirectory() as d:
-        cpu_f32 = api.load(f32.save(f"{d}/f32.rpa"), device="cpu")
-        want_f32 = [cpu_f32(images[j % len(images)])
-                    for j in range(SESSION_F32_SAMPLES)]
+    rpa["f32"] = f32.save(f"{rpa['dir']}/{f32_name}.rpa")
+    cpu_f32 = api.load(rpa["f32"], device="cpu")
+    want_f32 = [cpu_f32(images[j % len(images)])
+                for j in range(SESSION_F32_SAMPLES)]
     del cpu_f32
 
     # the float32 plan alone: warm replay ms at batch 1 and 8
@@ -2385,6 +2435,543 @@ def phase_lm(torch, rows, n, path) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 16: the profiler on the card
+# --------------------------------------------------------------------------
+
+
+def _profile_checks(torch, name, model, cpu_model, rep, batch) -> dict:
+    """What phase 16 holds a profile of ``model`` to: one measured kernel
+    per plan step, every step label an op of the graph, the step times
+    (CUDA events) summing within the replay's wall (CUDA events), and the
+    modeled block equal to the CPU load's of the same artifact.  Returns
+    the figures it prints."""
+    from repro_torch.obs.profile import _op_of_label, profile_model
+    steps = model.plan_for(batch).steps
+    ops = {op.name for op in model.graph.ops}
+    if rep.measured["kernels"] != len(steps):
+        fail(f"phase 16 {name}: {rep.measured['kernels']:.0f} kernels "
+             f"measured, the plan has {len(steps)} steps")
+    stray = [st.label for st in steps if _op_of_label(st.label) not in ops]
+    if stray:
+        fail(f"phase 16 {name}: step labels {stray[:3]} map to no op")
+    step_ms, wall_ms = (rep.measured["kernel_ms_per_request"],
+                        rep.measured["wall_ms_per_request"])
+    if not 0 < step_ms <= wall_ms:
+        fail(f"phase 16 {name}: the steps took {step_ms:.4f} ms a request, "
+             f"the replay {wall_ms:.4f} ms")
+    cpu_rep = profile_model(cpu_model, batch=1, runs=1, warmup=0)
+    if cpu_rep.modeled != rep.modeled:
+        fail(f"phase 16 {name}: the modeled block {rep.modeled} differs "
+             f"from the CPU load's {cpu_rep.modeled}")
+    print("\n".join(f"  | {line}" for line in rep.render(top=5)
+                    .splitlines()))
+    return dict(kernels=len(steps), wall_ms_per_request=wall_ms,
+                step_ms_per_request=step_ms,
+                step_share_of_wall=step_ms / wall_ms,
+                modeled_latency_ms=rep.modeled["latency_ms"],
+                model_vs_actual=rep.measured["model_vs_actual"],
+                top5=[(o.op, o.kind, round(o.measured_ms, 5))
+                      for o in rep.ops[:5]])
+
+
+def _spin_probe(torch, model, batch) -> float:
+    """A step's time is the card's, not the host's: with a device spin of
+    SPIN_CYCLES added to the plan's first step (its host enqueue takes
+    microseconds), the profile must give that step at least SPIN_MIN_MS.
+    Returns the step's ms."""
+    from repro_torch.obs.profile import profile_model
+    st = model.plan_for(batch).steps[0]
+    orig = st.run
+
+    def spun(bufs, n):
+        torch.cuda._sleep(SPIN_CYCLES)
+        orig(bufs, n)
+    st.run = spun
+    try:
+        rep = profile_model(model, batch=batch, runs=1, warmup=0)
+    finally:
+        st.run = orig
+    first = next(o for o in rep.ops
+                 if o.op == st.label.split("@", 1)[0])
+    ms = first.measured_ms * batch
+    if ms < SPIN_MIN_MS:
+        fail(f"phase 16: a step with a device spin of {SPIN_CYCLES} cycles "
+             f"measured {ms:.3f} ms: its time is not the card's")
+    return ms
+
+
+def _decoder_profile(torch, seq: int, pos: int) -> dict:
+    """The (seq, kv 64) int8 model of phase 13's DecodeSession (the
+    whisper-tiny decoder at full width) profiled on the card at batch 1,
+    at position ``pos`` of a request, with the tracer armed: the step's
+    ops by device time (CUDA events) and by host enqueue time (the
+    spans).  One query row runs attention on K3, more on K2."""
+    import numpy as np
+
+    from repro_torch.api import DecodeSession
+    from repro_torch.frontends import lm
+    from repro_torch.obs import trace
+    from repro_torch.obs.profile import _op_of_label, profile_model
+
+    ds = DecodeSession(spec=lm.tiny_spec(**DECODER), precision="int8",
+                       seed=SEED)
+    m = ds.model(seq, 64)
+    rng = np.random.default_rng(SEED)
+    feed = {t.name: (rng.normal(size=t.shape) * 0.5).astype(np.float32)
+            for t in m.graph.inputs}
+    feed["pos"] = np.full(m.graph.tensors["pos"].shape, float(pos),
+                          np.float32)
+    for _ in range(2):          # first runs: allocations, library loads
+        m(feed)
+    torch.cuda.synchronize()
+    reset_launches()
+    tr = trace.enable()
+    try:
+        rep = profile_model(m, feed, batch=1, runs=DECODE_PROFILE_RUNS)
+    finally:
+        trace.disable()
+    launches = read_launches()
+    replays = 1 + DECODE_PROFILE_RUNS
+    steps = m.plan_for(1).steps
+    where = f"phase 16 decoder (seq {seq}, kv 64)"
+    if rep.measured["kernels"] != len(steps) or \
+            rep.measured["kernel_ms_per_request"] > \
+            rep.measured["wall_ms_per_request"]:
+        fail(f"{where}: {rep.measured}")
+    attn = (1, 0) if seq == 1 else (0, 1)    # K3 for one row, else K2
+    if (bool(launches[1]), bool(launches[0])) != (bool(attn[0]),
+                                                   bool(attn[1])) \
+            or not launches[3] or launches[2]:
+        fail(f"{where}: launched {LAUNCH_NAMES} = {launches}")
+    host = {}
+    for e in tr.events():
+        if e[1] == "plan":
+            op = _op_of_label(e[0])
+            host[op] = host.get(op, 0.0) + (e[3] - e[2]) * 1e3 / replays
+    kinds = {op.name: op.kind for op in m.graph.ops}
+    top_host = sorted(host.items(), key=lambda kv: -kv[1])[:6]
+    host_by_kind = {}
+    for op, ms in host.items():
+        host_by_kind[kinds[op]] = host_by_kind.get(kinds[op], 0.0) + ms
+    print("\n".join(f"  | {line}" for line in rep.render(top=6)
+                    .splitlines()))
+    print(f"  {where}: host enqueue {sum(host.values()):.3f} ms over "
+          f"{len(steps)} steps; top host ops "
+          + ", ".join(f"{op} ({kinds[op]}) {ms:.3f}" for op, ms in top_host)
+          + "; by kind " + ", ".join(
+              f"{k} {ms:.3f}" for k, ms in sorted(
+                  host_by_kind.items(), key=lambda kv: -kv[1])))
+    return dict(kernels=len(steps),
+                wall_ms=rep.measured["wall_ms_per_request"],
+                step_ms=rep.measured["kernel_ms_per_request"],
+                host_enqueue_ms=sum(host.values()),
+                launches_per_replay=[n // replays for n in launches],
+                top_device=[(o.op, o.kind, round(o.measured_ms, 5))
+                            for o in rep.ops[:6]],
+                top_host=[(op, kinds[op], round(ms, 5))
+                          for op, ms in top_host],
+                device_by_kind=[(k.op, round(k.measured_ms, 5))
+                                for k in rep.kinds],
+                host_by_kind=sorted(((k, round(ms, 5)) for k, ms in
+                                     host_by_kind.items()),
+                                    key=lambda kv: -kv[1]))
+
+
+def phase_profile(torch, rpa) -> dict:
+    """Phase 16 (see the module docstring)."""
+    from repro_torch import api
+    out = {}
+    for name, key, k1 in ((MOBILENET.name, MOBILENET.name,
+                           MOBILENET.k1_per_replay),
+                          (RESNET.name, RESNET.name, RESNET.k1_per_replay),
+                          (f"{MOBILENET.name} float32", "f32", None)):
+        model = api.load(rpa[key], mmap=True, device="cuda")
+        cpu_model = api.load(rpa[key], mmap=True, device="cpu")
+        if k1 is None:
+            k1 = sum(op.kind in ("conv", "fc") for op in model.graph.ops)
+        reset_launches()
+        rep = model.profile(batch=VISION_BATCH, runs=PROFILE_RUNS)
+        launches = read_launches()
+        want = (0, 0, 0, k1 * (1 + PROFILE_RUNS))
+        if launches != want:
+            fail(f"phase 16 {name}: launched {LAUNCH_NAMES} = {launches}, "
+                 f"expected {want}")
+        out[name] = _profile_checks(torch, name, model, cpu_model, rep,
+                                    VISION_BATCH)
+        out[name]["k1_launches"] = launches[3]
+        if key == MOBILENET.name:
+            out[name]["spin_probe_ms"] = _spin_probe(torch, model,
+                                                     VISION_BATCH)
+        del model, cpu_model
+    out["decoder int8 (1, 64)"] = _decoder_profile(torch, 1, 40)
+    out["decoder int8 (64, 64)"] = _decoder_profile(torch, 64, 0)
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 17: the process pool and the fleet on the card
+# --------------------------------------------------------------------------
+
+
+def _served_all(torch, sess, name, images, n, want, where):
+    """``n`` requests (image j % len(images)) from PROC_SUBMITTERS
+    threads; every ticket must settle with ``want``'s outputs for its
+    image.  Returns the seconds from the first submit to the last
+    settlement."""
+    tickets, errors = {}, []
+    lock = threading.Lock()
+
+    def submitter(k):
+        try:
+            for j in range(k, n, PROC_SUBMITTERS):
+                t = sess.submit(name, images[j % len(images)])
+                with lock:
+                    tickets[j] = t
+        except Exception as e:               # shed, closed: a failed run
+            errors.append(e)
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=submitter, args=(k,))
+               for k in range(PROC_SUBMITTERS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    results = {}
+    for j, t in sorted(tickets.items()):
+        try:
+            results[j] = t.result(timeout=600)
+        except Exception as e:
+            errors.append(e)
+    wall = time.monotonic() - t0
+    if errors or len(results) != n:
+        fail(f"phase 17 {where}: {len(results)} of {n} tickets served; "
+             f"{errors[:1]!r}")
+    for j, got in results.items():
+        if not _equal_outputs(torch, got, want[j % len(images)]):
+            fail(f"phase 17 {where}: request {j} differs from the stored "
+                 f"ints of phase 6")
+    return wall
+
+
+def _no_failures(sess, name, where):
+    """No batch of ``name`` failed or was retried in ``sess``: a plan
+    failure would also wake the breaker's probe, whose replay on the card
+    runs in the background."""
+    st = sess.stats()["models"][name]
+    bad = {k: st[k] for k in ("plan_failures", "retries", "breaker_trips")
+           if st[k]}
+    if bad:
+        fail(f"phase 17 {where}: {bad}")
+
+
+def _children(sess):
+    return {wid: h for wid, h in sess._pool.worker_health().items()
+            if h.get("ready") and not h["abandoned"]}
+
+
+def _wait_replaced(torch, sess, recycled0, where):
+    """Wait for the supervisor to recycle the dead child's lanes and for
+    its replacement to report ready on the card."""
+    deadline = time.monotonic() + 300
+    while time.monotonic() < deadline:
+        ready = _children(sess)
+        if sess.stats()["pool"]["recycled_workers"] > recycled0 and \
+                len(ready) >= 2 * PROC_WORKERS:
+            break
+        time.sleep(0.1)
+    ready = _children(sess)
+    if sess.stats()["pool"]["recycled_workers"] <= recycled0 or \
+            len(ready) < 2 * PROC_WORKERS or \
+            {h["device"] for h in ready.values()} != {"cuda"}:
+        fail(f"phase 17 {where}: no replacement child ready on the card: "
+             f"{ready}")
+    return len({h["pid"] for h in ready.values()})
+
+
+def _proc_chaos(torch, sess, name, images, want) -> dict:
+    """The process pool's fault cases on the card: a worker killed
+    (SIGKILL from the parent, SIGSEGV, the OOM exit) with its batch in
+    flight, then a bit-flipped reply frame.  Every ticket settles with
+    phase 6's ints; the batch in flight is re-dispatched; a replacement
+    child becomes ready on the card."""
+    from repro_torch.runtime import chaos
+    out = {}
+    for mode in ("kill", "segv", "oom"):
+        st0 = sess.stats()
+        crash0 = st0["models"][name]["crash_redispatches"]
+        rec0 = st0["pool"]["recycled_workers"]
+        t0 = time.monotonic()
+        with chaos.inject() as c:
+            c.kill_worker(-1, mode=mode)
+            _served_all(torch, sess, name, images, PROC_CHAOS_REQUESTS,
+                        want, f"kill_worker({mode!r})")
+            kills = c.stats()["kills"]
+        crashes = sess.stats()["models"][name]["crash_redispatches"] - crash0
+        if kills != 1 or crashes < 1:
+            fail(f"phase 17 kill_worker({mode!r}): {kills} kills, "
+                 f"{crashes} crash re-dispatches")
+        pids = _wait_replaced(torch, sess, rec0, f"kill_worker({mode!r})")
+        out[mode] = dict(crash_redispatches=crashes,
+                         recycled_workers=sess.stats()["pool"][
+                             "recycled_workers"] - rec0,
+                         live_children=pids,
+                         recovery_s=time.monotonic() - t0)
+    st0 = sess.stats()
+    rec0 = st0["pool"]["recycled_workers"]
+    with chaos.inject() as c:
+        c.corrupt_frames(1)
+        _served_all(torch, sess, name, images, PROC_CHAOS_REQUESTS, want,
+                    "corrupt_frames")
+        flips = c.stats()["frame_flips"]
+    st = sess.stats()
+    corrupt = st["models"][name]["frame_corrupt"] - \
+        st0["models"][name]["frame_corrupt"]
+    if flips != 1 or corrupt < 1 or \
+            st["pool"]["recycled_workers"] != rec0:
+        fail(f"phase 17 corrupt_frames: {flips} flips, {corrupt} batches "
+             f"re-dispatched, {st['pool']['recycled_workers'] - rec0} "
+             f"workers recycled")
+    out["corrupt_frames"] = dict(frame_corrupt=corrupt)
+    _no_failures(sess, name, "chaos")
+    out["crash_redispatches"] = st["models"][name]["crash_redispatches"]
+    out["recycled_workers"] = st["pool"]["recycled_workers"]
+    return out
+
+
+def _fleet_phase(torch, api, path, name, images, want) -> dict:
+    """``Session.fleet(replicas=2, workers=2)`` on the card: balanced
+    routing; a replica that corrupts its outputs caught by the auditor
+    (the host interpreter) and quarantined; an update whose canary is
+    corrupted rejected with no replica touched; a replica's pool killed
+    with no ticket lost."""
+    from repro_torch.runtime import chaos
+    fleet = api.Session.fleet(replicas=2, workers=2,
+                              max_batch=VISION_BATCH, hedge=False,
+                              audit_fraction=0.0, audit_threshold=2,
+                              heartbeat_timeout_s=PROC_HEARTBEAT_S)
+    out = {}
+    try:
+        fleet.load(path, name=name)
+        # a first round allocates every worker's arena (a first batch
+        # that outlasts the heartbeat would be run twice)
+        _served_all(torch, fleet, name, images, FLEET_REQUESTS, want,
+                    "fleet warm")
+        reset_launches()
+        b0 = sum(r.session.stats()["models"][name]["batches"]
+                 for r in fleet._replicas.values())
+        _served_all(torch, fleet, name, images, FLEET_REQUESTS, want,
+                    "fleet routing")
+        st = fleet.stats()
+        served = [r["served"] for r in st["replicas"].values()]
+        batches = sum(r.session.stats()["models"][name]["batches"]
+                      for r in fleet._replicas.values()) - b0
+        k1 = read_launches()
+        if min(served) == 0 or st["failed"] or \
+                k1 != (0, 0, 0, MOBILENET.k1_per_replay * batches):
+            detail = {rid: (r.session.stats()["models"][name],
+                            r.session.stats()["pool"])
+                      for rid, r in fleet._replicas.items()}
+            fail(f"phase 17 fleet: served {served}, failed {st['failed']},"
+                 f" launched {LAUNCH_NAMES} = {k1} in {batches} batches;"
+                 f" replicas {detail}")
+        for r in fleet._replicas.values():
+            _no_failures(r.session, name, "fleet routing")
+        out["routing"] = dict(served=served, batches=batches,
+                              k1_launches=k1[3])
+
+        # every response audited on the host interpreter while replica 1
+        # corrupts its outputs; bursts of FLEET_AUDIT_BURST, each waited
+        # for until audited, until the auditor quarantines replica 1
+        def audited():
+            st = fleet.stats()
+            return st["audit_ok"] + st["audit_mismatch"] + \
+                st["audit_error"]
+
+        fleet.audit_fraction = 1.0
+        t0 = time.monotonic()
+        sent, base = 0, audited()
+        with chaos.inject() as c:
+            c.corrupt_output(name, times=10 ** 6, tag="r1")
+            for _ in range(FLEET_AUDIT_BURSTS):
+                ts = [fleet.submit(name, img)
+                      for img in images[:FLEET_AUDIT_BURST]]
+                for t in ts:
+                    t.result(timeout=600)
+                sent += len(ts)
+                deadline = time.monotonic() + 300
+                while time.monotonic() < deadline and \
+                        not fleet.stats()["quarantines"] and \
+                        audited() - base < sent:
+                    time.sleep(0.05)
+                if fleet.stats()["quarantines"]:
+                    break
+        fleet.audit_fraction = 0.0
+        st = fleet.stats()
+        if st["quarantines"] < 1 or st["replicas"][1]["quarantines"] < 1 \
+                or st["replicas"][0]["quarantines"]:
+            fail(f"phase 17 fleet audit: {st}")
+        _fleet_live(fleet, "audit")
+        out["audit"] = dict(audit_mismatch=st["audit_mismatch"],
+                            audit_ok=st["audit_ok"],
+                            quarantines=st["quarantines"],
+                            seconds=time.monotonic() - t0)
+
+        sessions = {rid: r.session for rid, r in fleet._replicas.items()}
+        with chaos.inject() as c:
+            c.corrupt_canary(name, times=1)
+            try:
+                fleet.update(name, path)
+                fail("phase 17 fleet: a corrupted canary was accepted")
+            except api.UpdateRejected:
+                pass
+        st = fleet.stats()
+        if st["updates_rolled_back"] != 1 or st["updates_ok"] or \
+                any(fleet._replicas[rid].session is not s
+                    for rid, s in sessions.items()) or \
+                set(fleet.replicas().values()) != {"live"}:
+            fail(f"phase 17 fleet update: {st}")
+        _served_all(torch, fleet, name, images, len(images), want,
+                    "fleet after the rejected update")
+        out["update"] = dict(rolled_back=st["updates_rolled_back"])
+        with chaos.inject() as c:
+            t0 = time.monotonic()
+            tickets = [fleet.submit(name, images[j % len(images)])
+                       for j in range(FLEET_REQUESTS)]
+            c.kill_pool(0)
+            for j, t in enumerate(tickets):
+                if not _equal_outputs(torch, t.result(timeout=600),
+                                      want[j % len(images)]):
+                    fail(f"phase 17 fleet kill_pool: request {j} differs")
+        st = fleet.stats()
+        if st["pool_deaths"] != 1 or st["failed"]:
+            fail(f"phase 17 fleet kill_pool: {st['pool_deaths']} deaths, "
+                 f"{st['failed']} failed")
+        _fleet_live(fleet, "kill_pool")
+        out["kill_pool"] = dict(redispatches=st["redispatches"],
+                                recycles=st["recycles"],
+                                recovery_s=time.monotonic() - t0)
+
+        out["requests"] = st["requests"]
+    finally:
+        fleet.close()
+    return out
+
+
+def _fleet_live(fleet, where):
+    deadline = time.monotonic() + 300
+    while time.monotonic() < deadline:
+        if set(fleet.replicas().values()) == {"live"}:
+            return
+        time.sleep(0.1)
+    fail(f"phase 17 fleet {where}: replicas {fleet.replicas()}")
+
+
+def phase_procpool(torch, rpa, images, stored) -> dict:
+    """Phase 17 (see the module docstring)."""
+    from repro_torch import api
+    name = MOBILENET.name
+    model = api.load(rpa[name], mmap=True, device="cuda")
+    sem = model.semantics
+    # phase 6's stored ints of each image, decoded on the host
+    want = [{k: sem.decode(k, v[i]) for k, v in stored.items()}
+            for i in range(len(images))]
+    del model
+    rates, out = {}, {}
+    for workers in (1, 2):
+        sess = api.Session(workers=workers, max_batch=VISION_BATCH)
+        try:
+            sess.load(rpa[name], name=name)
+            for _ in range(workers):       # every worker's arena, warm
+                _served_all(torch, sess, name, images, len(images), want,
+                            f"thread {workers} warm")
+            wall = _served_all(torch, sess, name, images, PROC_REQUESTS,
+                               want, f"thread {workers}")
+            _no_failures(sess, name, f"thread {workers}")
+            rates[f"thread {workers}"] = PROC_REQUESTS / wall
+        finally:
+            sess.close()
+    # both process sessions boot their children side by side
+    procs = {n: api.Session(workers=("process", n), max_batch=VISION_BATCH,
+                            heartbeat_timeout_s=PROC_HEARTBEAT_S)
+             for n in (1, PROC_WORKERS)}
+    try:
+        t0 = time.monotonic()
+        for sess in procs.values():
+            sess.load(rpa[name], name=name)
+        out["boot_and_load_s"] = time.monotonic() - t0
+        for n, sess in procs.items():
+            ready = _children(sess)
+            pids = {h["pid"] for h in ready.values()}
+            if len(pids) != n or os.getpid() in pids or \
+                    {h["device"] for h in ready.values()} != {"cuda"}:
+                fail(f"phase 17: process {n}'s children are {ready}")
+            # the children's counts, read before and after the run (they
+            # include each child's warm batch); the parent's from 0
+            k0 = sess._pool.child_launches().get("neutron_matmul", 0)
+            b0 = sess.stats()["models"][name]["batches"]
+            reset_launches()
+            wall = _served_all(torch, sess, name, images, PROC_REQUESTS,
+                               want, f"process {n}")
+            batches = sess.stats()["models"][name]["batches"] - b0
+            k1 = sess._pool.child_launches().get("neutron_matmul", 0) - k0
+            _no_failures(sess, name, f"process {n}")
+            if k1 != MOBILENET.k1_per_replay * batches or \
+                    read_launches()[3]:
+                fail(f"phase 17 process {n}: the children launched K1 {k1} "
+                     f"times in {batches} batches, the parent "
+                     f"{read_launches()[3]}")
+            rates[f"process {n}"] = PROC_REQUESTS / wall
+            out[f"process {n}"] = dict(children=len(pids), batches=batches,
+                                       k1_launches=k1)
+        procs[1].close()
+        print("  requests/s, " + str(PROC_REQUESTS) + " requests of "
+              + name + " int8 from " + str(PROC_SUBMITTERS)
+              + " submitters: " + ", ".join(f"{k} {v:.1f}"
+                                            for k, v in rates.items()))
+        out["chaos"] = _proc_chaos(torch, procs[PROC_WORKERS], name, images,
+                                   want)
+    finally:
+        for sess in procs.values():
+            sess.close()
+    out["requests_s"] = rates
+    out["fleet"] = _fleet_phase(torch, api, rpa[name], name, images, want)
+    return out
+
+
+def run_compiled_phases(torch, rows, vision_ref, images, rpa):
+    """Phases 11, 12 and 13: the compiled vision models, their Session
+    and the decoder.  Phases 11 and 12 save their models' artifacts into
+    ``rpa``, which phases 16 and 17 load."""
+    compiled = {}
+    for path in (MOBILENET, RESNET):
+        print(f"== phase 11: {path.name} through repro_torch.api.compile at "
+              f"224, int8, batch {VISION_BATCH}")
+        t = time.monotonic()
+        out, compiled[path.name] = phase_compiled(
+            torch, path, vision_ref.pop(path.name))
+        rpa[path.name] = compiled[path.name].save(
+            f"{rpa['dir']}/{path.name}.rpa")
+        print(f"  {path.name} compiled: {json.dumps(out)}")
+        print(f"  phase 11 ({path.name}) wall time "
+              f"{time.monotonic() - t:.1f} s")
+    print(f"== phase 12: Session on the card, {MOBILENET.name} and "
+          f"{RESNET.name} int8 and {MOBILENET.name} float32 at 224")
+    t = time.monotonic()
+    out = phase_session(torch, rows, compiled, images, rpa)
+    print(f"  session: {json.dumps(out)}")
+    print(f"  phase 12 wall time {time.monotonic() - t:.1f} s")
+    del compiled
+    print(f"== phase 13: {DECODER_PATH} ({DECODER}) through "
+          f"DecodeSession, float32 and int8")
+    t = time.monotonic()
+    out = phase_decode(torch, rows)
+    print(f"  decode: {json.dumps(out)}")
+    print(f"  phase 13 wall time {time.monotonic() - t:.1f} s")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2429,31 +3016,30 @@ def main() -> None:
                     (10, GEMMA)):
         paths[path.arch] = phase_lm(torch, rows, n, path)
     images = vision_ref[MOBILENET.name]["images"]
-    compiled = {}
-    for path in (MOBILENET, RESNET):
-        print(f"== phase 11: {path.name} through repro_torch.api.compile at "
-              f"224, int8, batch {VISION_BATCH}")
+    stored = vision_ref[MOBILENET.name]["stored"]
+    # the artifacts of phases 11 and 12, which phases 16 and 17 load
+    rpa = {"dir": tempfile.mkdtemp(prefix="chip-smoke-rpa-")}
+    try:
+        run_compiled_phases(torch, rows, vision_ref, images, rpa)
+        for n, path in ((14, WHISPER), (15, QWEN)):
+            paths[path.arch] = phase_lm(torch, rows, n, path)
+        print(f"== phase 16: CompiledModel.profile on the card, "
+              f"{MOBILENET.name} and {RESNET.name} int8 and "
+              f"{MOBILENET.name} float32 at 224, batch {VISION_BATCH}; the "
+              f"{DECODER_PATH} int8 at (1, 64) and (64, 64)")
         t = time.monotonic()
-        out, compiled[path.name] = phase_compiled(
-            torch, path, vision_ref.pop(path.name))
-        print(f"  {path.name} compiled: {json.dumps(out)}")
-        print(f"  phase 11 ({path.name}) wall time "
-              f"{time.monotonic() - t:.1f} s")
-    print(f"== phase 12: Session on the card, {MOBILENET.name} and "
-          f"{RESNET.name} int8 and {MOBILENET.name} float32 at 224")
-    t = time.monotonic()
-    out = phase_session(torch, rows, compiled, images)
-    print(f"  session: {json.dumps(out)}")
-    print(f"  phase 12 wall time {time.monotonic() - t:.1f} s")
-    del compiled
-    print(f"== phase 13: {DECODER_PATH} ({DECODER}) through "
-          f"DecodeSession, float32 and int8")
-    t = time.monotonic()
-    out = phase_decode(torch, rows)
-    print(f"  decode: {json.dumps(out)}")
-    print(f"  phase 13 wall time {time.monotonic() - t:.1f} s")
-    for n, path in ((14, WHISPER), (15, QWEN)):
-        paths[path.arch] = phase_lm(torch, rows, n, path)
+        out = phase_profile(torch, rpa)
+        print(f"  profile: {json.dumps(out)}")
+        print(f"  phase 16 wall time {time.monotonic() - t:.1f} s")
+        print(f"== phase 17: Session(workers=(\"process\", "
+              f"{PROC_WORKERS})) and Session.fleet on the card, "
+              f"{MOBILENET.name} int8 at 224")
+        t = time.monotonic()
+        out = phase_procpool(torch, rpa, images, stored)
+        print(f"  process pool and fleet: {json.dumps(out)}")
+        print(f"  phase 17 wall time {time.monotonic() - t:.1f} s")
+    finally:
+        shutil.rmtree(rpa["dir"], ignore_errors=True)
 
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",

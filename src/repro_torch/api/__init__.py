@@ -16,6 +16,9 @@ every conv and fc on the hand-written K1 kernel:
     sess.add(model, name="mnv2")
     ticket = sess.submit("mnv2", image)            # micro-batched
     ticket.result()                     # CPU tensors
+    sess = api.Session(workers=("process", 2))     # one CUDA context each
+    fleet = api.Session.fleet(replicas=2, workers=2)   # replicas, routed
+    print(model.profile(batch=8))       # modeled vs measured, per op
 
     lm = api.DecodeSession(precision="int8")       # the tiny LM decoder
     rid, tok = lm.prefill([3, 17, 42])             # caches on the device
@@ -32,7 +35,8 @@ them, with ``BreakerOpen``, the port's own (a CUDA session's open
 breaker fails fast instead of serving from the host).
 ``DecodeSession`` (``api/decode.py``) serves the LM decoder of
 ``frontends/lm.py``: prefill on K2, every decode step's attention on K3,
-every matmul on K1.  ``Fleet`` waits for ``ROADMAP.md`` item 10.
+every matmul on K1.  ``Fleet``, ``FleetError`` and ``UpdateRejected``
+come from ``runtime/fleet.py``, as in ``repro.api``.
 """
 from __future__ import annotations
 
@@ -55,6 +59,8 @@ from .compiled import CompiledModel, resolve_semantics
 from .decode import DecodeSession
 from .session import Session
 
+from repro_torch.runtime.fleet import Fleet, FleetError, UpdateRejected
+
 __all__ = [
     "compile", "load", "CompiledModel", "Session", "DecodeSession",
     "ArtifactError",
@@ -63,6 +69,8 @@ __all__ = [
     "ServingError", "Overloaded", "DeadlineExceeded", "FlushError",
     "WorkerLost", "Ticket", "CircuitBreaker", "Cancelled", "FrameCorrupt",
     "BreakerOpen",
+    # fleet-level serving
+    "Fleet", "FleetError", "UpdateRejected",
 ]
 
 Source = Union[str, Graph, GraphBuilder, Tuple[Graph, GraphBuilder],

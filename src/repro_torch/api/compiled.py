@@ -439,10 +439,14 @@ class CompiledModel:
     # -- reporting ----------------------------------------------------------
     def profile(self, inputs: Optional[Inputs] = None, batch: int = 8,
                 runs: int = 3):
-        """The modeled-vs-measured profiler is not ported yet."""
-        raise NotImplementedError(
-            "CompiledModel.profile (obs/profile.py) is not ported yet "
-            "(ROADMAP.md item 9)")
+        """Modeled-vs-measured execution profile (a
+        :class:`~repro_torch.obs.profile.ProfileReport`): one timed,
+        per-step-instrumented plan replay on the model's device (CUDA
+        events on the card), correlated per op with the cost model's
+        cycles."""
+        from repro_torch.obs.profile import profile_model
+        self._require_semantics()
+        return profile_model(self, inputs, batch=batch, runs=runs)
 
     def stats(self) -> Dict[str, float]:
         s = self.result.stats()

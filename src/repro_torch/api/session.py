@@ -44,12 +44,25 @@ sticky CUDA error) the host engine would only hide.  With ``workers >
 queues, each worker with its own plan arena and CUDA stream.  A pool on
 CUDA builds the kernels before its workers start, and a model added to
 it is lowered before any worker takes a batch of it, so a worker's first
-batch only allocates its arena.  Process pools (``workers=("process",
-n)``) and ``Session.fleet`` are ``ROADMAP.md`` item 10.
+batch only allocates its arena.  ``workers=("process", n)`` swaps in a
+:class:`~repro_torch.runtime.procpool.ProcPool`: each worker is a
+separate OS process that opens the model artifacts (spooled to a
+temporary directory when a model was compiled in the session) on the
+session's device, with a CUDA context and a device copy of the weights
+of its own, and lowers and warms every model before it takes a batch
+(``add`` returns once every live child has, and raises a child's load
+error).  A SIGKILL/SIGSEGV/OOM death, or a sticky CUDA fault that
+poisons a child's context, re-dispatches the batch in flight to the
+survivors and respawns the child off the request path, with zero ticket
+loss.  A thread pool cannot replace a poisoned context: its batches fail
+until the process ends.  :meth:`Session.fleet` puts replica sessions
+behind one router (:mod:`repro_torch.runtime.fleet`).
 """
 from __future__ import annotations
 
+import os
 import random
+import tempfile
 import threading
 import time
 from typing import Dict, List, Optional, Tuple, Union
@@ -69,10 +82,11 @@ from repro_torch.runtime import chaos as _chaos
 from repro_torch.runtime.serving import (BreakerOpen, Cancelled,
                                          CircuitBreaker,
                                          DeadlineExceeded, FlushError,
-                                         LatencyHistogram, Overloaded,
-                                         ServerPool, Ticket)
+                                         FrameCorrupt, LatencyHistogram,
+                                         Overloaded, ServerPool, Ticket,
+                                         WorkerCrashed)
 
-from .compiled import CompiledModel, Inputs, Outputs
+from .compiled import CompiledModel, Inputs, Outputs, _host
 
 #: request errors that are the *caller's* fault (bad shape, bad name):
 #: not retried, never counted against the model's circuit breaker.
@@ -119,6 +133,7 @@ class Session:
                  breaker_threshold: int = 3,
                  breaker_cooldown_s: float = 2.0,
                  retry_backoff_ms: float = 10.0,
+                 tag: Optional[str] = None,
                  device=None):
         self.cfg = config or NEUTRON_2TOPS
         #: the device every model of the session replays on (CUDA unless
@@ -130,6 +145,10 @@ class Session:
         self.breaker_threshold = int(breaker_threshold)
         self.breaker_cooldown_s = float(breaker_cooldown_s)
         self.retry_backoff_s = float(retry_backoff_ms) / 1e3
+        #: chaos-attribution tag (fleet replicas pass their replica id
+        #: so per-replica faults — silent output corruption — can be
+        #: aimed at one session among many in the same process)
+        self.tag = tag
         # only forward knobs the caller actually set — the store is
         # process-wide and an omitted knob must not reset prior config
         if cache_dir is not None:
@@ -168,35 +187,44 @@ class Session:
         #: model (canceled on close)
         self._probe_lock = threading.Lock()
         self._probe_timers: Dict[str, threading.Timer] = {}
+        #: artifact spool for process pools (workers load models from
+        #: here when they were compiled in-session rather than loaded
+        #: from an artifact path)
+        self._spool_dir: Optional[str] = None
         # workers policy: n threads, or ("thread"|"process", n)
         if isinstance(workers, (tuple, list)):
             pool_mode, n_workers = workers
             n_workers = int(n_workers)
         else:
             pool_mode, n_workers = "thread", int(workers)
-        if pool_mode == "process":
-            raise NotImplementedError(
-                "process worker pools are not ported yet (ROADMAP.md "
-                "item 10)")
-        if pool_mode != "thread":
+        if pool_mode not in ("thread", "process"):
             raise ValueError(
                 f"workers mode must be 'thread' or 'process', "
                 f"got {pool_mode!r}")
         if n_workers:
-            self._pool = ServerPool(
-                self._execute_entries, workers=n_workers,
-                max_batch=self.max_batch, max_queue=self.max_queue,
-                linger_ms=linger_ms,
-                heartbeat_timeout_s=heartbeat_timeout_s,
-                registry=self.registry, device=self.device)
+            kw = dict(max_batch=self.max_batch, max_queue=self.max_queue,
+                      linger_ms=linger_ms,
+                      heartbeat_timeout_s=heartbeat_timeout_s,
+                      registry=self.registry, device=self.device)
+            if pool_mode == "process":
+                from repro_torch.runtime.procpool import ProcPool
+                self._pool = ProcPool(self._execute_entries,
+                                      workers=n_workers, **kw)
+            else:
+                self._pool = ServerPool(self._execute_entries,
+                                        workers=n_workers, **kw)
 
     @classmethod
-    def fleet(cls, replicas: int = 2, **kw):
-        """A fleet of replica Sessions behind one ``submit()``: not
-        ported yet."""
-        raise NotImplementedError(
-            "Session.fleet (runtime/fleet.py) is not ported yet "
-            "(ROADMAP.md item 10)")
+    def fleet(cls, replicas: int = 2, **kw) -> "Fleet":  # noqa: F821
+        """Construct a :class:`~repro_torch.runtime.fleet.Fleet` of
+        ``replicas`` Sessions (each with its own worker pool, modeling
+        one host) behind a single health-routed, hedged ``submit()``
+        surface.  Keyword arguments are forwarded to
+        :class:`~repro_torch.runtime.fleet.Fleet`; per-session knobs
+        (``workers``, ``max_batch``, ``device``, …) reach every
+        replica."""
+        from repro_torch.runtime.fleet import Fleet
+        return Fleet(replicas=replicas, session_factory=cls, **kw)
 
     def __enter__(self) -> "Session":
         return self
@@ -217,6 +245,10 @@ class Session:
             t.cancel()
         if self._pool is not None:
             self._pool.close()
+        if self._spool_dir is not None:
+            import shutil
+            shutil.rmtree(self._spool_dir, ignore_errors=True)
+            self._spool_dir = None
 
     def _model_stats(self, name: str) -> dict:
         return self._stats.setdefault(name, {
@@ -229,7 +261,7 @@ class Session:
             "breaker_rejects": 0,
             "retries": 0, "submit_retries": 0, "plan_failures": 0,
             "breaker_trips": 0, "recoveries": 0, "failed_recoveries": 0,
-            "cancelled": 0,
+            "crash_redispatches": 0, "frame_corrupt": 0, "cancelled": 0,
         })
 
     def _count(self, name: str, counter: str, n: int = 1) -> None:
@@ -255,10 +287,13 @@ class Session:
 
     # -- registry -----------------------------------------------------------
     def _register(self, name: str, model: CompiledModel,
-                  priority: Optional[int], pin: bool) -> None:
-        """Hand a newly registered model to the worker pool (lowering its
-        steps first when the pool runs on CUDA, so that no worker's first
-        batch lowers them)."""
+                  path: Optional[str], priority: Optional[int],
+                  pin: bool) -> None:
+        """Hand a newly registered model to the worker pool: a thread
+        pool on CUDA gets it lowered, so that no worker's first batch
+        lowers it; a process pool gets an on-disk artifact (spooled here
+        if the model was compiled in-session) that every child loads,
+        lowers and warms before this returns."""
         pool = self._pool
         if pool is None:
             if priority is not None:
@@ -268,7 +303,20 @@ class Session:
         else:
             if priority is not None:
                 pool.set_priority(name, int(priority))
-            if self.device.type == "cuda" and model.semantics is not None:
+            if pool.mode == "process":
+                if model.semantics is None:
+                    raise RuntimeError(
+                        f"{name}: cost-model-only models (dtype-cast "
+                        f"graphs) have no executable semantics and cannot "
+                        f"be served by a process pool")
+                if path is None:
+                    if self._spool_dir is None:
+                        self._spool_dir = tempfile.mkdtemp(
+                            prefix="repro-torch-procpool-")
+                    path = os.path.join(self._spool_dir, f"{name}.rpa")
+                    model.save(path)
+                pool.register_model(name, path)
+            elif self.device.type == "cuda" and model.semantics is not None:
                 model.lower()
         if pin:
             self.pin(name)
@@ -309,7 +357,7 @@ class Session:
         st["compile_s"] = model.compile_s
         st["latency_ms"] = model.program.latency_ms()
         st["compiles"][model.cache_tier or "solved"] += 1
-        self._register(name, model, priority, pin)
+        self._register(name, model, None, priority, pin)
         if warmup:
             self.warmup(name)
         return model
@@ -329,7 +377,7 @@ class Session:
         st["compile_s"] = 0.0
         st["latency_ms"] = model.program.latency_ms()
         st["compiles"]["artifact"] += 1
-        self._register(name, model, priority, pin)
+        self._register(name, model, path, priority, pin)
         return model
 
     def warmup(self, name: Optional[str] = None) -> None:
@@ -532,12 +580,23 @@ class Session:
 
     # -- robust batch execution (shared by sync flush and the pool) ---------
     def _plan_run(self, name: str, model: CompiledModel, feeds,
-                  worker=None) -> List[Outputs]:
+                  worker=None, trace_ids=None) -> List[Outputs]:
         """One batch through the model's plan: the worker's own arena,
-        on the worker's stream, synchronized before this returns."""
+        on the worker's stream, synchronized before this returns; in a
+        process pool, through the worker's child process (its outputs
+        as CPU tensors too)."""
         c = _chaos.active()
         if c is not None:
             c.check_plan(name)
+        pool = self._pool
+        if pool is not None and pool.mode == "process" \
+                and worker is not None:
+            # normalize here (run_many's client-error contract) so the
+            # child only ever sees clean single-sample numpy dicts
+            feeds = model._single_samples(feeds)
+            feeds = [{k: _host(v) for k, v in f.items()} for f in feeds]
+            return pool.remote_run(worker, name, feeds,
+                                   trace_ids=trace_ids)
         return _served(model, feeds, owner=worker)
 
     def _degraded_run(self, model: CompiledModel, feeds) -> List[Outputs]:
@@ -598,6 +657,42 @@ class Session:
             br.probe_succeeded()
             self._count(name, "recoveries")
 
+    def _crash_redispatch(self, name: str, entries,
+                          err: WorkerCrashed) -> None:
+        """A worker *process* died with this batch in flight: hand the
+        still-live entries back to the pool for the survivors.  No
+        ticket fails, nothing counts against the breaker — the crash is
+        a fault-domain event, not a model fault (first-fulfillment-wins
+        tickets settle any duplicated work)."""
+        self._count(name, "crash_redispatches")
+        _trace.instant("worker_crashed", "fault",
+                       args={"model": name, "worker": err.worker,
+                             "n": len(entries)})
+        if self._pool is not None:
+            self._pool.redispatch(name, entries, err.worker)
+        else:                      # sync session: no pool to re-home to
+            for _, ticket in entries:
+                ticket._fail(err)
+        return None
+
+    def _frame_redispatch(self, name: str, entries,
+                          err: FrameCorrupt) -> None:
+        """A pipe frame failed its CRC: the batch's bytes are
+        untrusted but the worker and its stream are intact (the
+        transport is length-prefixed — corruption can't desync it).
+        Re-dispatch the batch so a healthy worker serves it; no ticket
+        fails, nothing counts against the breaker, nobody recycles."""
+        self._count(name, "frame_corrupt")
+        _trace.instant("frame_redispatch", "fault",
+                       args={"model": name, "worker": err.worker,
+                             "n": len(entries)})
+        if self._pool is not None:
+            self._pool.redispatch(name, entries, err.worker)
+        else:                      # sync session: no pool to re-home to
+            for _, ticket in entries:
+                ticket._fail(err)
+        return None
+
     def _execute_entries(self, name: str, entries, worker=None
                          ) -> Optional[BaseException]:
         """Execute one claimed batch, fulfilling or failing every ticket
@@ -611,6 +706,7 @@ class Session:
         model = self._models[name]
         br = self._breaker(name)
         feeds = [feed for feed, _ in entries]
+        trace_ids = [t.trace_id for _, t in entries]
         outs = None
         err: Optional[BaseException] = None
         engine = "plan"
@@ -630,7 +726,12 @@ class Session:
                 (t0 - ticket.submitted_at) * 1e3, model=name)
         if br.allow_plan():
             try:
-                outs = self._plan_run(name, model, feeds, worker)
+                outs = self._plan_run(name, model, feeds, worker,
+                                      trace_ids)
+            except WorkerCrashed as e:
+                return self._crash_redispatch(name, entries, e)
+            except FrameCorrupt as e:
+                return self._frame_redispatch(name, entries, e)
             except _CLIENT_ERRORS as e:
                 err = e
             except Exception:
@@ -638,7 +739,12 @@ class Session:
                 self._count(name, "retries")
                 time.sleep(self.retry_backoff_s)
                 try:
-                    outs = self._plan_run(name, model, feeds, worker)
+                    outs = self._plan_run(name, model, feeds, worker,
+                                          trace_ids)
+                except WorkerCrashed as e2:
+                    return self._crash_redispatch(name, entries, e2)
+                except FrameCorrupt as e2:
+                    return self._frame_redispatch(name, entries, e2)
                 except Exception as e2:
                     err = e2
             if outs is not None:
@@ -689,7 +795,7 @@ class Session:
                 ticket._fail(err)
             return err
         c = _chaos.active()
-        if c is not None and c.maybe_corrupt_output(name):
+        if c is not None and c.maybe_corrupt_output(name, self.tag):
             # silent corruption: serve *wrong bytes* with no error —
             # the fault class only the fleet's interp-oracle audit
             # sampler can catch (and quarantine the replica for)
@@ -773,6 +879,10 @@ class Session:
          "tickets expired before execution"),
         ("degraded_requests", "repro_degraded_requests_total",
          "requests served by the interpretive oracle (breaker open)"),
+        ("frame_corrupt", "repro_frame_corrupt_total",
+         "batches re-dispatched after a corrupt pipe frame"),
+        ("crash_redispatches", "repro_crash_redispatches_total",
+         "batches re-dispatched after a worker-process crash"),
         ("breaker_rejects", "repro_breaker_rejects_total",
          "requests failed fast by an open breaker (CUDA sessions)"),
         ("retries", "repro_retries_total",
@@ -865,7 +975,14 @@ class Session:
                                  "batches served per worker", ("worker",))
             wreq = reg.counter("repro_worker_requests_total",
                                "requests served per worker", ("worker",))
+            wpid = None
+            if pool.mode == "process":
+                wpid = reg.gauge("repro_worker_pid",
+                                 "worker process id (-1 = not ready)",
+                                 ("worker",))
             for wid, h in pool.worker_health().items():
+                if wpid is not None:
+                    wpid.set(h.get("pid") or -1, worker=wid)
                 alive.set(1 if h["alive"] and not h["abandoned"] else 0,
                           worker=wid)
                 wbatch.set_total(h["batches"], worker=wid)

@@ -37,7 +37,12 @@ lowering reads the program or the tiling, so a bare graph lowers too
 
 When the tracer is armed with ``plan_steps``, :meth:`ExecPlan.run`
 records one span per step (category ``plan``): host time, which on CUDA
-is the time to enqueue the step.
+is the time to enqueue the step.  ``run(..., step_times=[])`` collects
+one ``(label, seconds)`` entry per step for the profiler
+(:mod:`repro_torch.obs.profile`): on CUDA the device time between two
+events recorded around the step on the current stream (read after one
+synchronize at the end of the replay, so the replay is not serialized
+step by step), on the CPU the host clock, as the reference.
 """
 from __future__ import annotations
 
@@ -54,6 +59,7 @@ from repro_torch import resolve_device
 from repro_torch.kernels import ops
 
 from ..obs import trace as _trace
+from .executor import ExecutionReport
 from .ir import Graph
 
 #: arena slots are aligned to this many bytes (cache-line friendly).
@@ -256,7 +262,8 @@ class ExecPlan:
         return n, squeeze
 
     def run(self, feed: Dict[str, object], n: Optional[int] = None,
-            decode: bool = True) -> Dict[str, torch.Tensor]:
+            decode: bool = True, trace_id: Optional[int] = None,
+            step_times: Optional[list] = None) -> Dict[str, torch.Tensor]:
         """Replay ``n`` stacked requests.  ``feed`` maps every graph input
         to an ``(n, *shape)`` float array or tensor (``(*shape,)`` when
         ``n`` is None).  The batch goes to the device in one copy and is
@@ -264,8 +271,14 @@ class ExecPlan:
         tensor on the plan's device (never a view of the arena): decoded
         to float32 through the semantics, or a copy of the stored values
         with ``decode=False``.  A failing kernel raises
-        :class:`PlanError` naming its step.  With the tracer armed (and
-        its ``plan_steps`` flag set) each step lands as one span."""
+        :class:`PlanError` naming its step.
+
+        ``step_times`` (a caller-supplied list) collects one ``(label,
+        seconds)`` entry per step: device time between CUDA events on a
+        CUDA plan, host time on the CPU.  With the tracer armed (and its
+        ``plan_steps`` flag set) each step lands as one span of host
+        time (on CUDA, the time to enqueue it), tagged with
+        ``trace_id``."""
         n, squeeze = self._encode(feed, n)
         bufs = self._views
         tracer = _trace.active()
@@ -273,14 +286,23 @@ class ExecPlan:
             tracer = None
         st = None
         try:
-            if tracer is None:
+            if tracer is None and step_times is None:
                 for st in self.steps:
                     st.run(bufs, n)
+            elif step_times is not None and self.device.type == "cuda":
+                self._run_device_timed(bufs, n, tracer, trace_id,
+                                       step_times)
             else:
+                clock = time.monotonic
                 for st in self.steps:
-                    t0 = time.monotonic()
+                    t0 = clock()
                     st.run(bufs, n)
-                    tracer.complete(st.label, "plan", t0, time.monotonic())
+                    t1 = clock()
+                    if step_times is not None:
+                        step_times.append((st.label, t1 - t0))
+                    if tracer is not None:
+                        tracer.complete(st.label, "plan", t0, t1,
+                                        trace_id=trace_id)
         except Exception as e:
             raise PlanError(
                 f"{self.name}: lowered kernel "
@@ -294,6 +316,58 @@ class ExecPlan:
                 out = raw.clone()
             outs[t.name] = out[0] if squeeze else out
         return outs
+
+    def _run_device_timed(self, bufs, n: int, tracer, trace_id,
+                          step_times: list) -> None:
+        """The step loop with a pair of CUDA events around each step on
+        the current stream; one synchronize after the last step, then
+        each step's device seconds appended to ``step_times``.  A step's
+        time is its span on the stream: where the host enqueues a step's
+        kernels slower than the card runs them, the span includes the
+        card's wait for them."""
+        stream = torch.cuda.current_stream(self.device)
+        marks = []
+        for st in self.steps:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            h0 = time.monotonic()
+            e0.record(stream)
+            st.run(bufs, n)
+            e1.record(stream)
+            marks.append((st.label, e0, e1, h0, time.monotonic()))
+        if marks:
+            marks[-1][2].synchronize()
+        for label, e0, e1, h0, h1 in marks:
+            ms = e0.elapsed_time(e1)
+            step_times.append((label, ms / 1e3))
+            if tracer is not None:
+                tracer.complete(label, "plan", h0, h1, trace_id=trace_id)
+
+    def execution_report(self, outputs: Dict[str, torch.Tensor],
+                         n: int = 1) -> ExecutionReport:
+        """An :class:`~repro_torch.core.executor.ExecutionReport` for one
+        plan replay.  ``ticks``/``ddr_bytes`` are the schedule's modeled
+        **per-request** quantities — a batch-N replay does not multiply
+        them, so DDR columns stay comparable across executors."""
+        return ExecutionReport(outputs, 0.0, self.ticks,
+                               self.ddr_bytes_per_request,
+                               batch=int(n), engine="plan")
+
+    # -- reporting ----------------------------------------------------------
+    def stats(self) -> Dict[str, object]:
+        return {
+            "semantics": self.semantics.name,
+            "granularity": self.granularity,
+            "capacity": self.capacity,
+            "kernels": len(self.steps),
+            "tensors": len(self.ids),
+            "arena_bytes": int(self.arena_bytes),
+            "arena_total_bytes": int(self.arena_bytes * self.capacity),
+            "build_s": self.build_s,
+            "ddr_bytes_per_request": (
+                None if self.ddr_bytes_per_request is None
+                else int(self.ddr_bytes_per_request)),
+        }
 
     def replay_steps(self, feed: Dict[str, object], n: int):
         """Replay as :meth:`run` does, yielding after each step its label

@@ -5,8 +5,11 @@
   CUDA stream of their own;
 * ``fault`` — heartbeats and the failure monitor the pool supervises
   with (a copy);
-* ``chaos`` — fault injection for tests and ``chip_smoke.py`` (a copy).
-
-The process pool and ``Fleet`` (``procpool``, ``fleet``) are
-``ROADMAP.md`` item 10.
+* ``chaos`` — fault injection for tests and ``chip_smoke.py`` (a copy);
+* ``procpool`` — the process pool: each worker a spawned OS process with
+  its own CUDA context, the CRC-framed pipe protocol, crash and frame
+  re-dispatch;
+* ``fleet`` — replica sessions behind one health-routed, hedged
+  ``submit()``, with failover, the silent-corruption auditor, canary-gated
+  rolling updates and rebalancing.
 """

@@ -30,10 +30,12 @@ Counterpart of ``repro/runtime/serving.py``, the robustness layer around
   surface ``Session.stats()`` reports.
 
 Fault injection for all of the above lives in
-:mod:`repro_torch.runtime.chaos`.  The process pool is ``ROADMAP.md``
-item 10: its hooks and its crash re-dispatch come back with it;
-:class:`FrameCorrupt` stays among the exported serving errors, as the
-reference exports it.
+:mod:`repro_torch.runtime.chaos`.  The process pool
+(:class:`repro_torch.runtime.procpool.ProcPool`) subclasses
+:class:`ServerPool` through its hooks (``_worker_ready``,
+``_idle_beat``, ``_extra_dead_locked``, ``_on_recycle_locked``,
+``_on_close``, ``_worker_stream``) and re-dispatches a batch whose worker
+process died (:class:`WorkerCrashed`, :meth:`ServerPool.redispatch`).
 """
 from __future__ import annotations
 
@@ -114,6 +116,19 @@ class Cancelled(ServingError):
     def __init__(self, model: str):
         self.model = model
         super().__init__(f"{model}: request cancelled")
+
+
+class WorkerCrashed(ServingError):
+    """A worker *process* died (SIGKILL/SIGSEGV/OOM, or a CUDA context
+    poisoned by a sticky device fault) with this batch in flight.  Never
+    a terminal ticket error: the executor catches it and re-dispatches
+    the batch to a surviving worker (first-fulfillment-wins tickets
+    settle any duplicated work)."""
+
+    def __init__(self, worker: int, detail: str = ""):
+        self.worker = int(worker)
+        super().__init__(f"worker {worker} crashed"
+                         + (f": {detail}" if detail else ""))
 
 
 class FrameCorrupt(ServingError):
@@ -412,6 +427,9 @@ class ServerPool:
     MIN_EST_SAMPLES = 4
     #: recompute the memoized p99 after this many new samples
     EST_REFRESH = 16
+    #: worker fault domain ("thread" here; "process" in
+    #: :class:`repro_torch.runtime.procpool.ProcPool`)
+    mode = "thread"
 
     def __init__(self, execute: Callable, *, workers: int = 2,
                  max_batch: int = 8, max_queue: int = 64,
@@ -685,6 +703,18 @@ class ServerPool:
         self.monitor.register(wid)         # explicit: clears tombstones
         w.thread.start()
 
+    def _worker_ready(self, wid: int) -> bool:
+        """Whether this worker may claim work (process pools gate on
+        the child process having finished loading its models)."""
+        return True
+
+    def _idle_beat(self, wid: int, seq: int) -> None:
+        """Heartbeat for an idle worker.  Thread pools beat from the
+        dispatcher thread itself; process pools leave this to the child
+        process's heartbeat frames, so a hung child goes stale even
+        while its parent-side dispatcher is healthy."""
+        self.monitor.beat(wid, seq)
+
     def _worker_stream(self, wid: int):
         """A context that runs the worker's batches on a CUDA stream of
         its own (made here, on the worker's thread), or a no-op on the
@@ -709,10 +739,16 @@ class ServerPool:
                 w = self._workers.get(wid)
                 if w is None or w.abandoned or not self._running:
                     return
+                if not self._worker_ready(wid):
+                    # still booting (process spawn/model load): beat so
+                    # the supervisor doesn't recycle a healthy boot
+                    self.monitor.beat(wid, w.seq)
+                    self._cv.wait(beat_every)
+                    continue
                 now = _chaos.now()
                 claim, next_due = self._claim_locked(now)
                 if claim is None:
-                    self.monitor.beat(wid, w.seq)
+                    self._idle_beat(wid, w.seq)
                     wait = beat_every if next_due is math.inf else \
                         min(beat_every, max(0.0, next_due - now))
                     self._cv.wait(wait)
@@ -761,6 +797,11 @@ class ServerPool:
                 self._cv.notify_all()
 
     # -- supervision: detect, re-dispatch, recycle --------------------------
+    def _extra_dead_locked(self) -> List[int]:
+        """Extra dead-worker ids beyond heartbeat staleness (process
+        pools report child exitcodes here)."""
+        return []
+
     def _supervise(self) -> None:
         interval = max(0.02, self.heartbeat_timeout_s / 4)
         while True:
@@ -771,6 +812,9 @@ class ServerPool:
                 dead = {wid for wid in self.monitor.dead_hosts()
                         if wid in self._workers
                         and not self._workers[wid].abandoned}
+                dead.update(wid for wid in self._extra_dead_locked()
+                            if wid in self._workers
+                            and not self._workers[wid].abandoned)
                 for wid in sorted(dead):
                     self._recycle_locked(wid)
                 # stragglers: speculative backup (first result wins)
@@ -793,6 +837,10 @@ class ServerPool:
                                          "live": live})
                     self._cv.notify_all()
 
+    def _on_recycle_locked(self, wid: int) -> None:
+        """Subclass hook: tear down the recycled worker's process/pipe
+        resources (called under the pool lock, old worker abandoned)."""
+
     def _recycle_locked(self, wid: int) -> None:
         """A worker stopped heartbeating mid-batch (or its process
         died): re-dispatch its in-flight work to the healthy workers,
@@ -812,8 +860,24 @@ class ServerPool:
         _trace.instant("worker_recycled", "fault",
                        args={"worker": wid, "replacement": new_wid,
                              "redispatched": inf is not None})
+        self._on_recycle_locked(wid)
         self._spawn_locked(new_wid)
         self._cv.notify_all()
+
+    def redispatch(self, name: str, entries, wid: int) -> None:
+        """A dispatched batch lost its worker (:class:`WorkerCrashed`):
+        hand the still-live entries to the survivors — or, if the pool
+        is shutting down, terminate them with a typed error."""
+        with self._cv:
+            if self._running:
+                if self._requeue_locked(name, entries):
+                    self.counters["redispatched_batches"] += 1
+                    _trace.instant("crash_redispatch", "fault",
+                                   args={"model": name, "worker": wid})
+                return
+        for _, ticket in entries:
+            ticket._fail(WorkerLost(
+                f"{name}: worker {wid} lost during shutdown"))
 
     # -- draining / shutdown ------------------------------------------------
     def drain(self, names=None, timeout: Optional[float] = None) -> bool:
@@ -832,6 +896,10 @@ class ServerPool:
         with self._cv:
             return self._cv.wait_for(clear, timeout)
 
+    def _on_close(self) -> None:
+        """Subclass hook: tear down worker processes (called after the
+        pool stops, before the dispatcher threads are joined)."""
+
     def close(self, timeout: float = 5.0) -> None:
         with self._cv:
             self._running = False
@@ -844,6 +912,7 @@ class ServerPool:
         for name, ticket in leftovers:
             ticket._fail(WorkerLost(f"{name}: session closed with the "
                                     f"request still queued"))
+        self._on_close()
         deadline = time.monotonic() + timeout
         for w in list(self._workers.values()):
             if w.thread is not None and not w.abandoned:

@@ -178,6 +178,9 @@ def test_float32_model_interprets_and_plan_waits_for_item_7():
 
 
 def test_report_stats_and_unported_profile(models):
+    """Item 9 is done: ``profile()`` no longer raises; its modeled block
+    equals the reference's (``tests/test_torch_profile.py`` holds the
+    rest)."""
     mj, mt = models["mobilenet_v2"]
     mt.plan_for(8)
     rep = mt.report()
@@ -185,8 +188,9 @@ def test_report_stats_and_unported_profile(models):
     s = mt.stats()
     assert s["ticks"] == mj.stats()["ticks"]
     assert s["precision"] == "int8"
-    with pytest.raises(NotImplementedError, match="item 9"):
-        mt.profile()
+    prof = mt.profile(batch=2, runs=1)
+    assert prof.modeled == mj.profile(batch=2, runs=1).modeled
+    assert prof.measured["kernels"] == len(mt.plan_for(2).steps)
 
 
 # --------------------------------------------------------------------------
@@ -384,13 +388,16 @@ def test_compile_and_load_raise_without_a_gpu(monkeypatch, tmp_path):
 def test_api_exports_and_imports_no_serving_names():
     """Since item 6b the port exports the reference's Session and serving
     errors, and BreakerOpen (the port's own: a CUDA session's open breaker
-    fails fast); since item 8 DecodeSession; Fleet (item 10) stays out."""
+    fails fast); since item 8 DecodeSession; since item 10 Fleet,
+    FleetError and UpdateRejected."""
     serving = {"Session", "DecodeSession", "ServingError", "Overloaded",
                "DeadlineExceeded", "FlushError", "WorkerLost", "Ticket",
-               "CircuitBreaker", "Cancelled", "FrameCorrupt"}
+               "CircuitBreaker", "Cancelled", "FrameCorrupt", "Fleet",
+               "FleetError", "UpdateRejected"}
     assert set(tapi.__all__) == {"compile", "load", "CompiledModel",
                                  "ArtifactError", "CompilerOptions",
                                  "resolve_semantics", "BreakerOpen"} | serving
     assert serving <= set(japi.__all__)
     assert issubclass(tapi.BreakerOpen, tapi.ServingError)
-    assert not hasattr(tapi, "Fleet")
+    assert issubclass(tapi.UpdateRejected, tapi.FleetError)
+    assert issubclass(tapi.FleetError, tapi.ServingError)

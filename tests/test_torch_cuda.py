@@ -1089,3 +1089,139 @@ def test_encdec_and_vlm_on_the_card_match_cpu(dev, arch):
     torch.testing.assert_close(got_gen.prompt_logits.cpu(),
                                want_gen.prompt_logits, atol=2e-3, rtol=2e-3)
     assert (got_gen.tokens == want_gen.tokens).all()
+
+
+# --------------------------------------------------------------------------
+# the profiler, the process pool and the sticky-fault test (ROADMAP items
+# 9 and 10)
+# --------------------------------------------------------------------------
+
+
+def test_profile_step_times_are_device_times(dev):
+    """``profile()`` on the card: one measured step per plan step, the
+    steps' CUDA-event times within the replay's; a device spin added to
+    the first step (its host enqueue takes microseconds) shows in that
+    step's time, so the times are the card's."""
+    import numpy as np
+    model = _session_models(dev, "int8")
+    rep = model.profile(batch=4, runs=2)
+    plan = model.plan_for(4)
+    assert rep.measured["kernels"] == len(plan.steps)
+    assert 0 < rep.measured["kernel_ms_per_request"] <= \
+        rep.measured["wall_ms_per_request"]
+    st = plan.steps[0]
+    orig = st.run
+
+    def spun(bufs, n):
+        torch.cuda._sleep(4_000_000)        # 2 ms at 1.98 GHz
+        orig(bufs, n)
+    x = np.random.default_rng(0).normal(size=(4, 16, 16, 8)).astype(
+        np.float32)
+    times = []
+    st.run = spun
+    try:
+        t0 = time.monotonic()
+        plan.run({model.graph.inputs[0].name: x}, n=4, step_times=times)
+        host_s = time.monotonic() - t0
+    finally:
+        st.run = orig
+    assert [lab for lab, _ in times] == [s.label for s in plan.steps]
+    assert times[0][1] >= 1e-3
+    assert sum(dt for _, dt in times) <= host_s
+
+
+def test_process_pool_on_the_card_matches_the_thread_pool(dev, tmp_path):
+    """``Session(workers=("process", 2))`` on the card: two children,
+    each with its own CUDA context, serve the int8 model's artifact; every
+    output equals the thread pool's and the plain path's on the CPU (the
+    same artifact), and the children launched K1 once per conv and fc of
+    each batch while the parent launched nothing."""
+    import os
+
+    import numpy as np
+    import repro_torch.api as tapi
+
+    path = _session_models(dev, "int8").save(str(tmp_path / "m.rpa"))
+    cpu = tapi.load(path, device="cpu")
+    convs = sum(op.kind in ("conv", "fc") for op in cpu.graph.ops)
+    xs = np.random.default_rng(4).normal(size=(20, 16, 16, 8)).astype(
+        np.float32)
+    proc = tapi.Session(workers=("process", 2), max_batch=4,
+                        heartbeat_timeout_s=5.0)
+    thr = tapi.Session(workers=2, max_batch=4)
+    try:
+        proc.load(path, name="m")
+        thr.load(path, name="m")
+        children = [h for h in proc._pool.worker_health().values()
+                    if h["ready"] and not h["abandoned"]]
+        pids = {h["pid"] for h in children}
+        assert len(pids) == 2 and os.getpid() not in pids
+        assert {h["device"] for h in children} == {"cuda"}
+        k0 = proc._pool.child_launches()["neutron_matmul"]
+        n0 = t_k1.launches
+        got = [t.result(timeout=120)
+               for t in [proc.submit("m", x) for x in xs]]
+        assert t_k1.launches == n0                  # the parent: nothing
+        batches = proc.stats()["models"]["m"]["batches"]
+        assert proc._pool.child_launches()["neutron_matmul"] - k0 == \
+            convs * batches
+        want = [t.result(timeout=120) for t in [thr.submit("m", x)
+                                                for x in xs]]
+        for i, (g, w) in enumerate(zip(got, want)):
+            for k in w:
+                assert g[k].device.type == "cpu"
+                assert torch.equal(g[k], w[k]), (i, k)
+                assert torch.equal(g[k], cpu.run_many([xs[i]])[0][k]), (i, k)
+    finally:
+        proc.close()
+        thr.close()
+
+
+def _device_fault_child(q):
+    """In a process of its own: a launch the K1 launch function refuses
+    (not sticky), then a device-side assert (sticky), each error put
+    through ``procpool.device_context_lost``."""
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.procpool import device_context_lost
+    dev = torch.device("cuda")
+    out = []
+    fn = _build.function("neutron_matmul", "neutron_matmul_launch",
+                         t_k1._ARGTYPES)
+    s = torch.cuda.current_stream().cuda_stream
+    try:
+        rc = fn(*([None] * 5 + [0, 1, 1, 1] + [0, 1, 0, 0, 0, 1]
+                  + [0] * 6 + [1.0] + [0] * 5 + [None, None, s]))
+        _build.check(rc, "neutron_matmul")
+        out.append(("no error", "", None))
+    except Exception as e:
+        out.append((type(e).__name__, str(e)[:200],
+                    device_context_lost(e, torch.cuda.synchronize)))
+    try:
+        x = torch.zeros(4, device=dev)
+        x[torch.tensor([10], device=dev)]
+        torch.cuda.synchronize()
+        out.append(("no error", "", None))
+    except Exception as e:
+        out.append((type(e).__name__, str(e)[:200],
+                    device_context_lost(e, torch.cuda.synchronize)))
+    q.put(out)
+
+
+def test_device_context_lost_on_real_cuda_errors(dev):
+    """The sticky-fault test on the card's own errors, in a spawned child
+    (a device-side assert poisons its context): a refused launch is not
+    sticky, the assert is."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    p = ctx.Process(target=_device_fault_child, args=(q,))
+    p.start()
+    try:
+        got = q.get(timeout=300)
+    finally:
+        p.join(60)
+        if p.is_alive():
+            p.kill()
+    (c1, m1, lost1), (c2, m2, lost2) = got
+    assert lost1 is False and "CUDA error" in m1, got
+    assert lost2 is True, got

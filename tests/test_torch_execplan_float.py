@@ -145,7 +145,12 @@ def test_port_float32_artifact_serves_in_reference(pairs, key, tmp_path):
 
 @pytest.mark.parametrize("key", (2, "resnet50_v1"))
 def test_reference_float32_artifact_serves_in_port(pairs, key, tmp_path):
-    mj, _ = pairs(key)
+    """The reference's float32 artifact serves in the port within
+    ``float_plan_tol``, but none of its plan constants is served: the two
+    float32 lowerings key their constants differently (one step per op
+    here, ``op@f32/wt``; steps split by rows there), so the port derives
+    every constant of its own lowering again."""
+    mj, mt = pairs(key)
     p = mj.save(str(tmp_path / "ref_f32.rpa"))
     lt = tapi.load(p, mmap=True, device="cpu")
     assert lt.precision == "float32"
@@ -154,6 +159,11 @@ def test_reference_float32_artifact_serves_in_port(pairs, key, tmp_path):
     _within_tol(lt.plan_for(8).run({inp: x}, n=5),
                 mj.plan_for(8).run({inp: x}, n=5), "reference -> port")
     assert lt.verify(x[0]).ok
+    mt.lower()
+    own = mt.plan_cache_info()["consts_computed"]
+    info = lt.plan_cache_info()
+    assert own > 0
+    assert (info["consts_computed"], info["consts_served"]) == (own, 0)
 
 
 def test_causal_kinds_raise_naming_item_8():

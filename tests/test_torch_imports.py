@@ -32,6 +32,8 @@ def _env():
 def test_importing_every_module_leaves_jax_and_repro_out():
     mods = _modules()
     assert "repro_torch.models.lm" in mods and len(mods) > 20
+    assert {"repro_torch.obs.profile", "repro_torch.runtime.procpool",
+            "repro_torch.runtime.fleet"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "

@@ -10,8 +10,8 @@ interpreter within ``plan_parity_tol`` (one output step for int8,
 ``executor.float_plan_tol`` for float32) and, where both packages serve
 the same requests, to the reference Session: int8 outputs equal,
 float32 within ``float_plan_tol``.  The process-pool and frame cases of
-``test_robust.py`` belong to ROADMAP item 10.  Also here: the plan cache
-and the kernel build under threads.
+``test_robust.py`` are in ``tests/test_torch_procpool.py``.  Also here:
+the plan cache and the kernel build under threads.
 """
 import threading
 import time
@@ -824,10 +824,25 @@ def test_session_run_many_returns_host_rows():
 
 
 def test_process_pools_and_fleets_name_item_10():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        api.Session(device="cpu", workers=("process", 2))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        api.Session.fleet(replicas=2)
+    """Item 10 is done: a process pool and a fleet are built (their
+    serving is held in ``tests/test_torch_procpool.py`` and
+    ``tests/test_torch_fleet.py``); an unknown pool mode still raises."""
+    from repro_torch.runtime.fleet import Fleet
+    from repro_torch.runtime.procpool import ProcPool
+    sess = api.Session(device="cpu", workers=("process", 1))
+    try:
+        assert isinstance(sess._pool, ProcPool)
+        assert sess._pool.mode == "process"
+    finally:
+        sess.close()
+    fleet = api.Session.fleet(replicas=2, workers=1, device="cpu")
+    try:
+        assert isinstance(fleet, Fleet)
+        assert fleet.replicas() == {0: "live", 1: "live"}
+        assert [r.session.tag for r in fleet._replicas.values()] == \
+            ["r0", "r1"]
+    finally:
+        fleet.close()
     with pytest.raises(ValueError):
         api.Session(device="cpu", workers=("fiber", 2))
 
