@@ -137,11 +137,36 @@ each of which ends the run with a nonzero exit and no result on failure:
    ``UpdateRejected`` and touches no replica; a killed replica's
    requests fail over with no ticket lost.
 
+18. training on the card (``repro_torch.launch.train.train_loop``):
+    minitron-4b at full width (32 layers, d_model 3072, 24 query heads
+    padded to 32 over 8 kv heads, d_ff 9216, vocab 256000; bf16
+    parameters, float32 AdamW moments, remat) for 4 steps of batch 8 x
+    128 tokens: losses and grad norms finite, the first step's fused_ce
+    loss within 5e-2 of cross_entropy of the full forward's logits, wall
+    ms per step, the busy share of the last step (torch.profiler), peak
+    memory, and every attention through K2 (64 a step: the forward and
+    the remat recompute) and K2b (32 a step), no other kernel; then the
+    reduced minitron-4b in float32 for 3 steps on the card against the
+    CPU from the same state (loss, grad norm, lr scale within 2e-4
+    relative, parameters within 2 lr sum(lr_scale) + 2e-4 relative), a
+    restart (8 steps checkpointed every 4, resumed to 12, against 12
+    uninterrupted, within 1e-4), and reduced qwen2-vl-2b's loss falling
+    over 25 steps.
+
 For the two SSM paths the prefill-vs-replay agreement is held in
 float32 at full width (TF32 off) and reported in bf16, beside how far
 bf16 moves each path's logits from float32 (see ``ZAMBA`` below).  The
 MoE paths hold it at a capacity that drops nothing (see
 ``GRANITE_MOE``).
+
+Phase 2 also holds K2's log-sum-exp output (its training forward) at
+every serving path's K2 shape (o bit-equal to the call without it, lse
+within 1e-2 in bf16), and K2b, flash attention's backward, at the
+training shapes (``BWD_SHAPES``: per gradient max|d|/max|plain| < 2e-2
+in bf16, atol 2e-3 / rtol 1e-3 in float32, and the same bits on a
+second call), timed beside SDPA's backward alone; and that a tensor
+requiring grad that reaches K1, K3, K4 or K2 with a query offset raises
+under grad mode and launches nothing.
 
 In phases 3-10, 14 and 15 the weights are random from the seed.  Each path runs
 with the launch counters set to 0 just before it and read just after,
@@ -748,6 +773,9 @@ def k2_row(torch, F, ops, randn, a: AttnShape) -> dict:
     got = kernel()
     err = check_close(torch, f"flash_attention bf16 {a.tag}", got, plain(),
                       "bfloat16")
+    lse_err = k2_lse_check(torch, q, k, v, a, got)
+    print(f"  flash_attention [{a.tag}] with its lse (the training "
+          f"forward): o bit-equal, lse max|err| {lse_err:.3g}")
     if not a.causal:
         e = k2_tail_probe(torch, ops, a, Sk)
         print(f"  flash_attention [{a.tag}] tail probe at Sk={Sk} (q = 1, "
@@ -800,8 +828,183 @@ def k2_row(torch, F, ops, randn, a: AttnShape) -> dict:
               f"{a.D}), v Dv {a.Dv} bf16 "
               f"{'causal' if a.causal else 'not causal'}{win}",
         key=flash_attention.shape_key(q, k, v, a.window), expect=a.launches,
-        max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **extra,
-        **timings(torch, kernel, plain, library))
+        max_abs_err=err, lse_err=lse_err, bound_ms=b_ms, bound_by=b_by,
+        **extra, **timings(torch, kernel, plain, library))
+
+
+# K2's log-sum-exp (its training forward) against the plain version's: the
+# bf16 body rounds P to bf16 before summing it, which moves each row sum l
+# by at most 2^-8 of itself, log l by at most 0.004
+LSE_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+
+def k2_lse_check(torch, q, k, v, a: AttnShape, o) -> float:
+    """K2 with ``return_lse`` on a's inputs: its o must be bit-equal to the
+    call without (`o`), its lse within LSE_TOL of
+    ``flash_attention_fwd_lse_ref``'s.  Returns max|lse error|."""
+    from repro_torch.kernels import flash_attention, ref
+    o2, lse = flash_attention.flash_attention(q, k, v, causal=a.causal,
+                                              window=a.window,
+                                              return_lse=True)
+    if not torch.equal(o2, o):
+        fail(f"flash_attention {a.tag}: o with return_lse differs from o "
+             f"without")
+    g = a.H // a.Hkv
+    _, want = ref.flash_attention_fwd_lse_ref(
+        q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1),
+        causal=a.causal, window=a.window)
+    err = float((lse - want).abs().max())
+    dtype = str(q.dtype).replace("torch.", "")
+    if not torch.isfinite(lse).all() or err > LSE_TOL[dtype]:
+        fail(f"flash_attention {a.tag}: lse max|err| {err:.3g} above "
+             f"{LSE_TOL[dtype]}")
+    return err
+
+
+# K2b (flash attention's backward) at the training shapes: minitron-4b's
+# (batch 8 x 128 tokens, 24 heads padded to 32, the kv expanded to them as
+# models/attention.py does), granite-20b's group of 48 over one kv head,
+# gemma3's window of 1024 at 1040 positions, MLA's D 192 with Dv 128, and
+# one small float32 case (GQA, a window, ragged tiles).  The first is the
+# one phase 18 trains at: K2 runs there twice a layer (forward and the
+# remat recompute), K2b once.
+TRAIN_STEPS = 4
+TRAIN_LAYERS = 32
+BWD_SHAPES = (
+    AttnShape("train minitron-4b", 8, 32, 32, 128, 128, 128, None,
+              TRAIN_LAYERS * TRAIN_STEPS),
+    AttnShape("granite-20b group", 4, 48, 1, 100, 128, 128, None, 0),
+    AttnShape("gemma3-27b window", 1, 32, 16, 1040, 128, 128, 1024, 0),
+    AttnShape("D 192 Dv 128", 2, 16, 16, 100, 192, 128, None, 0),
+    AttnShape("f32 small", 2, 6, 2, 77, 32, 24, 16, 0),
+)
+
+
+def k2b_row(torch, F, ops, randn, a: AttnShape) -> dict:
+    """K2b at shape a against its plain version on the same residuals (K2's
+    o and lse): per gradient max|d| / max|plain| < 2e-2 in bf16, atol 2e-3
+    / rtol 1e-3 in float32; timed beside SDPA's backward alone (autograd
+    through SDPA, less SDPA's forward)."""
+    from repro_torch.kernels import flash_attention, flash_attention_bwd, ref
+    f32 = a.tag.startswith("f32")
+    dtype = torch.float32 if f32 else torch.bfloat16
+    name = "float32" if f32 else "bfloat16"
+    q = randn(a.B, a.H, a.S, a.D, dtype=dtype)
+    k = randn(a.B, a.Hkv, a.S, a.D, dtype=dtype)
+    v = randn(a.B, a.Hkv, a.S, a.Dv, dtype=dtype)
+    do = randn(a.B, a.H, a.S, a.Dv, dtype=dtype)
+    o, lse = flash_attention.flash_attention(q, k, v, causal=True,
+                                             window=a.window,
+                                             return_lse=True)
+    g = a.H // a.Hkv
+
+    def kernel():
+        return flash_attention_bwd.flash_attention_bwd(
+            q, k, v, o, lse, do, causal=True, window=a.window)
+
+    def plain():
+        dq, dk, dv = ref.flash_attention_bwd_ref(
+            q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1), o, lse,
+            do, causal=True, window=a.window)
+        # autograd through the repeat sums the group's gradients
+        return (dq, dk.float().reshape(a.B, a.Hkv, g, a.S, a.D).sum(2),
+                dv.float().reshape(a.B, a.Hkv, g, a.S, a.Dv).sum(2))
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    errs = []
+    for gname, x, w in zip(("dq", "dk", "dv"), got, want):
+        x, w = x.float(), w.float()
+        if x.shape != w.shape or not torch.isfinite(x).all():
+            fail(f"flash_attention_bwd {a.tag} {gname}: {tuple(x.shape)} "
+                 f"not finite or not {tuple(w.shape)}")
+        if f32:
+            errs.append(check_close(torch, f"flash_attention_bwd {a.tag} "
+                                    f"{gname}", x, w, "float32"))
+        else:
+            rel = float((x - w).abs().max() / w.abs().max())
+            if rel >= 2e-2:
+                fail(f"flash_attention_bwd {a.tag} {gname}: max|d| / "
+                     f"max|plain| {rel:.3g} >= 2e-2")
+            errs.append(float((x - w).abs().max()))
+    again = kernel()
+    bit_equal = all(torch.equal(x, y) for x, y in zip(got, again))
+    if not bit_equal:
+        fail(f"flash_attention_bwd {a.tag}: two calls on the same inputs "
+             f"differ (the kernel has no atomics)")
+    # SDPA's backward alone: fwd+bwd less fwd, on leaf copies of q, k, v
+    ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    if a.window is None:
+        sdpa_kw = dict(is_causal=True)
+    else:
+        i = torch.arange(a.S, device="cuda")
+        d = i[:, None] - i[None, :]
+        sdpa_kw = dict(attn_mask=(d >= 0) & (d < a.window))
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(ql, kl, vl, enable_gqa=True,
+                                              **sdpa_kw)
+
+    def lib_fwd_bwd():
+        return torch.autograd.grad(lib_fwd(), (ql, kl, vl), do)
+
+    t = timings(torch, kernel, plain)
+    fwd_ms = device_ms(torch, lib_fwd)
+    both_ms = device_ms(torch, lib_fwd_bwd)
+    fwd_call = call_ms(torch, lib_fwd)
+    both_call = call_ms(torch, lib_fwd_bwd)
+    t.update(library_ms=both_ms - fwd_ms,
+             library_call_ms=both_call - fwd_call)
+    pairs = a.B * a.H * causal_pairs(a.S, a.window)
+    b_ms, b_by = bound(nbytes(q, k, v, o, lse, do, *got),
+                       int(2.5 * 2 * pairs * (a.D + a.Dv)), name)
+    win = "" if a.window is None else f", window {a.window}"
+    return dict(
+        name="flash_attention_bwd", path=a.tag, route="cuda",
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/ref.py:236 (_faf_bwd, the jnp custom "
+                 "VJP of flash_attention_fused)",
+        shape=f"q ({a.B},{a.H},{a.S},{a.D}), k ({a.B},{a.Hkv},{a.S},"
+              f"{a.D}), v Dv {a.Dv} {name} causal{win}",
+        key=flash_attention.shape_key(q, k, v, a.window), expect=a.launches,
+        launches=0, max_abs_err=max(errs), bound_ms=b_ms, bound_by=b_by,
+        bit_equal_rerun=bit_equal, **t)
+
+
+def guard_check(torch, ops) -> None:
+    """Under grad mode, a CUDA tensor that requires grad reaching a kernel
+    with no backward (K1, K3, K4, K2 with a query offset) raises, and no
+    kernel is launched: a kernel's output carries no gradient."""
+    x = torch.zeros(4, 8, device="cuda", requires_grad=True)
+    z = torch.zeros
+
+    calls = {
+        "neutron_matmul (K1)": lambda: ops.neutron_matmul(
+            x, z(8, 3, device="cuda")),
+        "flash_decode (K3)": lambda: ops.flash_decode(
+            x.reshape(1, 4, 8), z(1, 4, 5, 8, device="cuda"),
+            z(1, 4, 5, 8, device="cuda")),
+        "ssd_scan (K4)": lambda: ops.ssd_scan(
+            x.reshape(1, 4, 1, 8), torch.ones(1, 4, 1, device="cuda"),
+            -torch.ones(1, device="cuda"), z(1, 4, 2, device="cuda"),
+            z(1, 4, 2, device="cuda"), chunk=4),
+        "flash_attention (K2) with a q_offset": lambda: ops.flash_attention(
+            x.reshape(1, 1, 4, 8), z(1, 1, 4, 8, device="cuda"),
+            z(1, 1, 4, 8, device="cuda"),
+            q_offset=z(1, dtype=torch.int32, device="cuda")),
+    }
+    before = read_launches()
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if "no backward kernel" not in str(e):
+                fail(f"{name} under grad raised another error: {e}")
+        else:
+            fail(f"{name} took a tensor that requires grad under grad mode")
+    if read_launches() != before:
+        fail("a kernel without a backward launched under grad")
+    print(f"  the guard: {', '.join(calls)} raise under grad, no launch")
 
 
 def k3_row(torch, F, ops, randn, a: AttnShape) -> dict:
@@ -917,6 +1120,14 @@ def phase_kernels(torch, F, ops):
         for a in k3_shapes:
             rows[("flash_decode", a.tag)] = k3_row(torch, F, ops, randn, a)
     decoder_attention_rows(torch, F, ops, randn, rows)
+    # the training forward and backward (phase 18's launches)
+    rows[("flash_attention", BWD_SHAPES[0].tag)] = k2_row(
+        torch, F, ops, randn, BWD_SHAPES[0]._replace(
+            launches=2 * TRAIN_LAYERS * TRAIN_STEPS))
+    for a in BWD_SHAPES:
+        rows[("flash_attention_bwd", a.tag)] = k2b_row(torch, F, ops, randn,
+                                                       a)
+    guard_check(torch, ops)
 
     # ssd_chunk at the prefill shapes: the prompt of 200 padded to 256
     print("  ssd_chunk: library_ms is null; no single PyTorch call computes "
@@ -1147,7 +1358,7 @@ def launch_counters():
 
 
 def reset_launches() -> None:
-    for mod in launch_counters():
+    for mod in launch_counters() + (_bwd_counter(),):
         mod.launches = 0
         if hasattr(mod, "launches_by_shape"):
             mod.launches_by_shape.clear()
@@ -2972,6 +3183,223 @@ def run_compiled_phases(torch, rows, vision_ref, images, rpa):
     print(f"  phase 13 wall time {time.monotonic() - t:.1f} s")
 
 
+# --------------------------------------------------------------------------
+# phase 18: training on the card
+# --------------------------------------------------------------------------
+
+# phase 18's runs: minitron-4b at full width as the reference's train_loop
+# defaults it (batch 8 x 128 tokens), the reduced configs' card-vs-CPU,
+# restart and loss-decrease runs as tests/test_train_e2e.py sizes them
+TRAIN_SEQ, TRAIN_BATCH = 128, 8
+LR = 3e-4                           # AdamWConfig().lr
+
+
+def _bwd_counter():
+    from repro_torch.kernels import flash_attention_bwd
+    return flash_attention_bwd
+
+
+def _train_full(torch, rows) -> dict:
+    """Phase 18.1: minitron-4b at full width through ``train_loop``."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import lm
+    from repro_torch.models.layers import cross_entropy
+    from repro_torch.models.registry import get_arch
+    from repro_torch.models.train import init_train_state
+    cfg = get_arch("minitron-4b")
+    # the first step's loss, recomputed through the plain logits
+    state = init_train_state(cfg, SEED, "cuda")
+    b0 = batch_for_step(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH,
+                                   seed=SEED), 0)
+    labels = torch.from_numpy(b0["labels"]).long().cuda()
+    with torch.no_grad():
+        ce0 = float(cross_entropy(lm.forward(cfg, state.params, b0)[:, :-1],
+                                  labels[:, 1:]))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    steps, prof_box = [], {}
+
+    def on_step(i, metrics, dt):
+        steps.append(dict(loss=float(metrics["loss"]),
+                          grad_norm=float(metrics["grad_norm"]),
+                          wall_ms=dt * 1e3))
+        # the last step runs under the profiler
+        if i == TRAIN_STEPS - 2:
+            prof_box["p"] = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+            prof_box["p"].__enter__()
+        elif i == TRAIN_STEPS - 1:
+            torch.cuda.synchronize()
+            prof_box["p"].__exit__(None, None, None)
+
+    reset_launches()
+    bwd = _bwd_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.monotonic()
+    try:
+        losses = train_loop("minitron-4b", steps=TRAIN_STEPS, smoke=False,
+                            seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                            log_every=1, seed=SEED, on_step=on_step)
+    except torch.cuda.OutOfMemoryError:
+        print(torch.cuda.memory_summary())
+        fail("phase 18: minitron-4b does not train at full width in the "
+             "card's memory (summary above)")
+    wall_s = time.monotonic() - t
+    peak = torch.cuda.max_memory_allocated()
+    k2 = read_launches()
+    k2_shapes = read_launches_by_shape()["flash_attention"]
+    k2b, k2b_shapes = bwd.launches, dict(bwd.launches_by_shape)
+    if len(losses) != TRAIN_STEPS or not all(
+            math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+            for r in steps):
+        fail(f"phase 18: minitron-4b steps not all finite: {steps}")
+    rel = abs(losses[0] - ce0) / abs(ce0)
+    if rel > 5e-2:
+        fail(f"phase 18: the first step's fused_ce loss {losses[0]:.5f} is "
+             f"not within 5e-2 of cross_entropy(forward) {ce0:.5f}")
+    want = (2 * TRAIN_LAYERS * TRAIN_STEPS, 0, 0, 0)
+    if k2 != want or k2b != TRAIN_LAYERS * TRAIN_STEPS:
+        fail(f"phase 18: launches {dict(zip(LAUNCH_NAMES, k2))}, K2b {k2b}; "
+             f"expected K2 {want[0]} (forward and remat recompute), K2b "
+             f"{TRAIN_LAYERS * TRAIN_STEPS}, no other kernel")
+    for name, shapes in (("flash_attention", k2_shapes),
+                         ("flash_attention_bwd", k2b_shapes)):
+        r = rows[(name, BWD_SHAPES[0].tag)]
+        r["launches"] = shapes.get(r["key"], 0)
+        if r["launches"] != r["expect"] or sum(shapes.values()) != \
+                r["launches"]:
+            fail(f"phase 18: {name} launched {dict(shapes)}, expected "
+                 f"{r['expect']} at {r['key']}")
+    kernels, busy_us = {}, 0.0
+    for e in prof_box["p"].events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            busy_us += us
+            kernels[e.name[:60]] = kernels.get(e.name[:60], 0.0) + us
+    step_ms = statistics.median(r["wall_ms"] for r in steps[1:])
+    if busy_us <= 0:
+        fail("phase 18: the profiler saw no device time in a step")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    out = dict(losses=losses, grad_norms=[r["grad_norm"] for r in steps],
+               first_loss_vs_cross_entropy=rel, cross_entropy=ce0,
+               wall_ms_per_step=[r["wall_ms"] for r in steps],
+               step_ms_median_2_4=step_ms, busy_ms_profiled_step=busy_us / 1e3,
+               busy_share=busy_us / 1e3 / step_ms,
+               kernels_profiled_step=sum(1 for e in prof_box["p"].events()
+                                         if e.device_type ==
+                                         torch.autograd.DeviceType.CUDA),
+               top_kernels_ms=[(n, us / 1e3) for n, us in top],
+               peak_memory_bytes=peak, k2_per_step=k2[0] / TRAIN_STEPS,
+               k2b_per_step=k2b / TRAIN_STEPS, wall_s=wall_s)
+    print(f"  minitron-4b full width (32 layers, d 3072, 24 heads padded to "
+          f"32 over 8, vocab 256000, bf16, remat), batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}: losses {losses}, grad norms "
+          f"{out['grad_norms']}; first loss vs cross_entropy(forward) "
+          f"{rel:.3g}; wall ms per step {out['wall_ms_per_step']} (median "
+          f"of steps 2-4 {step_ms:.1f}); busy {busy_us / 1e3:.1f} ms of the "
+          f"profiled step (share {out['busy_share']:.3f}); peak "
+          f"{peak / 2**30:.2f} GiB; K2 {out['k2_per_step']:.0f} and K2b "
+          f"{out['k2b_per_step']:.0f} a step; top {top[:4]}")
+    return out
+
+
+def _train_card_vs_cpu(torch) -> dict:
+    """Phase 18.2: reduced minitron-4b in float32, 3 steps on the card and
+    on the CPU from the same state and batches."""
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.models.convert import (train_state_from_numpy,
+                                            train_state_to_host)
+    from repro_torch.models.registry import get_arch
+    from repro_torch.models.train import init_train_state, make_train_step
+    cfg = get_arch("minitron-4b").reduced(dtype="float32")
+    host = train_state_to_host(cfg, init_train_state(cfg, SEED, "cpu"))
+    states = {d: train_state_from_numpy(cfg, host, d)
+              for d in ("cuda", "cpu")}
+    step = make_train_step(cfg)
+    dcfg = DataConfig(cfg.vocab, 32, 4, seed=SEED)
+    worst, lr_sum = 0.0, 0.0
+    for i in range(3):
+        b = batch_for_step(dcfg, i)
+        m = {}
+        for d in ("cuda", "cpu"):
+            states[d], m[d] = no_tf32(torch,
+                                      lambda: step(states[d], b))
+        for key in ("loss", "grad_norm", "lr_scale"):
+            a, c = float(m["cuda"][key]), float(m["cpu"][key])
+            r = abs(a - c) / max(abs(c), 1e-30)
+            worst = max(worst, r)
+            if r > 2e-4:
+                fail(f"phase 18: card vs CPU step {i} {key} {a} vs {c}")
+        lr_sum += float(m["cpu"]["lr_scale"])
+    atol = 2 * LR * lr_sum
+    p_worst = 0.0
+    for a, c in zip(states["cuda"].params.parameters(),
+                    states["cpu"].params.parameters()):
+        d = (a.detach().cpu() - c.detach()).abs()
+        bad = d > atol + 2e-4 * c.detach().abs()
+        if bad.any():
+            fail(f"phase 18: card vs CPU parameters: {int(bad.sum())} "
+                 f"elements beyond {atol:.3g} + 2e-4 relative")
+        p_worst = max(p_worst, float(d.max()))
+    print(f"  card vs CPU, reduced minitron-4b float32, 3 steps: loss / "
+          f"grad norm / lr scale max rel {worst:.3g} (limit 2e-4); "
+          f"parameters max|d| {p_worst:.3g} (limit {atol:.3g} + 2e-4 rel)")
+    return dict(metrics_max_rel=worst, params_max_abs=p_worst,
+                params_atol=atol)
+
+
+def _train_restart(torch) -> dict:
+    """Phase 18.3: reduced minitron-4b, 8 steps checkpointed every 4,
+    resumed to 12, against 12 uninterrupted."""
+    from repro_torch.launch.train import train_loop
+    d = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    try:
+        kw = dict(seq_len=32, global_batch=4, log_every=100, seed=SEED)
+        train_loop("minitron-4b", steps=8, ckpt_dir=d, ckpt_every=4, **kw)
+        b = train_loop("minitron-4b", steps=12, ckpt_dir=d, ckpt_every=4,
+                       **kw)
+        c = train_loop("minitron-4b", steps=12, **kw)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    diff = max(abs(x - y) for x, y in zip(b, c[-4:]))
+    if len(b) != 4 or diff > 1e-4:
+        fail(f"phase 18: resumed steps 8-11 {b} vs uninterrupted {c[-4:]}")
+    print(f"  restart: resumed steps 8-11 {b}, uninterrupted {c[-4:]}: "
+          f"max|d| {diff:.3g} (limit 1e-4), bit-equal {b == c[-4:]}")
+    return dict(resumed=b, uninterrupted=c[-4:], max_abs=diff,
+                bit_equal=b == c[-4:])
+
+
+def _train_loss_decreases(torch) -> dict:
+    """Phase 18.4: reduced qwen2-vl-2b, 25 steps, seq 64, batch 8."""
+    from repro_torch.launch.train import train_loop
+    losses = train_loop("qwen2-vl-2b", steps=25, seq_len=64, global_batch=8,
+                        log_every=100, seed=SEED)
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not np.isfinite(losses).all() or not last < first:
+        fail(f"phase 18: reduced qwen2-vl-2b's loss did not decrease: "
+             f"{losses}")
+    print(f"  loss decreases, reduced qwen2-vl-2b: mean of the first 5 "
+          f"{first:.4f}, of the last 5 {last:.4f}")
+    return dict(first5=first, last5=last)
+
+
+def phase_train(torch, rows) -> dict:
+    out = dict(full=_train_full(torch, rows))
+    torch.cuda.empty_cache()
+    out.update(card_vs_cpu=_train_card_vs_cpu(torch),
+               restart=_train_restart(torch),
+               loss_decreases=_train_loss_decreases(torch))
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3040,6 +3468,13 @@ def main() -> None:
         print(f"  phase 17 wall time {time.monotonic() - t:.1f} s")
     finally:
         shutil.rmtree(rpa["dir"], ignore_errors=True)
+    print(f"== phase 18: training on the card: minitron-4b at full width, "
+          f"{TRAIN_STEPS} steps; card vs CPU, restart and loss decrease at "
+          f"reduced configs")
+    t = time.monotonic()
+    out = phase_train(torch, rows)
+    print(f"  training: {json.dumps(out)}")
+    print(f"  phase 18 wall time {time.monotonic() - t:.1f} s")
 
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",

@@ -5,11 +5,15 @@ neither it nor ``jax``.  Its layout mirrors ``repro/`` so each module has
 an obvious counterpart:
 
     configs/          architecture configs (data only, copied)
-    models/           ArchConfig, registry, layers, attention, lm, convert
+    models/           ArchConfig, registry, layers, attention, lm, convert,
+                      train (the training step)
     kernels/          plain PyTorch versions (ref.py), dispatch (ops.py)
                       and the wrappers of the hand-written CUDA kernels
     csrc/             the CUDA C++ sources (sm_90a)
+    optim/, data/,    AdamW and schedules, the synthetic data pipeline,
+    checkpoint/       checkpoints in the reference's layout
     launch/serve.py   batched greedy serving
+    launch/train.py   the training loop
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no GPU and no explicit device they raise (``resolve_device``).

@@ -16,6 +16,11 @@
 // src/repro/core/ir.py `_attention_ref`, whose Pallas counterpart has no
 // such argument).  Each block reads its lane's offset, so one launch serves
 // lanes at different positions; a null q_offset is the mask above.
+// With an lse pointer (float32 (B,H,S) on the device) each row's
+// log-sum-exp m + log(max(l, 1e-30)) of its scaled, masked scores is also
+// written: the residual the backward (flash_attention_bwd.cu) recomputes P
+// from, as `_flash_fwd_lse` of src/repro/kernels/ref.py returns it.  Serving
+// passes none.
 // The softmax runs streamed over key tiles with f32 running max, sum and
 // accumulator; the output is rounded to the input dtype.  Key tiles that
 // the causal or window mask hides from every row of a query tile are
@@ -102,6 +107,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse,
                        const int* __restrict__ q_offset, int H, int Hkv,
                        int S, int Sk, int D, int Dv, float sm_scale,
                        int causal, int window) {
@@ -256,11 +262,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (dv < Dv) op[static_cast<size_t>(qi) * Dv + dv] = rt::from_float<T>(acc[i][j] / lc);
     }
   }
+  // the row's log-sum-exp, m + log(l), for the backward
+  if (lse != nullptr && tid < kBQ && q0 + tid < S)
+    lse[(static_cast<size_t>(b) * H + h) * S + q0 + tid] =
+        m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
 }
 
 int launch_f32(const void* q, const void* k, const void* v, void* out,
-               const int* q_offset, int B, int H, int Hkv, int S, int Sk,
-               int D, int Dv, float sm_scale, int causal, int window,
+               float* lse, const int* q_offset, int B, int H, int Hkv, int S,
+               int Sk, int D, int Dv, float sm_scale, int causal, int window,
                cudaStream_t stream) {
   const size_t smem = smem_bytes(D, Dv);
   cudaError_t err = cudaFuncSetAttribute(
@@ -270,7 +280,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   flash_attention_kernel<float><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), q_offset, H,
+      static_cast<const float*>(v), static_cast<float*>(out), lse, q_offset, H,
       Hkv, S, Sk, D, Dv, sm_scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -332,6 +342,7 @@ __global__ void __launch_bounds__(kMmaThreads, DP <= 80 ? 2 : 1)
 flash_attention_bf16_kernel(const bf16* __restrict__ q,
                             const bf16* __restrict__ k,
                             const bf16* __restrict__ v, bf16* __restrict__ out,
+                            float* __restrict__ lse,
                             const int* __restrict__ q_offset, int H, int Hkv,
                             int S, int Sk, int D, int Dv, float sm_scale,
                             int causal, int window) {
@@ -538,6 +549,15 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
                                          2 * t) = o2;
     }
   }
+  // the rows' log-sum-exp in natural units, m (log2 units) ln 2 + log(l),
+  // for the backward; every lane of a row's quad holds its m and l
+  if (lse != nullptr && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row0 + 8 * r < S)
+        lse[(static_cast<size_t>(b) * H + h) * S + row0 + 8 * r] =
+            m_r[r] * 0.6931471805599453f + logf(fmaxf(l_r[r], 1e-30f));
+  }
   __syncwarp();
   const int chunks = Dv / 8;
   for (int i = lane; i < 16 * chunks; i += 32) {
@@ -552,8 +572,8 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
 
 template <int DP>
 int launch_bf16_dp(const bf16* q, const bf16* k, const bf16* v, bf16* out,
-                   const int* q_offset, int B, int H, int Hkv, int S, int Sk,
-                   int D, int Dv, float sm_scale, int causal, int window,
+                   float* lse, const int* q_offset, int B, int H, int Hkv,
+                   int S, int Sk, int D, int Dv, float sm_scale, int causal, int window,
                    cudaStream_t stream) {
   const size_t smem = MmaTile<DP>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
@@ -562,14 +582,14 @@ int launch_bf16_dp(const bf16* q, const bf16* k, const bf16* v, bf16* out,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kMmaBQ - 1) / kMmaBQ, H, B);
   flash_attention_bf16_kernel<DP><<<grid, kMmaThreads, smem, stream>>>(
-      q, k, v, out, q_offset, H, Hkv, S, Sk, D, Dv, sm_scale, causal,
+      q, k, v, out, lse, q_offset, H, Hkv, S, Sk, D, Dv, sm_scale, causal,
       window);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                const int* q_offset, int B, int H, int Hkv, int S, int Sk,
-                int D, int Dv, float sm_scale, int causal, int window,
+                float* lse, const int* q_offset, int B, int H, int Hkv, int S,
+                int Sk, int D, int Dv, float sm_scale, int causal, int window,
                 cudaStream_t stream) {
   // 16-byte copies need 16-byte rows and base addresses.
   const uintptr_t addr = reinterpret_cast<uintptr_t>(q) |
@@ -589,8 +609,9 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   switch (dp) {
 #define RT_FA_CASE(DP)                                                    \
   case DP:                                                                \
-    return launch_bf16_dp<DP>(qb, kb, vb, ob, q_offset, B, H, Hkv, S, Sk, \
-                              D, Dv, sm_scale, causal, window, stream);
+    return launch_bf16_dp<DP>(qb, kb, vb, ob, lse, q_offset, B, H, Hkv,  \
+                              S, Sk, D, Dv, sm_scale, causal, window,     \
+                              stream);
     RT_FA_CASE(16) RT_FA_CASE(32) RT_FA_CASE(64)
     RT_FA_CASE(80) RT_FA_CASE(96) RT_FA_CASE(112) RT_FA_CASE(128)
     RT_FA_CASE(144) RT_FA_CASE(160) RT_FA_CASE(176) RT_FA_CASE(192)
@@ -609,9 +630,10 @@ RT_DEFINE_ERROR_STRING
 // checks shapes, dtypes and contiguity; D and Dv must be at most 256 (and,
 // in bfloat16, multiples of 8 with 16-byte aligned tensors), and
 // window <= 0 means no window.  q_offset is null or an int32 (B,) device
-// vector with values in [0, Sk - S].
+// vector with values in [0, Sk - S].  lse is null or a float32 (B,H,S)
+// device array that receives each row's log-sum-exp (natural units).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out,
+                                      const void* v, void* out, void* lse,
                                       const void* q_offset, int B, int H,
                                       int Hkv, int S, int Sk, int D, int Dv,
                                       float sm_scale, int causal, int window,
@@ -620,12 +642,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* off = static_cast<const int*>(q_offset);
+  float* lse_p = static_cast<float*>(lse);
   switch (dtype) {
     case rt::kF32:
-      return launch_f32(q, k, v, out, off, B, H, Hkv, S, Sk, D, Dv, sm_scale,
-                        causal, window, st);
+      return launch_f32(q, k, v, out, lse_p, off, B, H, Hkv, S, Sk, D, Dv,
+                        sm_scale, causal, window, st);
     case rt::kBF16:
-      return launch_bf16(q, k, v, out, off, B, H, Hkv, S, Sk, D, Dv,
+      return launch_bf16(q, k, v, out, lse_p, off, B, H, Hkv, S, Sk, D, Dv,
                          sm_scale, causal, window, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -33,7 +33,7 @@ launches = 0
 launches_by_shape: Counter = Counter()
 _lock = threading.Lock()             # the counters, across threads
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p]
 MAX_HEAD_DIM = 256
@@ -50,10 +50,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None,
                     sm_scale: Optional[float] = None,
                     block_q: int = 128, block_k: int = 128,
-                    q_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    q_offset: Optional[torch.Tensor] = None,
+                    return_lse: bool = False):
     """q (B,H,S,D); k (B,Hkv,Sk,D); v (B,Hkv,Sk,Dv); H % Hkv == 0.
 
-    Returns o (B,H,S,Dv) in q's dtype.  Query head h reads kv head
+    Returns o (B,H,S,Dv) in q's dtype and, with ``return_lse``, also each
+    row's float32 log-sum-exp (B,H,S), ``m + log(l)`` of its scaled,
+    masked scores: the residual of the backward
+    (``flash_attention_bwd.py``).  Query head h reads kv head
     h // (H // Hkv).  ``q_offset``, an integer tensor (B,) on q's device
     with values in [0, Sk - S], places query row i of lane b at key
     position ``q_offset[b] + i``: key j is valid iff ``j < q_offset[b] +
@@ -108,15 +112,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sm_scale = sm_scale or 1.0 / math.sqrt(D)
     q, k, v = (_build.aligned(t) for t in (q, k, v))
     out = torch.empty((B, H, S, Dv), dtype=q.dtype, device=dev)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
+           if return_lse else None)
     fn = _build.function("flash_attention", "flash_attention_launch",
                          _ARGTYPES)
     with torch.cuda.device(dev):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                q_offset.data_ptr() if q_offset is not None else None, B, H, Hkv, S, Sk, D, Dv, sm_scale, int(causal),
+                lse.data_ptr() if lse is not None else None,
+                q_offset.data_ptr() if q_offset is not None else None, B, H,
+                Hkv, S, Sk, D, Dv, sm_scale, int(causal),
                 int(window or 0), _build.DTYPE_CODES[q.dtype],
                 _build.stream_of(q))
     _build.check(rc, "flash_attention")
     with _lock:
         launches += 1
         launches_by_shape[shape_key(q, k, v, window)] += 1
-    return out
+    return (out, lse) if return_lse else out

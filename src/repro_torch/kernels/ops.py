@@ -24,6 +24,16 @@ whatever ``use_pallas`` says.
 On the card, ``chip_smoke.py`` phase 2 holds every kernel against its
 plain version at the shapes of its paths; phase 6 replays the int8
 vision plans (mobilenet_v2, resnet50_v1) with every conv and fc on K1.
+
+Gradients.  Attention is differentiable: with grad mode on and q, k or
+v requiring grad, ``flash_attention`` runs ``FlashAttentionFn``, whose
+forward is K2 with its log-sum-exp and whose backward is K2b
+(``flash_attention_bwd.py``), or their plain versions on the CPU.  The
+other kernels have no backward: a tensor that requires grad reaching
+K1, K3, K4 or K2 with a query offset under grad mode raises at once
+(``_no_backward``) on either device, so a training step can neither
+lose its gradients on the card (a kernel's output has no ``grad_fn``)
+nor differ there from the CPU.
 """
 from __future__ import annotations
 
@@ -32,6 +42,7 @@ from typing import Optional
 import torch
 
 from . import flash_attention as _fa
+from . import flash_attention_bwd as _fab
 from . import flash_decode as _fd
 from . import neutron_matmul as _nm
 from . import ref as _ref
@@ -44,6 +55,21 @@ def _plain(impl: str, t: torch.Tensor) -> bool:
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}; got {impl!r}")
     return impl == "ref" or t.device.type == "cpu"
+
+
+def _no_backward(impl: str, kernel: str, *tensors) -> None:
+    """Raise if a tensor that requires grad reaches `kernel`, which has
+    no backward, with grad mode on.  ``impl="ref"`` (the plain version,
+    differentiable by autograd) passes."""
+    if impl != "auto" or not torch.is_grad_enabled():
+        return
+    if any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward kernel, and a tensor that requires "
+            f"grad reached it with grad mode on: its output would carry no "
+            f"gradient on the card.  Its backward is ROADMAP item 11's "
+            f"second half; run it under torch.no_grad() or on detached "
+            f"inputs")
 
 
 def _repeat_kv(k: torch.Tensor, v: torch.Tensor, H: int):
@@ -63,7 +89,9 @@ def neutron_matmul(x, w, bias=None, scale=None, act: str = "none",
                    out_dtype=None, out_scale: Optional[float] = None,
                    impl: str = "auto", **block_kw):
     """The Pallas kernel's contract: x (M,K) @ w (K,N) -> (M,N)."""
-    if _plain(impl, x):
+    plain = _plain(impl, x)
+    _no_backward(impl, "neutron_matmul (K1)", x, w, bias, scale)
+    if plain:
         return _ref.neutron_matmul_ref(x, w, bias=bias, scale=scale,
                                        act=act, out_dtype=out_dtype,
                                        out_scale=out_scale)
@@ -77,7 +105,9 @@ def neutron_matmul_plan(x, w, bias, sc, act: str, out_scale: float,
                         impl: str = "auto"):
     """The int8 plan's contract, written into ``out`` (batch, M, N) in
     place; see ``neutron_matmul.neutron_matmul_plan``."""
-    if _plain(impl, x):
+    plain = _plain(impl, x)
+    _no_backward(impl, "neutron_matmul_plan (K1)", x, w, bias, sc, out)
+    if plain:
         return out.copy_(_ref.neutron_matmul_plan_ref(
             x, w, bias, sc, act, out_scale, out_zp, qmin, qmax))
     return _nm.neutron_matmul_plan(x, w, bias, sc, act, out_scale, out_zp,
@@ -88,7 +118,9 @@ def neutron_matmul_nk(x, wt, bias, act: str, out, impl: str = "auto"):
     """The Pallas contract in float32 with an (N, K) weight, written into
     ``out`` (batch, M, N) in place; see
     ``neutron_matmul.neutron_matmul_nk``."""
-    if _plain(impl, x):
+    plain = _plain(impl, x)
+    _no_backward(impl, "neutron_matmul_nk (K1)", x, wt, bias, out)
+    if plain:
         return out.copy_(_ref.neutron_matmul_nk_ref(x, wt, bias, act))
     return _nm.neutron_matmul_nk(x, wt, bias, act, out)
 
@@ -104,8 +136,20 @@ def flash_attention(q, k, v, causal: bool = True,
                     impl: str = "auto", q_offset=None, **block_kw):
     """q (B,H,S,D); k (B,Hkv,Sk,D); v (B,Hkv,Sk,Dv) -> (B,H,S,Dv).
     ``q_offset`` (B,) int: each lane's query position in the keys (see
-    ``ref.flash_attention_ref``)."""
-    if _plain(impl, q):
+    ``ref.flash_attention_ref``).  With grad mode on and q, k or v
+    requiring grad this is ``FlashAttentionFn`` (no ``q_offset``)."""
+    plain = _plain(impl, q)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if q_offset is not None:
+            _no_backward(impl, "flash_attention (K2) with a q_offset", q, k,
+                         v)
+        else:
+            if plain:
+                k, v = _repeat_kv(k, v, q.shape[1])
+            return FlashAttentionFn.apply(q, k, v, causal, window, sm_scale,
+                                          block_kw.get("block_k", 512),
+                                          plain)
+    if plain:
         k, v = _repeat_kv(k, v, q.shape[1])
         return _ref.flash_attention_ref(q, k, v, causal=causal,
                                         window=window, sm_scale=sm_scale,
@@ -124,7 +168,9 @@ def flash_attention(q, k, v, causal: bool = True,
 def flash_decode(q, k, v, kv_len=None, sm_scale: Optional[float] = None,
                  return_lse: bool = False, impl: str = "auto", **block_kw):
     """q (B,H,D); k (B,Hkv,S,D); v (B,Hkv,S,Dv) -> (B,H,Dv) [, lse]."""
-    if _plain(impl, q):
+    plain = _plain(impl, q)
+    _no_backward(impl, "flash_decode (K3)", q, k, v)
+    if plain:
         k, v = _repeat_kv(k, v, q.shape[1])
         return _ref.flash_decode_ref(q, k, v, kv_len=kv_len,
                                      sm_scale=sm_scale,
@@ -143,10 +189,56 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 64, init_state=None,
     """Full chunked SSD: the intra-chunk kernel (K4) and the cross-chunk
     recurrence in torch.  x (B,S,H,P); dt (B,S,H); A (H,); Bm/Cm (B,S,N).
     Returns (y (B,S,H,P), final_state (B,H,P,N)) in x's dtype."""
-    chunk_fn = _ref.ssd_chunk_ref if _plain(impl, x) else _ssd.ssd_chunk
+    plain = _plain(impl, x)
+    _no_backward(impl, "ssd_chunk (K4)", x, dt, A, Bm, Cm, init_state)
+    chunk_fn = _ref.ssd_chunk_ref if plain else _ssd.ssd_chunk
     return _ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,
                              init_state=init_state, chunk_fn=chunk_fn)
 
 
 ssd_step = _ref.ssd_step_ref          # O(1) decode step (plain torch)
 apply_activation = _ref.apply_activation
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with a fused backward, the counterpart of
+    ``flash_attention_fused`` (``repro/kernels/ref.py:217-285``): it saves
+    only (q, k, v, o, lse), O(S D), and the backward recomputes each
+    block's probabilities.  With ``plain`` False (CUDA tensors) the
+    forward is K2 with its log-sum-exp and the backward K2b, both taking
+    grouped kv heads as they are; with ``plain`` True it is
+    ``ref.flash_attention_fwd_lse_ref`` and ``ref.flash_attention_bwd_ref``
+    (H == Hkv: ``flash_attention`` repeats grouped kv heads first, and
+    autograd sums their gradients over the group through the repeat).
+
+        FlashAttentionFn.apply(q, k, v, causal, window, sm_scale, block_k,
+                               plain) -> o
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, sm_scale, block_k, plain):
+        if plain:
+            o, lse = _ref.flash_attention_fwd_lse_ref(
+                q, k, v, causal=causal, window=window, sm_scale=sm_scale,
+                block_k=block_k)
+        else:
+            o, lse = _fa.flash_attention(q, k, v, causal=causal,
+                                         window=window, sm_scale=sm_scale,
+                                         return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, window, sm_scale, block_k, plain)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, sm_scale, block_k, plain = ctx.args
+        if plain:
+            dq, dk, dv = _ref.flash_attention_bwd_ref(
+                q, k, v, o, lse, do, causal=causal, window=window,
+                sm_scale=sm_scale, block_k=block_k)
+        else:
+            dq, dk, dv = _fab.flash_attention_bwd(
+                q, k, v, o, lse, do, causal=causal, window=window,
+                sm_scale=sm_scale)
+        return dq, dk, dv, None, None, None, None, None

@@ -182,6 +182,25 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the same position).  None is an offset of 0 with no ``j < S`` bound,
     the Pallas kernel's mask.
     """
+    return _flash_forward(q, k, v, causal, window, sm_scale, block_k,
+                          q_offset)[0]
+
+
+def flash_attention_fwd_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, causal: bool = True,
+                                window: Optional[int] = None,
+                                sm_scale: Optional[float] = None,
+                                block_k: int = 512
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_ref`` that also returns the float32 log-sum-exp
+    (B, H, S) of each row's scores, ``m + log(max(l, 1e-30))``: the
+    counterpart of ``_flash_fwd_lse`` (``repro/kernels/ref.py:167``), the
+    forward of the fused-backward attention.  H == Hkv."""
+    return _flash_forward(q, k, v, causal, window, sm_scale, block_k, None)
+
+
+def _flash_forward(q, k, v, causal, window, sm_scale, block_k, q_offset):
+    """(o in q's dtype, lse float32) of the streaming softmax."""
     B, H, S, D = q.shape
     Dv = v.shape[-1]
     Sk = k.shape[2]
@@ -216,7 +235,54 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vc)
         m = m_new
-    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    l = torch.clamp(l, min=1e-30)
+    return (acc / l[..., None]).to(q.dtype), m + torch.log(l)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor,
+                            causal: bool = True,
+                            window: Optional[int] = None,
+                            sm_scale: Optional[float] = None,
+                            block_k: int = 512
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The backward of the fused attention from its residuals, the
+    counterpart of ``_faf_bwd`` (``repro/kernels/ref.py:236``): each key
+    block's scores are recomputed, ``P = exp(s - lse)`` under the
+    forward's mask, ``delta = rowsum(do * o)`` in float32, and
+    ``dV = P^T dO``, ``dS = P (dO V^T - delta) sm_scale``, ``dQ = dS K``,
+    ``dK = dS^T Q``.  q (B,H,S,D), k (B,H,Sk,D), v (B,H,Sk,Dv) with
+    H == Hkv, o and do (B,H,S,Dv), lse (B,H,S) float32.  Returns (dq, dk,
+    dv) in the dtypes of q, k and v."""
+    B, H, S, D = q.shape
+    Sk = k.shape[2]
+    sm = sm_scale or 1.0 / math.sqrt(D)
+    bk = min(block_k, Sk)
+    qf, dof = q.float(), do.float()
+    delta = (dof * o.float()).sum(dim=-1)                   # (B,H,S)
+    qi = torch.arange(S, device=q.device)[:, None]
+    dq = torch.zeros((B, H, S, D), dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for j0 in range(0, Sk, bk):
+        kc = k[:, :, j0:j0 + bk].float()
+        vc = v[:, :, j0:j0 + bk].float()
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kc) * sm
+        kj = j0 + torch.arange(kc.shape[2], device=q.device)[None]
+        mask = (kj <= qi) if causal else torch.ones(
+            (S, kc.shape[2]), dtype=torch.bool, device=q.device)
+        if window is not None:
+            mask = mask & (qi - kj < window)
+        p = torch.where(mask, torch.exp(s - lse[..., None]),
+                        torch.zeros_like(s))
+        dvs.append(torch.einsum("bhqk,bhqd->bhkd", p, dof))
+        dp = torch.einsum("bhqd,bhkd->bhqk", dof, vc)
+        ds = p * (dp - delta[..., None]) * sm
+        dq = dq + torch.einsum("bhqk,bhkd->bhqd", ds, kc)
+        dks.append(torch.einsum("bhqk,bhqd->bhkd", ds, qf))
+    return (dq.to(q.dtype), torch.cat(dks, dim=2).to(k.dtype),
+            torch.cat(dvs, dim=2).to(v.dtype))
 
 
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,0 +1,133 @@
+"""Training loop of the port: data pipeline -> train step ->
+checkpoints, with restart from the latest checkpoint; the counterpart of
+``repro/launch/train.py``.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-4b \\
+        --smoke --steps 4 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-4b \\
+        --full --steps 4                         # one CUDA card
+
+Deterministic per-step data (``data/pipeline.py``), the step of
+``models/train.py`` on one device (CUDA unless ``device="cpu"``; it never
+falls back to the CPU quietly), one read-back of the loss per step, a
+heartbeat to ``runtime/fault.py``'s ``FaultMonitor``, asynchronous
+checkpoints every `ckpt_every` steps in the reference's layout, and a
+restart from the latest one that fast-forwards the pipeline.  The
+reference's mesh arguments `n_data` and `n_model` are kept; above 1 they
+raise until the distribution work (ROADMAP item 12).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Callable, Optional
+
+from repro_torch import resolve_device
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.data.pipeline import DataConfig, Pipeline
+from repro_torch.models.convert import (train_state_from_numpy,
+                                        train_state_to_host)
+from repro_torch.models.registry import get_arch
+from repro_torch.models.train import (TrainOptions, init_train_state,
+                                      make_train_step)
+from repro_torch.runtime.fault import FaultMonitor
+
+
+def train_loop(arch: str, steps: int = 30, smoke: bool = True,
+               ckpt_dir: Optional[str] = None, ckpt_every: int = 10,
+               seq_len: int = 128, global_batch: int = 8,
+               n_micro: int = 1, compress: bool = False,
+               n_data: Optional[int] = None, n_model: Optional[int] = None,
+               log_every: int = 5, seed: int = 0, device=None,
+               on_step: Optional[Callable] = None):
+    """Train `arch` (its reduced config with `smoke`) from step 0, or from
+    the latest checkpoint in `ckpt_dir`, up to `steps`; returns the loss
+    of each step run.  ``on_step(i, metrics, seconds)``, when given, is
+    called after each step with its metrics (tensors on the device) and
+    its wall time, data and loss read-back included."""
+    if (n_data or 1) > 1 or (n_model or 1) > 1:
+        raise NotImplementedError(
+            "train_loop runs on one device: data and model parallelism "
+            "(n_data, n_model > 1) are ROADMAP item 12")
+    device = resolve_device(device)
+    cfg = get_arch(arch)
+    if smoke:
+        cfg = cfg.reduced()
+    opts = TrainOptions(n_micro=n_micro, compress_grads=compress,
+                        total_steps=max(steps, 2))
+    step_fn = make_train_step(cfg, opts=opts)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq_len,
+                      global_batch=global_batch, seed=seed)
+    monitor = FaultMonitor(n_hosts=1)
+    ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    start_step = 0
+
+    state = init_train_state(cfg, seed, device, opts=opts)
+    if ckpt is not None and ckpt.latest_step() is not None:
+        tree, start_step, _ = ckpt.restore(train_state_to_host(cfg, state))
+        state = train_state_from_numpy(cfg, tree, device)
+        print(f"[restore] resumed from step {start_step}")
+    # the pipeline starts at the first step to run (a restart
+    # fast-forwards it deterministically)
+    pipe = Pipeline(dcfg, start_step=start_step)
+    losses = []
+    try:
+        for i in range(start_step, steps):
+            t0 = time.monotonic()
+            batch = next(pipe)
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])
+            dt = time.monotonic() - t0
+            monitor.beat(0, i, dt)
+            losses.append(loss)
+            if on_step is not None:
+                on_step(i, metrics, dt)
+            if i % log_every == 0 or i == steps - 1:
+                print(f"step {i:5d}  loss {loss:8.4f}  "
+                      f"gnorm {float(metrics['grad_norm']):8.3f}  "
+                      f"{dt * 1e3:7.1f} ms", flush=True)
+            if ckpt is not None and (i + 1) % ckpt_every == 0:
+                ckpt.save_async(i + 1, train_state_to_host(cfg, state),
+                                meta={"loss": loss}, copy=False)
+        if ckpt is not None and losses:
+            ckpt.wait()
+            ckpt.save(steps, train_state_to_host(cfg, state),
+                      meta={"loss": losses[-1]})
+    finally:
+        pipe.close()
+        if ckpt is not None:
+            ckpt.wait()
+    return losses
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=30)
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--n-micro", type=int, default=1)
+    ap.add_argument("--compress", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu (the plain versions)")
+    args = ap.parse_args()
+    losses = train_loop(args.arch, steps=args.steps, smoke=args.smoke,
+                        ckpt_dir=args.ckpt_dir,
+                        ckpt_every=args.ckpt_every,
+                        seq_len=args.seq_len,
+                        global_batch=args.global_batch,
+                        n_micro=args.n_micro, compress=args.compress,
+                        seed=args.seed, device=args.device)
+    if losses:
+        print(f"final loss {losses[-1]:.4f} (start {losses[0]:.4f})")
+    else:
+        print("nothing to do (checkpoint already at target step)")
+
+
+if __name__ == "__main__":
+    main()

@@ -166,3 +166,93 @@ def lm_logits(head: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     if head.shape[0] < head.shape[1]:        # (d, V)
         return h @ head
     return h @ head.T
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean softmax cross-entropy in float32.  logits (..., V); labels
+    (...,); `mask` (...,) weights the positions."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+    return nll.mean()
+
+
+# --------------------------------------------------------------------------
+# Fused LM-head + cross-entropy (chunked over positions, custom backward)
+# --------------------------------------------------------------------------
+
+
+class FusedCE(torch.autograd.Function):
+    """Mean softmax cross-entropy of ``h @ w`` against `labels` without
+    the (B, S, V) float32 logits, the counterpart of ``fused_ce``
+    (``repro/models/layers.py:170-243``): the sequence is walked in
+    `chunk_s`-position blocks, so one (B, chunk_s, V) block of float32
+    logits exists at a time, forward and backward; the backward
+    recomputes each block's logits and accumulates dw in float32.
+    h (B, S, d); w (d, V); labels (B, S) with -1 = ignore.  Logits are
+    ``h.float() @ w.float()`` (float32 products: TF32 stays off, as in
+    the rest of the port).
+
+        FusedCE.apply(h, w, labels, chunk_s) -> 0-d float32 loss
+    """
+
+    @staticmethod
+    def forward(ctx, h, w, labels, chunk_s):
+        labels = labels.long()
+        ctx.save_for_backward(h, w, labels)
+        ctx.chunk_s = chunk_s
+        wf = w.float()
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for hb, lb in _ce_chunks(h, labels, chunk_s):
+            logits = hb.float() @ wf
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, lb.clamp(min=0)[..., None])[..., 0]
+            nll = torch.where(lb >= 0, lse - gold, torch.zeros_like(lse))
+            total = total + nll.sum()
+        return total / _n_valid(labels)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, labels = ctx.saved_tensors
+        wf = w.float()
+        scale = g / _n_valid(labels)
+        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+        dh = torch.empty(h.shape, dtype=torch.float32, device=h.device)
+        c0 = 0
+        for hb, lb in _ce_chunks(h, labels, ctx.chunk_s):
+            hf = hb.float()
+            p = torch.softmax(hf @ wf, dim=-1)
+            # p - onehot(label) at the valid positions, by subtracting 1
+            # at each label (no (B, chunk, V) one-hot), then masked and
+            # scaled
+            valid = lb >= 0
+            p.scatter_add_(-1, lb.clamp(min=0)[..., None],
+                           -valid[..., None].float())
+            dl = p.mul_((valid.float() * scale)[..., None])
+            dh[:, c0:c0 + hb.shape[1]] = dl @ wf.T
+            dw.addmm_(hf.reshape(-1, hf.shape[-1]).T,
+                      dl.reshape(-1, dl.shape[-1]))
+            c0 += hb.shape[1]
+            del p, dl
+        return dh.to(h.dtype), dw.to(w.dtype), None, None
+
+
+def _ce_chunks(h: torch.Tensor, labels: torch.Tensor, chunk_s: int):
+    """(h, labels) in blocks of `chunk_s` positions."""
+    cs = max(1, min(chunk_s, h.shape[1]))
+    for c0 in range(0, h.shape[1], cs):
+        yield h[:, c0:c0 + cs], labels[:, c0:c0 + cs]
+
+
+def _n_valid(labels: torch.Tensor) -> torch.Tensor:
+    return torch.clamp((labels >= 0).sum(), min=1).float()
+
+
+def fused_ce(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+             chunk_s: int = 512) -> torch.Tensor:
+    """See ``FusedCE``."""
+    return FusedCE.apply(h, w, labels, chunk_s)

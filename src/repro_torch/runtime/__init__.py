@@ -11,5 +11,6 @@
   re-dispatch;
 * ``fleet`` — replica sessions behind one health-routed, hedged
   ``submit()``, with failover, the silent-corruption auditor, canary-gated
-  rolling updates and rebalancing.
+  rolling updates and rebalancing;
+* ``overlap`` — the training step's microbatched gradient accumulation.
 """

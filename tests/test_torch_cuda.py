@@ -1225,3 +1225,176 @@ def test_device_context_lost_on_real_cuda_errors(dev):
     (c1, m1, lost1), (c2, m2, lost2) = got
     assert lost1 is False and "CUDA error" in m1, got
     assert lost2 is True, got
+
+
+# --------------------------------------------------------------------------
+# Training: K2's log-sum-exp, K2b (the backward), the guard, checkpoints
+# --------------------------------------------------------------------------
+
+# the shapes of chip_smoke.py's K2b rows (minitron-4b's training shape with
+# the kv expanded to the padded 32 heads, granite-20b's group of 48,
+# gemma3's window, D 192 with Dv 128) and small float32 and ragged cases
+BWD_CASES = [
+    (8, 32, 32, 128, 128, 128, True, None, torch.bfloat16),
+    (4, 48, 1, 100, 128, 128, True, None, torch.bfloat16),
+    (1, 32, 16, 1040, 128, 128, True, 1024, torch.bfloat16),
+    (2, 16, 16, 100, 192, 128, True, None, torch.bfloat16),
+    (2, 6, 2, 77, 32, 24, True, None, torch.float32),
+    (2, 6, 3, 70, 64, 32, True, 9, torch.float32),
+    (1, 4, 2, 33, 16, 16, False, None, torch.float32),
+    (1, 2, 1, 40, 256, 256, True, None, torch.float32),
+    (2, 4, 2, 65, 80, 80, False, 20, torch.bfloat16),
+]
+
+
+def _bwd_inputs(dev, B, H, Hkv, S, D, Dv, causal, window, dtype):
+    gen = torch.Generator(device=dev).manual_seed(S + D + H)
+    q = _randn(gen, (B, H, S, D), dtype, dev)
+    k = _randn(gen, (B, Hkv, S, D), dtype, dev)
+    v = _randn(gen, (B, Hkv, S, Dv), dtype, dev)
+    do = _randn(gen, (B, H, S, Dv), dtype, dev)
+    kx, vx = k.repeat_interleave(H // Hkv, 1), v.repeat_interleave(H // Hkv,
+                                                                   1)
+    o, lse = ref.flash_attention_fwd_lse_ref(q, kx, vx, causal=causal,
+                                             window=window)
+    return q, k, v, o, lse, do
+
+
+def _held(got, want, dtype, what):
+    """bf16: max|d| / max|plain| < 2e-2; float32: atol 2e-3 / rtol 1e-3."""
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all(), what
+    if dtype == torch.bfloat16:
+        rel = float((got - want).abs().max() / want.abs().max())
+        assert rel < 2e-2, (what, rel)
+    else:
+        torch.testing.assert_close(got, want, atol=2e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,Dv,causal,window,dtype", BWD_CASES)
+def test_flash_attention_bwd_kernel_matches_plain(dev, B, H, Hkv, S, D, Dv,
+                                                  causal, window, dtype):
+    from repro_torch.kernels import flash_attention_bwd as t_fab
+    q, k, v, o, lse, do = _bwd_inputs(dev, B, H, Hkv, S, D, Dv, causal,
+                                      window, dtype)
+    n0 = t_fab.launches
+    got = t_fab.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                    window=window)
+    g = H // Hkv
+    want = ref.flash_attention_bwd_ref(
+        q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1), o, lse, do,
+        causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert t_fab.launches == n0 + 1
+    # the plain version's dk, dv are per query head: sum over each group
+    want = (want[0], want[1].float().reshape(B, Hkv, g, S, D).sum(2),
+            want[2].float().reshape(B, Hkv, g, S, Dv).sum(2))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        _held(a, b, dtype, name)
+    again = t_fab.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                      window=window)
+    for a, b in zip(got, again):          # no atomics: the same bits
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,Dv,causal,window,dtype",
+                         BWD_CASES[:4] + BWD_CASES[5:7])
+def test_flash_attention_lse_leaves_o_unchanged(dev, B, H, Hkv, S, D, Dv,
+                                                causal, window, dtype):
+    """K2 with return_lse writes the same o as without, and its lse
+    matches the plain version's (bf16: within 1e-2, the bf16 rounding of
+    P moves each row sum by at most 2^-8 of itself)."""
+    q, k, v, _, _, _ = _bwd_inputs(dev, B, H, Hkv, S, D, Dv, causal, window,
+                                   dtype)
+    o0 = ops.flash_attention(q, k, v, causal=causal, window=window)
+    o1, lse = t_fa.flash_attention(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+    assert torch.equal(o0, o1)
+    g = H // Hkv
+    _, want = ref.flash_attention_fwd_lse_ref(
+        q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1),
+        causal=causal, window=window)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(lse, want, atol=tol, rtol=0)
+
+
+def test_flash_attention_fn_on_the_card_matches_the_cpu(dev):
+    """ops.flash_attention under grad on CUDA (K2 with lse, then K2b) and
+    on the CPU (the plain versions) from the same float32 inputs."""
+    from repro_torch.kernels import flash_attention_bwd as t_fab
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(s, generator=gen) for s in
+               ((2, 6, 50, 32), (2, 2, 50, 32), (2, 2, 50, 16)))
+    do = torch.randn(2, 6, 50, 16, generator=gen)
+    grads = []
+    for d in ("cpu", dev):
+        ts = [t.detach().to(d).requires_grad_(True) for t in (q, k, v)]
+        o = ops.flash_attention(*ts, causal=True, window=20)
+        n0 = t_fab.launches
+        o.backward(do.to(d))
+        if d != "cpu":
+            assert t_fab.launches == n0 + 1
+        grads.append([o.detach().cpu()] + [t.grad.cpu() for t in ts])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(b, a, atol=2e-3, rtol=1e-3)
+
+
+def test_kernels_without_backward_raise_under_grad_on_the_card(dev):
+    x = torch.zeros(4, 8, device=dev, requires_grad=True)
+    calls = [
+        lambda: ops.neutron_matmul(x, torch.zeros(8, 3, device=dev)),
+        lambda: ops.flash_decode(x.reshape(1, 4, 8),
+                                 torch.zeros(1, 4, 5, 8, device=dev),
+                                 torch.zeros(1, 4, 5, 8, device=dev)),
+        lambda: ops.ssd_scan(x.reshape(1, 4, 1, 8),
+                             torch.ones(1, 4, 1, device=dev),
+                             -torch.ones(1, device=dev),
+                             torch.zeros(1, 4, 2, device=dev),
+                             torch.zeros(1, 4, 2, device=dev), chunk=4),
+    ]
+    counts = (t_k1.launches, t_fd.launches, t_ssd.launches)
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward kernel"):
+            call()
+    assert (t_k1.launches, t_fd.launches, t_ssd.launches) == counts
+
+
+def test_save_async_of_a_cuda_state_while_the_next_step_runs(dev, tmp_path):
+    """A checkpoint of a training state on the card taken with save_async
+    holds the values of its step, though the next step updates the
+    parameters in place while the file is written."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.models import train as ttrain
+    from repro_torch.models.convert import (train_state_from_numpy,
+                                            train_state_to_host)
+    from repro_torch.models.registry import get_arch
+    cfg = get_arch("minitron-4b").reduced(dtype="float32")
+    state = ttrain.init_train_state(cfg, 0, dev)
+    step = ttrain.make_train_step(cfg)
+    dcfg = DataConfig(cfg.vocab, 32, 4)
+    state, _ = step(state, batch_for_step(dcfg, 0))
+    want = train_state_to_host(cfg, state)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save_async(1, train_state_to_host(cfg, state), copy=False)
+    state, _ = step(state, batch_for_step(dcfg, 1))
+    mgr.wait()
+    tree, s, _ = mgr.restore(want)
+    assert s == 1
+    back = train_state_from_numpy(cfg, tree, dev)
+    got = train_state_to_host(cfg, back)
+    flat = lambda t: [t.params, t.opt.m, t.opt.v]      # noqa: E731
+    for a, b in zip(flat(got), flat(want)):
+        for key in a:
+            _equal_trees(a[key], b[key])
+    assert int(got.opt.step) == 1
+
+
+def _equal_trees(a, b):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _equal_trees(a[k], b[k])
+    else:
+        assert torch.equal(a, b)

@@ -33,7 +33,12 @@ def test_importing_every_module_leaves_jax_and_repro_out():
     mods = _modules()
     assert "repro_torch.models.lm" in mods and len(mods) > 20
     assert {"repro_torch.obs.profile", "repro_torch.runtime.procpool",
-            "repro_torch.runtime.fleet"} <= set(mods)
+            "repro_torch.runtime.fleet", "repro_torch.optim.adamw",
+            "repro_torch.optim.schedules", "repro_torch.optim.compression",
+            "repro_torch.runtime.overlap", "repro_torch.models.train",
+            "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
+            "repro_torch.launch.train",
+            "repro_torch.kernels.flash_attention_bwd"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -70,6 +75,7 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     from repro_torch.launch.serve_vision import serve_vision
     from repro_torch.models import lm
     from repro_torch.models.registry import get_arch
+    from repro_torch.models.train import init_train_state
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_arch("minitron-4b").reduced()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -78,6 +84,8 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
         lm.init_params(cfg, 0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lm.init_cache(cfg, 1, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_train_state(cfg, 0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_vision("mobilenet_v2", batch=1, res_scale=0.25)
     b = GraphBuilder("g")

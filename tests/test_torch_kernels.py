@@ -364,3 +364,111 @@ def test_k1_k4_wrappers_refuse(call, match):
     with pytest.raises(ValueError, match=match):
         call()
     assert (t_k1.launches, t_ssd.launches) == before
+
+
+# --------------------------------------------------------------------------
+# flash attention's backward (FlashAttentionFn on the CPU: the plain
+# versions of K2 with its LSE and of K2b)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,Dv,causal,window,block_k", [
+    (2, 4, 4, 40, 16, 16, True, None, 16),     # S not a multiple of block_k
+    (1, 4, 2, 37, 16, 16, True, None, 512),    # GQA
+    (2, 4, 2, 50, 16, 8, True, 7, 16),         # window, Dv != D
+    (1, 2, 2, 33, 24, 24, False, None, 8),     # not causal
+    (1, 6, 3, 20, 32, 16, False, 5, 512),      # window not causal
+])
+def test_flash_attention_fn_grads_match_reference_vjp(B, H, Hkv, S, D, Dv,
+                                                      causal, window,
+                                                      block_k):
+    """``ops.flash_attention`` under grad (``FlashAttentionFn``): output
+    and the gradients of q, k and v against ``jax.vjp`` of the reference's
+    ``ops.flash_attention(impl="ref", fused_vjp=True)``, which repeats
+    grouped kv heads, as the port does before its Function."""
+    import jax
+    rng = np.random.default_rng(B * 100 + S + D)
+    q, k, v = (_normal(rng, B, H, S, D), _normal(rng, B, Hkv, S, D),
+               _normal(rng, B, Hkv, S, Dv))
+    do = _normal(rng, B, H, S, Dv)
+    o_j, vjp = jax.vjp(
+        lambda q_, k_, v_: jops.flash_attention(
+            q_, k_, v_, causal=causal, window=window, impl="ref",
+            fused_vjp=True, block_k=block_k),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True)
+                  for x in (q, k, v))
+    o = tops.flash_attention(tq, tk, tv, causal=causal, window=window,
+                             block_k=block_k)
+    assert o.grad_fn is not None
+    o.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(o_j),
+                               atol=ATOL, rtol=RTOL)
+    for got, w in zip((tq, tk, tv), want):
+        assert got.grad.shape == got.shape
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(w),
+                                   atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 9),
+                                           (False, None)])
+def test_flash_attention_fwd_lse_matches_reference(causal, window):
+    rng = np.random.default_rng(11)
+    q, k, v = (_normal(rng, 2, 3, 45, 16), _normal(rng, 2, 3, 45, 16),
+               _normal(rng, 2, 3, 45, 8))
+    o_j, lse_j = jref._flash_fwd_lse(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), causal, window,
+                                     0.25, 16)
+    o, lse = tref.flash_attention_fwd_lse_ref(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal, window=window, sm_scale=0.25, block_k=16)
+    assert lse.dtype == torch.float32 and lse.shape == (2, 3, 45)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j), atol=ATOL,
+                               rtol=RTOL)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_j), atol=ATOL,
+                               rtol=RTOL)
+
+
+def test_flash_attention_bwd_ref_matches_reference():
+    """The plain backward from the same residuals as ``_faf_bwd``."""
+    rng = np.random.default_rng(12)
+    q, k, v = (_normal(rng, 1, 2, 30, 16), _normal(rng, 1, 2, 30, 16),
+               _normal(rng, 1, 2, 30, 24))
+    do = _normal(rng, 1, 2, 30, 24)
+    o, lse = jref._flash_fwd_lse(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), True, 11, 0.3, 8)
+    want = jref._faf_bwd(True, 11, 0.3, 8, (jnp.asarray(q), jnp.asarray(k),
+                                             jnp.asarray(v), o, lse),
+                         jnp.asarray(do))
+    got = tref.flash_attention_bwd_ref(
+        *(torch.from_numpy(np.array(x)) for x in (q, k, v, o, lse, do)),
+        causal=True, window=11, sm_scale=0.3, block_k=8)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL,
+                                   rtol=RTOL)
+
+
+@pytest.mark.parametrize("call", [
+    lambda x: tops.neutron_matmul(x, torch.zeros(8, 3)),
+    lambda x: tops.neutron_matmul_nk(x[None], torch.zeros(3, 8), None,
+                                     "none", torch.zeros(1, 4, 3)),
+    lambda x: tops.flash_decode(x.reshape(1, 4, 8), torch.zeros(1, 4, 5, 8),
+                                torch.zeros(1, 4, 5, 8)),
+    lambda x: tops.ssd_scan(x.reshape(1, 4, 1, 8), torch.ones(1, 4, 1),
+                            -torch.ones(1), torch.zeros(1, 4, 2),
+                            torch.zeros(1, 4, 2), chunk=4),
+    lambda x: tops.flash_attention(
+        x.reshape(1, 1, 4, 8), torch.zeros(1, 1, 4, 8),
+        torch.zeros(1, 1, 4, 8), q_offset=torch.zeros(1, dtype=torch.int32)),
+])
+def test_kernels_without_backward_refuse_a_grad(call):
+    """A tensor that requires grad reaching K1, K3, K4 or K2 with a query
+    offset under grad mode raises, on the CPU as on the card; under
+    no_grad, or with impl="ref", the same call runs."""
+    x = torch.zeros(4, 8, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward kernel.*item 11"):
+        call(x)
+    with torch.no_grad():
+        call(x)
+    call(x.detach())
