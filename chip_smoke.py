@@ -10,8 +10,9 @@ each of which ends the run with a nonzero exit and no result on failure:
    of every CUDA kernel from the sources in this checkout (ptxas
    registers and spills), and the count of tensor-core instructions
    (HMMA/HGMMA, IMMA/IGMMA) in each library's SASS, which must not be 0
-   in any instance of the bf16 flash_attention and ssd_chunk kernels or
-   of the int8 neutron_matmul kernel;
+   in any instance of the bf16 flash_attention and ssd_chunk kernels, of
+   the bf16 flash_attention_bwd kernels, or of the int8 and the tiled
+   float (3xTF32) neutron_matmul kernels;
 2. every kernel on the card against its plain PyTorch version, at the
    shapes each serving path gives it (bf16; int8 for K1 at the vision
    plans' shapes, compared for equality) and at small ragged cases (f32;
@@ -26,7 +27,9 @@ each of which ends the run with a nonzero exit and no result on failure:
    plain version, one PyTorch library call for the same function where
    there is one (for K1 `torch._int_mm`, on zero-padded copies where its
    shape rules refuse the shape; for K1's float32 rows, at the float32
-   plan's shapes, `torch.matmul` with TF32 off), and its bound.  `ms` and
+   plan's shapes, `torch.matmul` with TF32 off; each float32 row names
+   the route of K1's ``float_plan`` and is the same bits on a second
+   call), and its bound.  `ms` and
    `library_ms` are device time: the CUDA kernels one call launches,
    from torch.profiler; `call_ms` (and `library_call_ms`, `plain_ms`)
    the host-plus-device time of one call between CUDA events;
@@ -143,8 +146,8 @@ each of which ends the run with a nonzero exit and no result on failure:
     parameters, float32 AdamW moments, remat) for 4 steps of batch 8 x
     128 tokens: losses and grad norms finite, the first step's fused_ce
     loss within 5e-2 of cross_entropy of the full forward's logits, wall
-    ms per step, the busy share of the last step (torch.profiler), peak
-    memory, and every attention through K2 (64 a step: the forward and
+    ms per step, the busy share of the last step and K2b's device time
+    in it (torch.profiler), peak memory, and every attention through K2 (64 a step: the forward and
     the remat recompute) and K2b (32 a step), no other kernel; then the
     reduced minitron-4b in float32 for 3 steps on the card against the
     CPU from the same state (loss, grad norm, lr scale within 2e-4
@@ -164,7 +167,8 @@ every serving path's K2 shape (o bit-equal to the call without it, lse
 within 1e-2 in bf16), and K2b, flash attention's backward, at the
 training shapes (``BWD_SHAPES``: per gradient max|d|/max|plain| < 2e-2
 in bf16, atol 2e-3 / rtol 1e-3 in float32, and the same bits on a
-second call), timed beside SDPA's backward alone; and that a tensor
+second call; each row names its route and group split), timed beside
+SDPA's backward alone; and that a tensor
 requiring grad that reaches K1, K3, K4 or K2 with a query offset raises
 under grad mode and launches nothing.
 
@@ -185,6 +189,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -204,6 +209,8 @@ SRC = ROOT / "src"
 HBM_BYTES_S = 3.35e12       # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12,   # dense tensor-core rate
               "int8": 1979e12,      # dense tensor-core rate (K1's bound)
+              "tf32": 495e12,       # dense tensor-core rate (3xTF32 issues
+                                    # three products for each one)
               "float32": 67e12}     # outside the tensor cores
 
 SEED = 0
@@ -607,8 +614,14 @@ def nbytes(*ts) -> int:
 TENSOR_CORE_KERNELS = (
     ("flash_attention", "flash_attention_bf16_kernel", ("HMMA", "HGMMA"),
      "the bf16 flash_attention kernel"),
+    ("flash_attention_bwd", "dkdv_mma_kernel", ("HMMA", "HGMMA"),
+     "the bf16 flash_attention_bwd dK/dV kernel"),
+    ("flash_attention_bwd", "dq_mma_kernel", ("HMMA", "HGMMA"),
+     "the bf16 flash_attention_bwd dQ kernel"),
     ("neutron_matmul", "neutron_matmul_i8", ("IMMA", "IGMMA"),
      "the int8 neutron_matmul kernel"),
+    ("neutron_matmul", "neutron_matmul_tiled", ("HMMA", "HGMMA"),
+     "the tiled float neutron_matmul kernel (3xTF32)"),
     ("ssd_chunk", "ssd_chunk_bf16_kernel", ("HMMA", "HGMMA"),
      "the bf16 ssd_chunk kernel"),
 )
@@ -616,8 +629,8 @@ TENSOR_CORE_KERNELS = (
 
 def phase_sass(_build) -> None:
     """Tensor-core instructions (HMMA/HGMMA, IMMA/IGMMA) in each library's
-    SASS; every instance of the bf16 flash_attention and ssd_chunk kernels
-    and of the int8 neutron_matmul kernel must have them."""
+    SASS; every instance of the kernels of TENSOR_CORE_KERNELS must have
+    them."""
     counts = {name: _build.tensor_core_ops(name) for name in _build.SOURCES}
     for name, per_fn in counts.items():
         total = {op: sum(c[op] for c in per_fn.values())
@@ -648,6 +661,18 @@ def check_close(torch, name, got, want, dtype) -> float:
         fail(f"{name}: {int(bad.sum())} elements off; max |err| "
              f"{float(err.max()):.3g} (atol {atol}, rtol {rtol})")
     return float(err.max())
+
+
+def check_plan_tol(torch, name, got, want) -> float:
+    """max|got - want| of a float32 K1 call, held to the float32 plan's
+    ``float_plan_tol`` (1e-4 max(1, max|want|)) as well as to TOL: plain
+    TF32 products (about 2^-11 each) would break it, 3xTF32 does not."""
+    from repro_torch.core.executor import float_plan_tol
+    err = float((got.float() - want.float()).abs().max())
+    tol = float_plan_tol(want.float().cpu().numpy())
+    if not err <= tol:
+        fail(f"{name}: max|err| {err:.3g} above float_plan_tol {tol:.3g}")
+    return err
 
 
 def ssd_inputs(torch, randn, B, S, H, P, N, dtype, pad=0):
@@ -910,6 +935,10 @@ def k2b_row(torch, F, ops, randn, a: AttnShape) -> dict:
         return (dq, dk.float().reshape(a.B, a.Hkv, g, a.S, a.D).sum(2),
                 dv.float().reshape(a.B, a.Hkv, g, a.S, a.Dv).sum(2))
 
+    plan = flash_attention_bwd.bwd_plan(dtype, a.B, a.Hkv, a.S, g, a.D,
+                                        a.Dv)
+    route = ("mma" if plan.route == flash_attention_bwd.MMA
+             else "scalar") + f", G {plan.G}"
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     errs = []
@@ -965,7 +994,7 @@ def k2b_row(torch, F, ops, randn, a: AttnShape) -> dict:
         replaces="src/repro/kernels/ref.py:236 (_faf_bwd, the jnp custom "
                  "VJP of flash_attention_fused)",
         shape=f"q ({a.B},{a.H},{a.S},{a.D}), k ({a.B},{a.Hkv},{a.S},"
-              f"{a.D}), v Dv {a.Dv} {name} causal{win}",
+              f"{a.D}), v Dv {a.Dv} {name} causal{win} [route {route}]",
         key=flash_attention.shape_key(q, k, v, a.window), expect=a.launches,
         launches=0, max_abs_err=max(errs), bound_ms=b_ms, bound_by=b_by,
         bit_equal_rerun=bit_equal, **t)
@@ -1220,11 +1249,13 @@ def phase_k1(torch, ops, rows):
                              ((128, 512, 128), "bfloat16")):
         dt = getattr(torch, dtype)
         x, w, b = randn(M, K, dtype=dt), randn(K, N, dtype=dt), randn(N)
-        e = check_close(torch, f"neutron_matmul {dtype} ({M},{K},{N})",
-                        ops.neutron_matmul(x, w, bias=b, scale=0.5,
-                                           act="gelu"),
-                        ops.neutron_matmul(x, w, bias=b, scale=0.5,
-                                           act="gelu", impl="ref"), dtype)
+        name = f"neutron_matmul {dtype} ({M},{K},{N})"
+        got = ops.neutron_matmul(x, w, bias=b, scale=0.5, act="gelu")
+        want = no_tf32(torch, lambda: ops.neutron_matmul(
+            x, w, bias=b, scale=0.5, act="gelu", impl="ref"))
+        e = check_close(torch, name, got, want, dtype)
+        if dtype == "float32":
+            check_plan_tol(torch, name, got, want)
         print(f"  neutron_matmul (Pallas contract) {dtype} ({M},{K})x"
               f"({K},{N}) scale, bias, gelu: max|err| {e:.3g}")
     x, w = randint(-128, 128, 64, 256), randint(-128, 128, 256, 96)
@@ -1302,8 +1333,11 @@ def k1_plan_row(torch, ops, rows, randint, gen, shp: K1Shape, B: int):
 def k1_f32_row(torch, ops, rows, randn, shp: K1Shape, B: int):
     """K1's float32 Pallas contract with an (N, K) weight, as the float32
     plan calls it, at one GEMM of a path (batch B) against its plain
-    version; timed beside torch.matmul with TF32 off."""
-    from repro_torch.kernels import ref
+    version (TOL and ``float_plan_tol``), bit-equal on a rerun; timed
+    beside torch.matmul with TF32 off.  Its shape names the route of
+    ``float_plan``; the bound counts the tiled route's products at the
+    TF32 rate, three for each multiply-add pair."""
+    from repro_torch.kernels import neutron_matmul, ref
     M = B * shp.rows
     x = randn(B, shp.rows, shp.K)
     wt = randn(shp.N, shp.K) / math.sqrt(shp.K)
@@ -1311,20 +1345,37 @@ def k1_f32_row(torch, ops, rows, randn, shp: K1Shape, B: int):
     out = torch.empty((B, shp.rows, shp.N), device="cuda")
     args = (x, wt, bias, shp.act)
     ops.neutron_matmul_nk(*args, out)
+    first = out.clone()
+    ops.neutron_matmul_nk(*args, out)
     want = no_tf32(torch, lambda: ref.neutron_matmul_nk_ref(*args))
-    err = check_close(torch, f"neutron_matmul f32 {shp.what}", out, want,
+    err = check_close(torch, f"neutron_matmul f32 {shp.what}", first, want,
                       "float32")
+    check_plan_tol(torch, f"neutron_matmul f32 {shp.what}", first, want)
+    if not torch.equal(first, out):
+        fail(f"neutron_matmul f32 {shp.what}: two calls on the same inputs "
+             f"differ (the float body has no atomics)")
+    fp = neutron_matmul.float_plan(B, shp.rows, shp.N, shp.K,
+                                   (x.stride(0), 0, x.stride(1)),
+                                   (x.data_ptr(), wt.data_ptr()))
+    skinny = fp.route == neutron_matmul.SKINNY
+    route = (f"skinny, {fp.splits} warps on K" if skinny else
+             f"tiled 3xTF32, tile N {fp.tile_n}, {fp.splits} splits")
     x2, w_kn = x.view(M, shp.K), wt.t()
-    b_ms, b_by = bound(nbytes(x, wt, bias, out), 2 * M * shp.N * shp.K,
-                       "float32")
+    # the skinny route's products are FMAs; the tiled route's are three
+    # TF32 products on the tensor cores for each one
+    flops = 2 * M * shp.N * shp.K
+    b_ms, b_by = (bound(nbytes(x, wt, bias, out), flops, "float32")
+                  if skinny else
+                  bound(nbytes(x, wt, bias, out), 3 * flops, "tf32"))
     rows[("neutron_matmul", f"{shp.path}: {shp.what}")] = dict(
         name="neutron_matmul", path=shp.path, route="cuda",
         source="src/repro_torch/csrc/neutron_matmul.cu",
         replaces="src/repro/kernels/neutron_matmul.py:137",
         shape=f"{shp.what}: x ({B},{shp.rows},{shp.K}) f32, w "
               f"({shp.N},{shp.K}), bias, {shp.act}, Pallas contract "
-              f"(library: torch.matmul, TF32 off, no epilogue)",
-        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+              f"(library: torch.matmul, TF32 off, no epilogue) "
+              f"[route {route}]",
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by, bit_equal_rerun=True,
         **timings(torch, lambda: ops.neutron_matmul_nk(*args, out),
                   lambda: no_tf32(torch, lambda:
                                   ref.neutron_matmul_nk_ref(*args)),
@@ -3194,6 +3245,11 @@ TRAIN_SEQ, TRAIN_BATCH = 128, 8
 LR = 3e-4                           # AdamWConfig().lr
 
 
+# K2b's kernels (csrc/flash_attention_bwd.cu) as torch.profiler names them
+K2B_KERNEL_NAME = re.compile(r"\(anonymous namespace\)::(?:delta|dkdv|dq|"
+                             r"dkdv_mma|dq_mma|group_sum)_kernel\b")
+
+
 def _bwd_counter():
     from repro_torch.kernels import flash_attention_bwd
     return flash_attention_bwd
@@ -3277,21 +3333,25 @@ def _train_full(torch, rows) -> dict:
                 r["launches"]:
             fail(f"phase 18: {name} launched {dict(shapes)}, expected "
                  f"{r['expect']} at {r['key']}")
-    kernels, busy_us = {}, 0.0
+    kernels, busy_us, k2b_us = {}, 0.0, 0.0
     for e in prof_box["p"].events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             us = e.time_range.elapsed_us()
             busy_us += us
             kernels[e.name[:60]] = kernels.get(e.name[:60], 0.0) + us
+            if K2B_KERNEL_NAME.search(e.name):
+                k2b_us += us
     step_ms = statistics.median(r["wall_ms"] for r in steps[1:])
-    if busy_us <= 0:
-        fail("phase 18: the profiler saw no device time in a step")
+    if busy_us <= 0 or k2b_us <= 0:
+        fail(f"phase 18: the profiler saw {busy_us:.1f} us of device time "
+             f"and {k2b_us:.1f} us of K2b in a step")
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     out = dict(losses=losses, grad_norms=[r["grad_norm"] for r in steps],
                first_loss_vs_cross_entropy=rel, cross_entropy=ce0,
                wall_ms_per_step=[r["wall_ms"] for r in steps],
                step_ms_median_2_4=step_ms, busy_ms_profiled_step=busy_us / 1e3,
                busy_share=busy_us / 1e3 / step_ms,
+               k2b_ms_profiled_step=k2b_us / 1e3,
                kernels_profiled_step=sum(1 for e in prof_box["p"].events()
                                          if e.device_type ==
                                          torch.autograd.DeviceType.CUDA),
@@ -3306,7 +3366,8 @@ def _train_full(torch, rows) -> dict:
           f"of steps 2-4 {step_ms:.1f}); busy {busy_us / 1e3:.1f} ms of the "
           f"profiled step (share {out['busy_share']:.3f}); peak "
           f"{peak / 2**30:.2f} GiB; K2 {out['k2_per_step']:.0f} and K2b "
-          f"{out['k2b_per_step']:.0f} a step; top {top[:4]}")
+          f"{out['k2b_per_step']:.0f} a step; K2b {k2b_us / 1e3:.3f} ms of "
+          f"the profiled step's device time; top {top[:4]}")
     return out
 
 

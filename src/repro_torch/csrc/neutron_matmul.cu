@@ -89,11 +89,64 @@
 // (a persistent block per SM); `wgmma` and TMA pay off only where the
 // products bound it (batches far above 8).
 //
-// The f32 / bf16 bodies (the Pallas contract for float inputs, tests only)
-// are the first version's: one block of 256 threads per 64 x 64 output
-// tile of one image, grid (ceil(N/64), ceil(M/64), batch), k-tiles of 32
-// staged in shared memory as f32, each thread a 4 x 4 register tile of
-// scalar FMAs.
+// The float bodies (the Pallas contract for f32 and bf16 inputs: the
+// float32 vision plan, the float32 LM decode path, and the tests) index
+// rows over R = batch * M as the int8 body does, and take one of two
+// routes, chosen per call by the wrapper (kernels/neutron_matmul.py
+// float_plan, a pure function of R, N, K, the strides and the base
+// addresses); the launch function refuses a plan that does not hold.
+//
+//   Skinny route (R <= 16: a decode step's ff in, ff out and logits, the
+//   vision fc at batch 8), `neutron_matmul_skinny`.  What bounds it on an
+//   H100 is bytes: w is read once and every row of x reuses it, so at
+//   R = 1 a product does 2 operations per 4 bytes of w.  At the decoder's
+//   shapes w is 2.4 MB (ff in, ff out: 0.7 us at 3.35 TB/s) and 80 MB
+//   (logits: 24 us); the fc's is 5.1 MB (1.5 us).  Design: a GEMV.  A warp
+//   owns 2 output columns and streams their rows of w (the natural (N, K)
+//   layout, K-contiguous) with 16-byte loads where K, the strides and the
+//   base addresses allow (else one element a load), each lane keeping the
+//   sums of all R rows (R rounded up to 1, 2, 4, 8 or 16 in the instance)
+//   in registers, x read through the read-only cache.  Where N is small
+//   against the SMs (ff out: N = 384) the block's 8 warps split K instead
+//   of taking more columns, so the grid still covers the SMs.  The sums
+//   are reduced in a fixed order: each lane's strided partial, then
+//   rt::warp_sum, then, where warps split K, a shared-memory sum in warp
+//   order.  No atomics: a rerun gives the same bits.
+//
+//   Tiled route (R > 16: the stem im2col (100352 x 27 -> 32), the last 1x1
+//   (392 x 320 -> 1280), the decoder's prefill logits (64 x 384 -> 51865),
+//   every other float32-plan conv), `neutron_matmul_tiled`.  At those
+//   shapes bytes bound it too (stem 23.6 MB, 7 us; prefill logits 80 MB,
+//   24 us), but the scalar f32 units would not keep up (67 TFLOP/s: the
+//   prefill logits' 2.6 GFLOP take 38 us there), so the products run on
+//   the tensor cores in 3xTF32: `mma.sync.m16n8k8.tf32` on operands split
+//   into hi (a with its low 13 mantissa bits cleared: a tf32 value) and lo
+//   = a - hi (exact; the tensor core truncates it to tf32), a.b ~
+//   a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, accumulated in f32: float32
+//   accuracy (each product within ~2^-19 of itself) at three times the
+//   TF32 operations (15 us for the prefill logits at 495 TFLOP/s).  Plain
+//   TF32 is never used.  A block of 4 warps owns a 64 x TN output tile (TN
+//   32 where N <= 32, so the stem's tile is not half empty; else 64), each
+//   warp 32 x TN/2; k-tiles of 32 elements are staged in shared memory as
+//   f32 with `cp.async` (16-byte copies where the plan allows, else 4) in
+//   a ring of 4 stages (fewer where a split has fewer k-tiles), rows
+//   padded to 36 floats so that the fragment loads of a warp fall in 32
+//   distinct banks, under the largest shared-memory carveout.  The three
+//   products of a step are issued as three passes over the warp's tiles,
+//   so that no two products into one accumulator are adjacent.  Where
+//   the tile grid leaves SMs idle, K is split over blocks: each writes its
+//   f32 partial tile to a scratch the wrapper keeps per stream, and the
+//   tile's last block (an int32
+//   ticket, reset to 0 after use) sums the partials in split order, not
+//   with atomics, so a rerun gives the same bits.  bf16 inputs take the
+//   same route with one TF32 product per step: a bf16 value converted to
+//   f32 is exact in TF32, so hi = a and lo = 0 (the bf16 tiles are staged
+//   through registers, converted, without `cp.async`).
+//
+//   Both routes run the Pallas epilogue (scale, bias, activation and
+//   requantization as in the int8 body's Pallas contract) on each output
+//   where it is computed.  What is left: `wgmma` with TMA-fed tiles for the
+//   tiled route at large R, and a persistent skinny grid.
 
 #include <cstdint>
 
@@ -101,13 +154,16 @@
 
 namespace {
 
-// f32 / bf16 bodies
-constexpr int kBM = 64;
-constexpr int kBN = 64;
-constexpr int kBK = 32;               // k per staged tile
-constexpr int kThreads = 256;
-constexpr int kSide = 16;             // threads form a 16 x 16 grid
-constexpr int kReg = kBM / kSide;     // 4 x 4 outputs per thread
+// float bodies
+constexpr int kFThreads = 128;        // tiled: 4 warps, 2 x 2
+constexpr int kFTM = 64;              // tiled: output rows per tile
+constexpr int kFBK = 32;              // tiled: k elements per staged tile
+constexpr int kFLD = kFBK + 4;        // tiled: staged row pitch in floats
+constexpr int kFStages = 4;           // tiled: k-tiles in flight (ring)
+constexpr int kSkWarps = 8;           // skinny: warps a block
+constexpr int kSkCols = 2;            // skinny: output columns a warp
+constexpr int kSkMaxR = 16;           // skinny: rows it takes
+enum Route : int { kSkinny = 0, kTiled = 1 };
 
 // int8 body
 constexpr int kI8Threads = 128;       // 4 warps, 2 x 2, each 32 x 32
@@ -142,10 +198,15 @@ struct Params {
   int contract, act, scale_per_col, requant, out_dtype;
   float out_scale;
   int out_zp, qmin, qmax;
-  // int8 body: rows over batch * M, the k-split and its scratch
+  // rows over batch * M, the k-split (skinny: warps splitting K) and its
+  // scratch (int8: int32 sums; float: f32 partial tiles)
   int R, splits;
   int* scratch;
+  float* part;
   int* tickets;
+  // float bodies: row r of x lies at r * x_sx, and of y at r * ldy (rows
+  // evenly spaced across images)
+  int x_flat, y_flat;
 };
 
 
@@ -191,65 +252,9 @@ __device__ __forceinline__ float activation(float x, int act) {
   }
 }
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-// Row m of image b of x (strides in elements).
-template <typename T>
-__device__ __forceinline__ const T* x_row(const Params& p, int b, int m) {
-  return static_cast<const T*>(p.x) +
-         (static_cast<long long>(b) * p.x_bstride +
-          static_cast<long long>(m / p.x_ow) * p.x_sy +
-          static_cast<long long>(m % p.x_ow) * p.x_sx);
-}
-
-// The GEMM body for f32 / bf16 operands: f32 accumulators.  Thread t
-// stages elements (t / 32 + 8 r, t % 32), r < 8, of both tiles.
-template <typename T>
-__device__ void gemm_f(const Params& p, int b, int m0, int n0,
-                       float (&acc)[kReg][kReg]) {
-  __shared__ float xs[kBM][kBK + 1];
-  __shared__ float ws[kBN][kBK + 1];
-  const int tid = threadIdx.x;
-  const int tx = tid % kSide, ty = tid / kSide;
-  const int lr = tid / kBK, lc = tid % kBK;
-  for (int k0 = 0; k0 < p.K; k0 += kBK) {
-    const int k = k0 + lc;
-#pragma unroll
-    for (int r = 0; r < kBM / (kThreads / kBK); ++r) {
-      const int row = lr + (kThreads / kBK) * r;
-      const int m = m0 + row, n = n0 + row;
-      xs[row][lc] = (m < p.M && k < p.K)
-                        ? load_f32(x_row<T>(p, b, m) + k)
-                        : 0.f;
-      ws[row][lc] = (n < p.N && k < p.K)
-                        ? load_f32(static_cast<const T*>(p.w) +
-                                   static_cast<long long>(n) * p.K + k)
-                        : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int c = 0; c < kBK; ++c) {
-      float a[kReg], w[kReg];
-#pragma unroll
-      for (int i = 0; i < kReg; ++i) a[i] = xs[ty + kSide * i][c];
-#pragma unroll
-      for (int j = 0; j < kReg; ++j) w[j] = ws[tx + kSide * j][c];
-#pragma unroll
-      for (int i = 0; i < kReg; ++i)
-#pragma unroll
-        for (int j = 0; j < kReg; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-__device__ __forceinline__ void store(const Params& p, int b, int m, int n,
-                                      float v) {
-  const long long idx = static_cast<long long>(b) * p.y_bstride +
-                        static_cast<long long>(m) * p.ldy + n;
+// Output element idx of y (an offset in elements) in its dtype.
+__device__ __forceinline__ void store_at(const Params& p, long long idx,
+                                         float v) {
   switch (p.out_dtype) {
     case kI8:
       static_cast<int8_t*>(p.y)[idx] = static_cast<int8_t>(static_cast<int>(v));
@@ -260,6 +265,14 @@ __device__ __forceinline__ void store(const Params& p, int b, int m, int n,
     default:
       static_cast<float*>(p.y)[idx] = v;
   }
+}
+
+__device__ __forceinline__ void store(const Params& p, int b, int m, int n,
+                                      float v) {
+  store_at(p,
+           static_cast<long long>(b) * p.y_bstride +
+               static_cast<long long>(m) * p.ldy + n,
+           v);
 }
 
 // The epilogue of one output, from its accumulator (int32 as int, f32),
@@ -698,28 +711,404 @@ neutron_matmul_i8(const Params p) {
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-neutron_matmul_f(const Params p) {
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM, b = blockIdx.z;
-  float acc[kReg][kReg] = {};
-  gemm_f<T>(p, b, m0, n0, acc);
-  const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
+// --------------------------------------------------------------------------
+// float: the skinny route (a GEMV) and the tiled route (3xTF32 mma.sync)
+// --------------------------------------------------------------------------
+
+// Offset in elements of row r (over batch * M) of x.
+__device__ __forceinline__ long long f_row_offset(const Params& p, int r) {
+  return p.x_flat ? static_cast<long long>(r) * p.x_sx : x_offset(p, r);
+}
+
+// The Pallas epilogue of output (r, n) from its f32 sum, stored in place.
+__device__ __forceinline__ void store_pallas(const Params& p, int r, int n,
+                                             float acc) {
+  const int b = r / p.M;
+  store(p, b, r - b * p.M, n,
+        epilogue_pallas(p, col_scale(p, n), __int_as_float(col_bias(p, n)),
+                        acc, p.act));
+}
+
+// VEC consecutive elements of x or w as f32: one 16-byte load (VEC = 4
+// floats or 8 bf16) or one element.
+template <typename T, int VEC>
+__device__ __forceinline__ void load_vec(const T* src, float (&v)[VEC]) {
+  if constexpr (VEC == 1 && sizeof(T) == 4) {
+    v[0] = __ldg(reinterpret_cast<const float*>(src));
+  } else if constexpr (VEC == 1) {
+    const unsigned short h = __ldg(reinterpret_cast<const unsigned short*>(src));
+    v[0] = __uint_as_float(static_cast<uint32_t>(h) << 16);
+  } else if constexpr (sizeof(T) == 4) {
+    static_assert(VEC == 4, "16 bytes of f32");
+    const float4 f = __ldg(reinterpret_cast<const float4*>(src));
+    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+  } else {
+    static_assert(VEC == 8, "16 bytes of bf16");
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(src));
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-  for (int i = 0; i < kReg; ++i) {
-    const int m = m0 + ty + kSide * i;
-    if (m >= p.M) continue;
-#pragma unroll
-    for (int j = 0; j < kReg; ++j) {
-      const int n = n0 + tx + kSide * j;
-      if (n >= p.N) continue;
-      store(p, b, m, n,
-            epilogue_pallas(p, col_scale(p, n), __int_as_float(col_bias(p, n)),
-                            acc[i][j], p.act));
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
   }
 }
 
+// The skinny route: grid ceil(N / (kSkCols * kSkWarps / splits)), 8 warps;
+// warp `warp` takes columns n0 .. n0 + 1 over its K range, the block's
+// `splits` warps of a column pair splitting K in equal runs of vectors.
+// RB >= R rows (1, 2, 4, 8, 16); VEC elements a load (the plan's width).
+template <typename T, int VEC, int RB>
+__global__ void __launch_bounds__(kSkWarps * 32)
+neutron_matmul_skinny(const Params p) {
+  constexpr int C = kSkCols;
+  static_assert(RB * C <= 32, "one lane per output of a warp");
+  __shared__ float red[kSkWarps][RB * C];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int kws = p.splits;              // warps splitting K
+  const int kw = warp % kws, cg = warp / kws;
+  const int n0 = (blockIdx.x * (kSkWarps / kws) + cg) * C;
+  const int nvec = p.K / VEC;
+  const int v0 = static_cast<int>(1LL * kw * nvec / kws);
+  const int v1 = static_cast<int>(1LL * (kw + 1) * nvec / kws);
+  const T* x = static_cast<const T*>(p.x);
+  const T* w = static_cast<const T*>(p.w);
+  const T* xr[RB];
+#pragma unroll
+  for (int r = 0; r < RB; ++r) xr[r] = r < p.R ? x + f_row_offset(p, r) : x;
+  const T* wr[C];
+#pragma unroll
+  for (int j = 0; j < C; ++j)
+    wr[j] = w + static_cast<long long>(min(n0 + j, p.N - 1)) * p.K;
+
+  float acc[RB][C];
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int j = 0; j < C; ++j) acc[r][j] = 0.f;
+#pragma unroll 2
+  for (int v = v0 + lane; v < v1; v += 32) {
+    const int k = v * VEC;
+    float wv[C][VEC];
+#pragma unroll
+    for (int j = 0; j < C; ++j) load_vec<T, VEC>(wr[j] + k, wv[j]);
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      if (r < p.R) {
+        float xv[VEC];
+        load_vec<T, VEC>(xr[r] + k, xv);
+#pragma unroll
+        for (int j = 0; j < C; ++j)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            acc[r][j] = fmaf(xv[e], wv[j][e], acc[r][j]);
+      }
+    }
+  }
+  // Lane r * C + j keeps output (r, n0 + j) of this warp's K range.
+  float mine = 0.f;
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const float s = rt::warp_sum(acc[r][j]);
+      if (lane == r * C + j) mine = s;
+    }
+  const int r = lane / C, n = n0 + lane % C;
+  const bool out = lane < RB * C && r < p.R && n < p.N;
+  if (kws == 1) {
+    if (out) store_pallas(p, r, n, mine);
+    return;
+  }
+  if (lane < RB * C) red[warp][lane] = mine;
+  __syncthreads();
+  if (kw == 0 && out) {
+    float s = 0.f;
+    for (int i = 0; i < kws; ++i) s += red[warp + i][lane];
+    store_pallas(p, r, n, s);
+  }
+}
+
+// c += a (16 x 8, row) * b (8 x 8, col), tf32 in, f32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The operand halves of N values where SPLIT (f32 inputs): hi = v with its
+// low 13 mantissa bits cleared (a tf32 value), lo = v - hi (exact in f32;
+// the tensor core reads its top 19 bits, so lo is taken to tf32 by
+// truncation, an error below 2^-20 |v|).  Where not SPLIT (bf16 inputs,
+// exact in tf32) hi = v.
+template <bool SPLIT, int N>
+__device__ __forceinline__ void tf32_split(const float (&v)[N],
+                                           uint32_t (&hi)[N],
+                                           uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    hi[i] = __float_as_uint(v[i]) & (SPLIT ? 0xffffe000u : 0xffffffffu);
+    lo[i] = SPLIT ? __float_as_uint(v[i] - __uint_as_float(hi[i])) : 0u;
+  }
+}
+
+// The tiled route's staging geometry for CW elements a copy: a thread
+// stages rows rr, rr + RSTEP, ... of both operands at one column chunk.
+template <int CW>
+struct FStage {
+  static constexpr int CPR = kFBK / CW;            // copies per row
+  static constexpr int RSTEP = kFThreads / CPR;
+};
+
+// Stage k-tile kt of x (kFTM rows) and w (BN rows) into `st` as f32 at
+// pitch kFLD: f32 by `cp.async` of CW floats (zero-filled past K and past
+// the last row, whose pointer is null), bf16 element by element through
+// registers.  `any` is a valid address that a zero-filled copy names.
+template <typename T, int CW, int NX, int NW>
+__device__ __forceinline__ void f_stage(float* st, const T* const (&xr)[NX],
+                                        const T* const (&wr)[NW],
+                                        const T* any, int kt, int K) {
+  using G = FStage<CW>;
+  const int cc = threadIdx.x % G::CPR;
+  const int rr = threadIdx.x / G::CPR;
+  const int k = kt * kFBK + cc * CW;
+#pragma unroll
+  for (int i = 0; i < NX + NW; ++i) {
+    const T* src = i < NX ? xr[i] : wr[i - NX];
+    const int row = i < NX ? rr + i * G::RSTEP : kFTM + rr + (i - NX) * G::RSTEP;
+    float* dst = st + row * kFLD + cc * CW;
+    const bool ok = src != nullptr && k < K;
+    if constexpr (sizeof(T) == 4) {
+      rt::cp_async<4 * CW>(dst, ok ? src + k : any, ok);
+    } else {
+      static_assert(CW == 1, "bf16 is staged one element a thread");
+      *dst = ok ? rt::to_float(src[k]) : 0.f;
+    }
+  }
+}
+
+// The tiled route: grid (ceil(R / 64), ceil(N / BN), splits), 4 warps of
+// 32 x BN/2 outputs (2 x BN/16 mma tiles of 16 x 8); k-tiles kt0 .. kt1 of
+// this split through a ring of up to kFStages stages; f32 inputs in
+// 3xTF32, bf16 in one TF32 product.  Dynamic shared memory: min(kFStages,
+// the most k-tiles a split has) stages of (64 + BN) * kFLD floats.
+template <typename T, int BN, int CW>
+__global__ void __launch_bounds__(kFThreads)
+neutron_matmul_tiled(const Params p) {
+  using G = FStage<CW>;
+  constexpr int NX = kFTM / G::RSTEP, NW = BN / G::RSTEP;
+  constexpr int NJ = BN / 16;                       // n-tiles of a warp
+  constexpr int STAGE = (kFTM + BN) * kFLD;
+  constexpr bool SPLIT = sizeof(T) == 4;
+  static_assert(kFTM % G::RSTEP == 0 && BN % G::RSTEP == 0, "whole rows");
+  static_assert(NJ % 2 == 0, "B fragments two n-tiles a load");
+  extern __shared__ __align__(16) float fsmem[];
+  __shared__ int last_block;
+
+  const int r0 = blockIdx.x * kFTM;
+  const int n0 = blockIdx.y * BN;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int g = lane >> 2, t = lane & 3;
+  const int lm_row = lane & 7, lm_mat = lane >> 3;
+  const T* x = static_cast<const T*>(p.x);
+  const T* w = static_cast<const T*>(p.w);
+
+  const T* xr[NX];
+  const T* wr[NW];
+  const int rr = threadIdx.x / G::CPR;
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    const int r = r0 + rr + i * G::RSTEP;
+    xr[i] = r < p.R ? x + f_row_offset(p, r) : nullptr;
+  }
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const int n = n0 + rr + i * G::RSTEP;
+    wr[i] = n < p.N ? w + static_cast<long long>(n) * p.K : nullptr;
+  }
+  const int kt_all = (p.K + kFBK - 1) / kFBK;
+  const int kt0 = static_cast<int>(1LL * blockIdx.z * kt_all / p.splits);
+  const int kt1 = static_cast<int>(1LL * (blockIdx.z + 1) * kt_all / p.splits);
+  const int nk = kt1 - kt0;
+
+  float acc[2][NJ][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < NJ; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kFStages - 1; ++s) {
+    if (s < nk) f_stage<T, CW, NX, NW>(fsmem + s * STAGE, xr, wr, x, kt0 + s,
+                                       p.K);
+    rt::cp_async_commit();
+  }
+  for (int it = 0; it < nk; ++it) {
+    rt::cp_async_wait<kFStages - 2>();
+    __syncthreads();  // tile `it` has landed; tile it - 1 is consumed
+    const int nxt = it + kFStages - 1;
+    if (nxt < nk)
+      f_stage<T, CW, NX, NW>(fsmem + (nxt % kFStages) * STAGE, xr, wr, x,
+                             kt0 + nxt, p.K);
+    rt::cp_async_commit();
+    // Fragments by `ldmatrix`: a 32-bit element is a pair of 16-bit ones,
+    // so matrix j of an x4 load gives lane (g, t) the float at row g,
+    // column t of an 8 x 4 block of floats; lane l names row l % 8 of
+    // block l / 8.
+    const float* st = fsmem + (it % kFStages) * STAGE;
+    const float* xs = st + (wm * 32 + (lm_mat & 1) * 8 + lm_row) * kFLD +
+                      (lm_mat >> 1) * 4;
+    const float* ws = st + (kFTM + wn * (BN / 2) + (lm_mat >> 1) * 8 +
+                            lm_row) * kFLD + (lm_mat & 1) * 4;
+#pragma unroll
+    for (int kb = 0; kb < kFBK; kb += 8) {
+      uint32_t ah[2][4], al[2][4], bh[NJ][2], bl[NJ][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        uint32_t u[4];
+        rt::ldmatrix_x4(u, xs + mi * 16 * kFLD + kb);
+        const float v[4] = {__uint_as_float(u[0]), __uint_as_float(u[1]),
+                            __uint_as_float(u[2]), __uint_as_float(u[3])};
+        tf32_split<SPLIT, 4>(v, ah[mi], al[mi]);
+      }
+#pragma unroll
+      for (int nj = 0; nj < NJ; nj += 2) {
+        uint32_t u[4];
+        rt::ldmatrix_x4(u, ws + nj * 8 * kFLD + kb);
+        const float v0[2] = {__uint_as_float(u[0]), __uint_as_float(u[1])};
+        const float v1[2] = {__uint_as_float(u[2]), __uint_as_float(u[3])};
+        tf32_split<SPLIT, 2>(v0, bh[nj], bl[nj]);
+        tf32_split<SPLIT, 2>(v1, bh[nj + 1], bl[nj + 1]);
+      }
+      // the small terms first, each pass over every tile, so that the
+      // products into one accumulator are 2 * NJ instructions apart
+      if constexpr (SPLIT) {
+#pragma unroll
+        for (int nj = 0; nj < NJ; ++nj)
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+            mma_tf32(acc[mi][nj], al[mi], bh[nj][0], bh[nj][1]);
+#pragma unroll
+        for (int nj = 0; nj < NJ; ++nj)
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+            mma_tf32(acc[mi][nj], ah[mi], bl[nj][0], bl[nj][1]);
+      }
+#pragma unroll
+      for (int nj = 0; nj < NJ; ++nj)
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          mma_tf32(acc[mi][nj], ah[mi], bh[nj][0], bh[nj][1]);
+    }
+  }
+  rt::cp_async_wait<0>();
+
+  if (p.splits > 1) {
+    // This split's partial tile into its slot of the scratch; the tile's
+    // last block reads every split's back and sums them in split order.
+    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+    float* part = p.part + (static_cast<size_t>(tile) * p.splits +
+                            blockIdx.z) * (kFTM * BN);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < NJ; ++nj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int lr = wm * 32 + mi * 16 + g + 8 * h;
+          const int lc = wn * (BN / 2) + nj * 8 + 2 * t;
+          __stcg(reinterpret_cast<float2*>(part + lr * BN + lc),
+                 make_float2(acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]));
+        }
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int* ticket = p.tickets + tile;
+      const int done = atomicAdd(ticket, 1);
+      last_block = done == p.splits - 1;
+      if (last_block) *ticket = 0;
+    }
+    __syncthreads();
+    if (!last_block) return;
+    __threadfence();
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < NJ; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
+    for (int s = 0; s < p.splits; ++s) {
+      const float* ps =
+          p.part + (static_cast<size_t>(tile) * p.splits + s) * (kFTM * BN);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < NJ; ++nj)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int lr = wm * 32 + mi * 16 + g + 8 * h;
+            const int lc = wn * (BN / 2) + nj * 8 + 2 * t;
+            const float2 v =
+                __ldcg(reinterpret_cast<const float2*>(ps + lr * BN + lc));
+            acc[mi][nj][2 * h] += v.x;
+            acc[mi][nj][2 * h + 1] += v.y;
+          }
+    }
+  }
+
+  // The epilogue: the tile's sums go through shared memory (the ring is
+  // read no more) at a pitch of BN + 8 floats (a half-warp's float2 stores
+  // fall in distinct banks); then each warp takes whole rows, a lane one
+  // column in 32, so the stores of a row are consecutive and each lane's
+  // column scale and bias are read once.
+  constexpr int OLD = BN + 8;
+  static_assert(kFTM * OLD <= STAGE, "the output tile fits one stage");
+  __syncthreads();
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < NJ; ++nj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int lr = wm * 32 + mi * 16 + g + 8 * h;
+        const int lc = wn * (BN / 2) + nj * 8 + 2 * t;
+        *reinterpret_cast<float2*>(fsmem + lr * OLD + lc) =
+            make_float2(acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
+      }
+  __syncthreads();
+  constexpr int CPL = BN / 32;          // columns a lane
+  float sc[CPL], bi[CPL];
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) {
+    const int n = min(n0 + lane + 32 * c, p.N - 1);
+    sc[c] = col_scale(p, n);
+    bi[c] = __int_as_float(col_bias(p, n));
+  }
+  const int rows = min(kFTM, p.R - r0);
+  for (int lr = warp; lr < rows; lr += kFThreads / 32) {
+    const int r = r0 + lr;
+    const int b = p.y_flat ? 0 : r / p.M;
+    const long long off = static_cast<long long>(b) * p.y_bstride +
+                          static_cast<long long>(r - b * p.M) * p.ldy;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      const int lc = lane + 32 * c;
+      if (n0 + lc < p.N)
+        store_at(p, off + n0 + lc,
+                 epilogue_pallas(p, sc[c], bi[c], fsmem[lr * OLD + lc],
+                                 p.act));
+    }
+  }
+}
 
 // The int8 body's checks of what the wrapper's plan promised: the load
 // width divides K, the strides and both base addresses; span mode has
@@ -760,6 +1149,103 @@ int launch_i8(const dim3& grid, const Params& p, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The float bodies' checks of what the wrapper's float_plan promised: a
+// load of 16 bytes divides K, the strides (in bytes) and both base
+// addresses, else loads are one element (`elem` bytes); the skinny route
+// takes R <= 16 rows with 1, 2, 4 or 8 warps splitting K, each warp no
+// fewer than one vector, and tile_n its block's columns; the tiled route
+// takes R > 16, a tile of 32 or 64 columns (at most 65535 tiles across
+// N) and at least one k-tile per split, a split with its scratch and
+// tickets.
+bool float_plan_ok(const Params& p, int elem, int load, int route,
+                   int tile_n) {
+  if (load == 16) {
+    const unsigned long long bits =
+        reinterpret_cast<uintptr_t>(p.x) | reinterpret_cast<uintptr_t>(p.w) |
+        static_cast<unsigned long long>(p.K) * elem |
+        static_cast<unsigned long long>(p.x_sx) * elem |
+        static_cast<unsigned long long>(p.x_sy) * elem |
+        static_cast<unsigned long long>(p.x_bstride) * elem;
+    if (bits % 16 != 0) return false;
+  } else if (load != elem) {
+    return false;
+  }
+  if (route == kSkinny) {
+    const int kws = p.splits;
+    return p.R <= kSkMaxR && (kws == 1 || kws == 2 || kws == 4 || kws == 8) &&
+           tile_n == kSkCols * kSkWarps / kws &&
+           p.K / (load / elem) >= kws;
+  }
+  if (route == kTiled) {
+    const int kt_all = (p.K + kFBK - 1) / kFBK;
+    return p.R > kSkMaxR && (tile_n == 32 || tile_n == 64) &&
+           (p.N + tile_n - 1) / tile_n <= 65535 && p.splits >= 1 && p.splits <= kt_all &&
+           (p.splits == 1 || (p.part && p.tickets));
+  }
+  return false;
+}
+
+template <typename T, int VEC>
+int launch_skinny(const Params& p, int tile_n, cudaStream_t st) {
+  const dim3 grid(static_cast<unsigned>((p.N + tile_n - 1) / tile_n));
+  const int rb = p.R <= 1 ? 1 : p.R <= 2 ? 2 : p.R <= 4 ? 4 : p.R <= 8 ? 8
+                                                                      : 16;
+  switch (rb) {
+#define RT_K1_SKINNY(RB)                                                   \
+  case RB:                                                                 \
+    neutron_matmul_skinny<T, VEC, RB><<<grid, kSkWarps * 32, 0, st>>>(p); \
+    break;
+    RT_K1_SKINNY(1) RT_K1_SKINNY(2) RT_K1_SKINNY(4) RT_K1_SKINNY(8)
+    RT_K1_SKINNY(16)
+#undef RT_K1_SKINNY
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tiled route's 14-74 KB of shared memory a block: the largest
+// carveout (as for the int8 body) lets an SM hold as many blocks as its
+// registers allow; a split with fewer k-tiles than the ring gets that
+// many stages.
+template <typename T, int BN, int CW>
+int launch_tiled(const Params& p, cudaStream_t st) {
+  static const cudaError_t attrs = [] {
+    const cudaError_t e = cudaFuncSetAttribute(
+        neutron_matmul_tiled<T, BN, CW>,
+        cudaFuncAttributePreferredSharedMemoryCarveout,
+        static_cast<int>(cudaSharedmemCarveoutMaxShared));
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(
+        neutron_matmul_tiled<T, BN, CW>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kFStages * (kFTM + BN) * kFLD * static_cast<int>(sizeof(float)));
+  }();
+  if (attrs != cudaSuccess) return static_cast<int>(attrs);
+  const int kt_all = (p.K + kFBK - 1) / kFBK;
+  const int stages = min(kFStages, (kt_all + p.splits - 1) / p.splits);
+  const dim3 grid(static_cast<unsigned>((p.R + kFTM - 1) / kFTM),
+                  (p.N + BN - 1) / BN, p.splits);
+  const int smem =
+      stages * (kFTM + BN) * kFLD * static_cast<int>(sizeof(float));
+  neutron_matmul_tiled<T, BN, CW><<<grid, kFThreads, smem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_float(const Params& p, int load, int route, int tile_n,
+                 cudaStream_t st) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (route == kSkinny)
+    return load == 16 ? launch_skinny<T, VEC>(p, tile_n, st)
+                      : launch_skinny<T, 1>(p, tile_n, st);
+  if constexpr (sizeof(T) == 4) {
+    if (load == 16)
+      return tile_n == 32 ? launch_tiled<T, 32, 4>(p, st)
+                          : launch_tiled<T, 64, 4>(p, st);
+  }
+  return tile_n == 32 ? launch_tiled<T, 32, 1>(p, st)
+                      : launch_tiled<T, 64, 1>(p, st);
+}
+
 }  // namespace
 
 RT_DEFINE_ERROR_STRING
@@ -769,14 +1255,20 @@ RT_DEFINE_ERROR_STRING
 // int8 inputs take the plan of kernels/neutron_matmul.py: `load` (16, 8,
 // 4, 1, or 0 for span mode) and `splits`; with splits > 1, `scratch`
 // holds ceil(R/64) * ceil(N/64) * 4096 int32 and `tickets` ceil(R/64) *
-// ceil(N/64) int32, all 0 on entry (and again on exit).
+// ceil(N/64) int32, all 0 on entry (and again on exit).  f32 and bf16
+// inputs take its float_plan: `route` (0 skinny, 1 tiled), `tile_n`,
+// `load` (16 or the element size) and `splits`; a tiled split has in
+// `scratch` ceil(R/64) * ceil(N/tile_n) * splits * 64 * tile_n floats
+// (no initial value) and in `tickets` one int32 a tile, 0 on entry (and
+// again on exit).
 extern "C" int neutron_matmul_launch(
     const void* x, const void* w, const void* scale, const void* bias,
     void* y, int batch, int M, int N, int K, long long x_bstride, int x_ow,
     long long x_sy, long long x_sx, long long y_bstride, int ldy,
     int in_dtype, int out_dtype, int contract, int act, int scale_per_col,
     int requant, float out_scale, int out_zp, int qmin, int qmax, int load,
-    int splits, void* scratch, void* tickets, void* stream) {
+    int splits, int route, int tile_n, void* scratch, void* tickets,
+    void* stream) {
   if (batch < 1 || M < 1 || N < 1 || K < 1 || x_ow < 1 ||
       act < kNone || act > kLeaky ||
       (contract == kPlan && (in_dtype != kI8 || !scale)))
@@ -784,10 +1276,14 @@ extern "C" int neutron_matmul_launch(
   Params p{x, w, static_cast<const float*>(scale), bias, y, M, N, K,
            x_bstride, x_sy, x_sx, x_ow, y_bstride, ldy, contract, act,
            scale_per_col, requant, out_dtype, out_scale, out_zp, qmin, qmax,
-           0, splits, static_cast<int*>(scratch), static_cast<int*>(tickets)};
+           0, splits, static_cast<int*>(scratch),
+           static_cast<float*>(scratch), static_cast<int*>(tickets)};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long R = 1LL * batch * M;
+  p.x_flat = (x_ow >= M || x_sy == 1LL * x_ow * x_sx) &&
+             (batch == 1 || x_bstride == 1LL * M * x_sx);
+  p.y_flat = batch == 1 || y_bstride == 1LL * M * ldy;
   if (in_dtype == kI8) {
-    const long long R = 1LL * batch * M;
     if (R > (1LL << 30) || (N + kTN - 1) / kTN > 65535 || splits > 65535 ||
         !i8_plan_ok(p, batch, load))
       return static_cast<int>(cudaErrorInvalidValue);
@@ -805,18 +1301,19 @@ extern "C" int neutron_matmul_launch(
                    : launch_i8<kSpan, 1>(grid, p, st);
     }
   }
-  if ((M + kBM - 1) / kBM > 65535 || batch > 65535)
+  if (R > (1LL << 30) || splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, batch);
+  p.R = static_cast<int>(R);
   switch (in_dtype) {
     case kF32:
-      neutron_matmul_f<float><<<grid, kThreads, 0, st>>>(p);
-      break;
+      if (!float_plan_ok(p, 4, load, route, tile_n))
+        return static_cast<int>(cudaErrorInvalidValue);
+      return launch_float<float>(p, load, route, tile_n, st);
     case kBF16:
-      neutron_matmul_f<__nv_bfloat16><<<grid, kThreads, 0, st>>>(p);
-      break;
+      if (!float_plan_ok(p, 2, load, route, tile_n))
+        return static_cast<int>(cudaErrorInvalidValue);
+      return launch_float<__nv_bfloat16>(p, load, route, tile_n, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -7,17 +7,22 @@ Launch wrapper of the hand-written CUDA kernel
 jnp around its fused attention.  From q, k, v, the forward's output o
 and its float32 log-sum-exp (K2 with ``return_lse``) and the cotangent
 do, it recomputes each (query tile, key tile) block's probabilities and
-never stores an (S x S) matrix.  Three launches: the row sums
-``delta = rowsum(do o)``, then one block per key tile for dK and dV
-(summed over the query heads of a kv head's group inside the block), then
-one block per query tile for dQ; no atomics, so a step's gradients are
-the same bits on every run.  Scalar f32 arithmetic for float32 and
-bfloat16 inputs.  Its plain PyTorch version is
+never stores an (S x S) matrix.  The row sums ``delta = rowsum(do o)``
+first, then one block per key tile for dK and dV (summed over the query
+heads of a kv head's group), then one block per query tile for dQ; no
+atomics, so a step's gradients are the same bits on every run.  Two
+routes, from :func:`bwd_plan` (a pure function): MMA, bf16 products on
+the tensor cores, for bfloat16 with D and Dv multiples of 16 up to 192
+(every trained path), where a small grid splits a large group over G
+slices whose float32 partials a last kernel sums in slice order
+(:func:`group_split`); SCALAR, the first version's f32 FMAs, for float32
+and the other head dims.  Its plain PyTorch version is
 ``ref.flash_attention_bwd_ref``; ``ops.FlashAttentionFn`` chooses
 between the two by the device of the inputs.
 
 ``launches`` counts the calls that launched the kernels (one per call,
-three CUDA kernels each), ``launches_by_shape`` the same by
+three CUDA kernels each, five where a group is split),
+``launches_by_shape`` the same by
 ``flash_attention.shape_key``.
 """
 from __future__ import annotations
@@ -26,7 +31,7 @@ import ctypes
 import math
 import threading
 from collections import Counter
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -38,8 +43,45 @@ launches_by_shape: Counter = Counter()
 _lock = threading.Lock()             # the counters, across threads
 
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p]
+    ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+
+SCALAR, MMA = 0, 1        # the routes
+SMS = 132                 # streaming multiprocessors of an H100 SXM
+MMA_TILE = 64             # keys of a dK/dV block of the MMA route
+MMA_MAX_HEAD_DIM = 192    # the MMA route's largest D and Dv (multiples of 16)
+
+
+class BwdPlan(NamedTuple):
+    """How a call runs: ``route`` SCALAR or MMA, and ``G``, the slices
+    its dK/dV grid splits each group of query heads into (1 on the
+    SCALAR route, which walks a whole group in one block)."""
+    route: int
+    G: int
+
+
+def group_split(B: int, Hkv: int, Sk: int, group: int) -> int:
+    """Slices of a group of ``group`` query heads on the MMA route's dK/dV
+    grid: 1 where B * Hkv * ceil(Sk / MMA_TILE) blocks fill the SMS SMs
+    (or the group is 1), else the smallest divisor of the group that
+    makes them fill it, else the whole group (one head a slice).  G
+    always divides the group, so every slice has group / G heads."""
+    blocks = B * Hkv * -(-Sk // MMA_TILE)
+    if blocks >= SMS or group == 1:
+        return 1
+    for G in range(2, group + 1):
+        if group % G == 0 and blocks * G >= SMS:
+            return G
+    return group
+
+
+def bwd_plan(dtype: torch.dtype, B: int, Hkv: int, Sk: int, group: int,
+             D: int, Dv: int) -> BwdPlan:
+    """MMA for bfloat16 with D and Dv multiples of 16 up to
+    MMA_MAX_HEAD_DIM, with ``group_split``'s G; else SCALAR with G 1."""
+    if dtype == torch.bfloat16 and D % 16 == 0 and Dv % 16 == 0 and \
+            max(D, Dv) <= MMA_MAX_HEAD_DIM:
+        return BwdPlan(MMA, group_split(B, Hkv, Sk, group))
+    return BwdPlan(SCALAR, 1)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -99,6 +141,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v, o, lse, do = (_build.aligned(t) for t in (q, k, v, o, lse, do))
     delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    route, G = bwd_plan(q.dtype, B, Hkv, Sk, H // Hkv, D, Dv)
+    scratch = None if G == 1 else torch.empty(
+        G * B * Hkv * Sk * (D + Dv), dtype=torch.float32, device=dev)
     fn = _build.function("flash_attention_bwd", "flash_attention_bwd_launch",
                          _ARGTYPES)
     with torch.cuda.device(dev):
@@ -106,7 +151,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Hkv, S,
                 Sk, D, Dv, sm_scale, int(causal), int(window or 0),
-                _build.DTYPE_CODES[q.dtype], _build.stream_of(q))
+                _build.DTYPE_CODES[q.dtype], route, G,
+                None if scratch is None else scratch.data_ptr(),
+                _build.stream_of(q))
     _build.check(rc, "flash_attention_bwd")
     with _lock:
         launches += 1

@@ -22,7 +22,12 @@ inputs.
 
 The int8 body runs on the tensor cores; its load width, span mode and
 k-split come from :func:`plan`, a pure function of the shapes, strides
-and base addresses.  The split scratch is kept per (device, stream).
+and base addresses.  The float32 and bfloat16 inputs take one of two
+routes from :func:`float_plan`, likewise pure: a GEMV for at most
+SKINNY_MAX_ROWS rows over batch * M (a decode step, the fc), and 3xTF32
+products on the tensor cores for more.  A split's partial tiles (int32
+for the int8 body, float32 for the float one) and its tickets are kept
+per (device, stream).
 
 ``launches`` counts the kernel launches of this process (every
 contract), ``launches_by_contract`` the same launches by
@@ -49,11 +54,10 @@ _lock = threading.Lock()
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
              + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                 ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
-             + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 5
+             + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 7
              + [ctypes.c_void_p] * 3)
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _PALLAS, _PLAN = 0, 1
-_MAX_ROW_TILES = 65535          # float bodies: grid.y = ceil(M / 64)
 _ACT_CODES = {a: i for i, a in enumerate(IR_ACTIVATIONS)}
 
 SMS = 132                 # streaming multiprocessors of an H100 SXM
@@ -62,6 +66,15 @@ RING_BK = 64              # bytes of K per stage of its cp.async ring
 SPAN_MAX_K = 160          # span mode takes the whole K in one tile
 MIN_SPLIT_KTILES = 2      # no k-split gets fewer k-tiles than this
 SPAN = 0                  # the load mode of span mode
+
+# the float bodies
+SKINNY, TILED = 0, 1      # their routes
+SKINNY_MAX_ROWS = 16      # the skinny route takes batch * M up to this
+SKINNY_WARPS = 8          # warps of a skinny block
+SKINNY_COLS = 2           # output columns a skinny warp owns
+SKINNY_MIN_K = 256        # elements of K each splitting warp keeps
+F_TILE_M = 64             # the tiled route's output tile is 64 x tile_n
+F_BK = 32                 # elements of K per staged k-tile
 
 
 class K1Plan(NamedTuple):
@@ -95,13 +108,14 @@ def rows_contiguous(batch: int, M: int, K: int, x_bstride: int, x_ow: int,
             and (batch == 1 or x_bstride == M * K))
 
 
-def num_splits(tiles: int, K: int) -> int:
+def num_splits(tiles: int, K: int, k_tile: int = RING_BK) -> int:
     """How many k-ranges each output tile is split into: enough that
     ``tiles * splits`` blocks fill the SMS SMs, as far as every range
-    keeps MIN_SPLIT_KTILES k-tiles of RING_BK bytes; at least 1."""
+    keeps MIN_SPLIT_KTILES k-tiles of ``k_tile`` elements (the int8
+    ring's RING_BK bytes, the tiled float route's F_BK); at least 1."""
     if tiles >= SMS:
         return 1
-    k_tiles = -(-K // RING_BK)
+    k_tiles = -(-K // k_tile)
     return max(1, min(-(-SMS // tiles), k_tiles // MIN_SPLIT_KTILES))
 
 
@@ -121,21 +135,71 @@ def plan(batch: int, M: int, N: int, K: int, x_bstride: int, x_ow: int,
                   num_splits(row_tiles * col_tiles, K))
 
 
-# Per (device index, stream handle): the int32 partial sums of split
-# tiles and their tickets, which the kernel leaves at 0.
-_scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+class FloatPlan(NamedTuple):
+    """How a float32 or bfloat16 call runs.  ``route`` SKINNY: grid
+    ceil(N / tile_n) blocks of SKINNY_WARPS warps, each owning
+    SKINNY_COLS columns, ``splits`` warps of a column pair splitting K
+    (so ``tile_n`` = SKINNY_COLS * SKINNY_WARPS / splits columns a
+    block).  ``route`` TILED: grid (ceil(R / 64), ceil(N / tile_n),
+    splits), K split over blocks.  ``load``: 16-byte loads, or one
+    element (its size in bytes) a load."""
+    route: int
+    tile_n: int
+    load: int
+    splits: int
 
 
-def _scratch_for(dev: torch.device, stream: int, tiles: int
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The split scratch of (device, stream), grown to ``tiles`` tiles;
-    zeroed when allocated, reset to 0 by the kernel after each use."""
-    key = (dev.index, stream)
+def skinny_k_warps(N: int, K: int) -> int:
+    """Warps of a skinny block that split K (1, 2, 4 or 8): doubled while
+    the grid has fewer than 2 * SMS blocks and each warp keeps at least
+    SKINNY_MIN_K elements of K."""
+    kw = 1
+    while (kw < SKINNY_WARPS
+           and -(-N // (SKINNY_COLS * SKINNY_WARPS // kw)) < 2 * SMS
+           and K // (2 * kw) >= SKINNY_MIN_K):
+        kw *= 2
+    return kw
+
+
+def float_plan(batch: int, M: int, N: int, K: int,
+               strides: Tuple[int, int, int], ptrs: Tuple[int, int],
+               elem: int = 4) -> FloatPlan:
+    """The float bodies' plan for x rows (batch * M of K elements of
+    ``elem`` bytes; ``strides`` = (batch, row, column) strides of x in
+    elements) and w (N, K) at the base addresses ``ptrs`` (x, w).  The
+    route depends on batch * M alone: SKINNY up to SKINNY_MAX_ROWS rows,
+    else TILED with a tile of 32 columns where N <= 32 (else 64), split
+    along K where the tiles leave SMs idle.  Loads are 16 bytes where K,
+    the strides and the addresses allow, else one element."""
+    R = batch * M
+    wide = load_width(K * elem, tuple(v * elem for v in strides),
+                      ptrs) == 16
+    load = 16 if wide else elem
+    if R <= SKINNY_MAX_ROWS:
+        kw = skinny_k_warps(N, K)
+        return FloatPlan(SKINNY, SKINNY_COLS * SKINNY_WARPS // kw, load, kw)
+    tile_n = 32 if N <= 32 else 64
+    tiles = -(-R // F_TILE_M) * -(-N // tile_n)
+    return FloatPlan(TILED, tile_n, load, num_splits(tiles, K, F_BK))
+
+
+# Per (device index, stream handle, dtype of the partials): the partial
+# tiles of split calls and their tickets, which the kernel leaves at 0.
+_scratch: Dict[Tuple[int, int, torch.dtype],
+               Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scratch_for(dev: torch.device, stream: int, tiles: int, n_part: int,
+                 dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split scratch of (device, stream): ``n_part`` partials of
+    ``dtype`` and ``tiles`` tickets, zeroed when allocated.  The kernel
+    resets the tickets and the int8 body's int32 sums to 0 after each
+    use; the float body writes its partials before it reads them."""
+    key = (dev.index, stream, dtype)
     with _lock:
         part, tickets = _scratch.get(key, (None, None))
-        if part is None or part.numel() < tiles * TILE * TILE:
-            part = torch.zeros(tiles * TILE * TILE, dtype=torch.int32,
-                               device=dev)
+        if part is None or part.numel() < n_part:
+            part = torch.zeros(n_part, dtype=dtype, device=dev)
         if tickets is None or tickets.numel() < tiles:
             tickets = torch.zeros(tiles, dtype=torch.int32, device=dev)
         _scratch[key] = (part, tickets)
@@ -176,20 +240,27 @@ def _launch(x, w, scale, bias, y, rows, N, ldy, y_bstride, out_code,
     global launches
     B, M, K, xb, x_ow, x_sy, x_sx = rows
     stream = _build.stream_of(x)
-    load, splits, part, tickets = 1, 1, None, None
+    route, tile_n, part, tickets = 0, TILE, None, None
+    if B * M > 1 << 30 or -(-N // TILE) > 65535:
+        raise ValueError(f"neutron_matmul: batch * M = {B * M}, N={N} "
+                         f"exceed the kernel's grid")
     if x.dtype == torch.int8:
-        if B * M > 1 << 30 or -(-N // TILE) > 65535:
-            raise ValueError(f"neutron_matmul: batch * M = {B * M}, N={N} "
-                             f"exceed the kernel's grid")
         pl = plan(B, M, N, K, xb, x_ow, x_sy, x_sx, x.data_ptr(),
                   w.data_ptr())
         load, splits = pl.load, pl.splits
         if splits > 1:
-            part, tickets = _scratch_for(x.device, stream,
-                                         pl.row_tiles * pl.col_tiles)
-    elif -(-M // 64) > _MAX_ROW_TILES or B > 65535:
-        raise ValueError(f"neutron_matmul: M={M}, batch={B} exceed the "
-                         f"kernel's grid")
+            tiles = pl.row_tiles * pl.col_tiles
+            part, tickets = _scratch_for(x.device, stream, tiles,
+                                         tiles * TILE * TILE, torch.int32)
+    else:
+        fp = float_plan(B, M, N, K, (xb, x_sy, x_sx),
+                        (x.data_ptr(), w.data_ptr()), x.element_size())
+        route, tile_n, load, splits = fp
+        if route == TILED and splits > 1:
+            tiles = -(-B * M // F_TILE_M) * -(-N // tile_n)
+            part, tickets = _scratch_for(
+                x.device, stream, tiles, tiles * splits * F_TILE_M * tile_n,
+                torch.float32)
     fn = _build.function("neutron_matmul", "neutron_matmul_launch",
                          _ARGTYPES)
     with torch.cuda.device(x.device):
@@ -199,7 +270,7 @@ def _launch(x, w, scale, bias, y, rows, N, ldy, y_bstride, out_code,
                 y.data_ptr(), B, M, N, K, xb, x_ow, x_sy, x_sx, y_bstride,
                 ldy, _CODES[x.dtype], out_code, contract, act,
                 scale_per_col, requant, out_scale, out_zp, qmin, qmax,
-                load, splits,
+                load, splits, route, tile_n,
                 part.data_ptr() if part is not None else None,
                 tickets.data_ptr() if tickets is not None else None,
                 stream)
@@ -320,7 +391,9 @@ def neutron_matmul_nk(x: torch.Tensor, wt: torch.Tensor,
                       out: torch.Tensor) -> torch.Tensor:
     """The Pallas contract in float32 with an (N, K) weight, written into
     ``out`` in place: ``out[b,m,n] = act(sum_k x[b,m,k] wt[n,k] +
-    bias[n])``, accumulated in f32 on FMAs (no TF32).
+    bias[n])``, accumulated in f32: on FMAs up to SKINNY_MAX_ROWS rows
+    over batch * M, above that on the tensor cores in 3xTF32 (split
+    hi/lo operands, three TF32 products each), never in plain TF32.
 
     x float32 (batch, M, K) or (batch, R, C, K) (M = R*C rows, e.g. a
     strided view of an arena slot), unit stride along K; wt float32 (N, K)

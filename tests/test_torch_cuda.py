@@ -646,6 +646,106 @@ def test_neutron_matmul_nk_matches_plain(dev, B, R, C, K, N, stride, act):
     assert not buf[:, R * C:].any()
 
 
+def _no_tf32(fn):
+    """``fn()`` with cuBLAS's float32 products held out of TF32."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return fn()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.parametrize("B,R,C,K,N,stride,act", [
+    # rows over batch * M across the skinny / tiled edge (16)
+    (1, 15, 1, 64, 40, 1, "relu"), (2, 8, 1, 64, 40, 1, "none"),
+    (17, 1, 1, 64, 40, 1, "relu6"), (1, 63, 1, 96, 70, 1, "gelu"),
+    (1, 64, 1, 96, 70, 1, "hswish"), (5, 13, 1, 96, 70, 1, "silu"),
+    # ragged K (4-byte copies) and N, one column, a 32-wide tile
+    (1, 1, 1, 27, 1, 1, "mish"), (3, 3, 3, 27, 33, 1, "leaky"),
+    (2, 20, 1, 1001, 129, 1, "sigmoid"), (1, 100, 1, 27, 32, 1, "relu6"),
+    # a strided 1x1 view of an arena slot; K split over blocks
+    (3, 7, 7, 96, 40, 2, "hsigmoid"), (1, 20, 1, 2000, 40, 1, "sqrelu"),
+    (8, 1, 1, 1280, 1000, 1, "none"), (1, 1, 1, 1536, 384, 1, "none"),
+])
+def test_neutron_matmul_nk_routes(dev, B, R, C, K, N, stride, act):
+    """K1's float32 body on both routes of ``float_plan`` (skinny up to 16
+    rows over batch * M, tiled 3xTF32 above): x a view, the output written
+    in place at an odd row pitch, bias and each activation class; f32 atol
+    2e-3 / rtol 1e-3 and ``float_plan_tol`` against the plain version
+    (TF32 off), nothing past the output's columns written, and a rerun
+    bit-equal."""
+    from repro_torch.core.executor import float_plan_tol
+    s = stride
+    gen = torch.Generator(device=dev).manual_seed(K * 7 + N)
+    x = _randn(gen, (B, R * s, C * s, K), torch.float32, dev)
+    xin = x[:, ::s, ::s, :]
+    wt = _randn(gen, (N, K), torch.float32, dev) / math.sqrt(K)
+    bias = _randn(gen, (N,), torch.float32, dev)
+    buf = torch.zeros((B, R * C, N + 1), dtype=torch.float32, device=dev)
+    out = buf[:, :, :N]
+    rows = t_k1._rows(xin)
+    fp = t_k1.float_plan(B, R * C, N, K, (rows[3], rows[5], rows[6]),
+                         (xin.data_ptr(), wt.data_ptr()))
+    assert fp.route == (t_k1.SKINNY if B * R * C <= 16 else t_k1.TILED)
+    n0 = t_k1.launches
+    ops.neutron_matmul_nk(xin, wt, bias, act, out)
+    first = out.clone()
+    ops.neutron_matmul_nk(xin, wt, bias, act, out)
+    want = _no_tf32(lambda: ref.neutron_matmul_nk_ref(xin, wt, bias, act))
+    torch.cuda.synchronize()
+    assert t_k1.launches == n0 + 2
+    torch.testing.assert_close(first, want.view(B, R * C, N), atol=2e-3,
+                               rtol=1e-3)
+    # the float32 plan's limit, which plain TF32 products would break
+    err = float((first - want.view(B, R * C, N)).abs().max())
+    assert err <= float_plan_tol(want.cpu().numpy())
+    assert torch.equal(first, out)
+    assert not buf[:, :, N].any()
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 64, 40), (16, 520, 24),
+                                   (100, 300, 70), (33, 27, 129)])
+def test_neutron_matmul_bf16_routes(dev, M, K, N):
+    """bf16 inputs of the Pallas contract take the same routes: skinny
+    FMAs, and the tiled route's TF32 products, exact on bf16 values, so
+    within ``float_plan_tol`` of the f32 plain version."""
+    from repro_torch.core.executor import float_plan_tol
+    gen = torch.Generator(device=dev).manual_seed(M * K + N)
+    x = _randn(gen, (M, K), torch.bfloat16, dev)
+    w = _randn(gen, (K, N), torch.bfloat16, dev)
+    b = _randn(gen, (N,), torch.float32, dev)
+    got = ops.neutron_matmul(x, w, bias=b, act="relu", out_dtype=torch.float32)
+    again = ops.neutron_matmul(x, w, bias=b, act="relu",
+                               out_dtype=torch.float32)
+    want = _no_tf32(lambda: ops.neutron_matmul(
+        x, w, bias=b, act="relu", out_dtype=torch.float32, impl="ref"))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=1e-3)
+    assert float((got - want).abs().max()) <= float_plan_tol(
+        want.cpu().numpy())
+    assert torch.equal(got, again)
+
+
+def test_neutron_matmul_launch_refuses_a_broken_float_plan(dev,
+                                                          monkeypatch):
+    """The C side holds a float call to what its plan promised: a skinny
+    route at more than 16 rows, or 16-byte loads at an odd K, are refused
+    with cudaErrorInvalidValue, and nothing launches."""
+    x = torch.zeros((1, 20, 27), device=dev)
+    wt = torch.zeros((8, 27), device=dev)
+    out = torch.zeros((1, 20, 8), device=dev)
+    for plan in (t_k1.FloatPlan(t_k1.SKINNY, 16, 4, 1),
+                 t_k1.FloatPlan(t_k1.TILED, 64, 16, 1),
+                 t_k1.FloatPlan(t_k1.TILED, 48, 4, 1)):
+        monkeypatch.setattr(t_k1, "float_plan",
+                            lambda *a, plan=plan, **k: plan)
+        n0 = t_k1.launches
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            t_k1.neutron_matmul_nk(x, wt, None, "none", out)
+        assert t_k1.launches == n0
+
+
 def _served_graph(name: str, seed: int = 0):
     """A small graph of every vision kind the plans lower, built with the
     port's GraphBuilder (this file imports no JAX)."""
@@ -754,7 +854,7 @@ def test_session_sync_launch_error_fails_only_its_batch(dev):
                 # batch 0: the launch function refuses the launch with
                 # cudaErrorInvalidValue, and the wrapper's check raises
                 rc = fn(*([None] * 5 + [0, 1, 1, 1] + [0, 1, 0, 0, 0, 1]
-                          + [0] * 6 + [1.0] + [0] * 5 + [None, None, s]))
+                          + [0] * 6 + [1.0] + [0] * 7 + [None, None, s]))
                 _build.check(rc, "neutron_matmul")
         st.run = faulty
         xs = np.random.default_rng(2).normal(
@@ -1190,7 +1290,7 @@ def _device_fault_child(q):
     s = torch.cuda.current_stream().cuda_stream
     try:
         rc = fn(*([None] * 5 + [0, 1, 1, 1] + [0, 1, 0, 0, 0, 1]
-                  + [0] * 6 + [1.0] + [0] * 5 + [None, None, s]))
+                  + [0] * 6 + [1.0] + [0] * 7 + [None, None, s]))
         _build.check(rc, "neutron_matmul")
         out.append(("no error", "", None))
     except Exception as e:
@@ -1247,11 +1347,12 @@ BWD_CASES = [
 ]
 
 
-def _bwd_inputs(dev, B, H, Hkv, S, D, Dv, causal, window, dtype):
+def _bwd_inputs(dev, B, H, Hkv, S, D, Dv, causal, window, dtype, Sk=None):
+    Sk = S if Sk is None else Sk
     gen = torch.Generator(device=dev).manual_seed(S + D + H)
     q = _randn(gen, (B, H, S, D), dtype, dev)
-    k = _randn(gen, (B, Hkv, S, D), dtype, dev)
-    v = _randn(gen, (B, Hkv, S, Dv), dtype, dev)
+    k = _randn(gen, (B, Hkv, Sk, D), dtype, dev)
+    v = _randn(gen, (B, Hkv, Sk, Dv), dtype, dev)
     do = _randn(gen, (B, H, S, Dv), dtype, dev)
     kx, vx = k.repeat_interleave(H // Hkv, 1), v.repeat_interleave(H // Hkv,
                                                                    1)
@@ -1296,6 +1397,64 @@ def test_flash_attention_bwd_kernel_matches_plain(dev, B, H, Hkv, S, D, Dv,
                                       window=window)
     for a, b in zip(got, again):          # no atomics: the same bits
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,Sk,D,Dv,causal,window", [
+    (2, 6, 6, 100, 100, 64, 64, True, None),     # group 1, ragged S
+    (2, 6, 1, 130, 130, 128, 128, True, None),   # group 6
+    (1, 48, 1, 70, 70, 128, 128, True, None),    # group 48, G = 48
+    (2, 4, 2, 100, 100, 192, 128, True, None),   # MLA's D 192 / Dv 128
+    (1, 4, 4, 90, 90, 64, 128, False, None),     # D 64 / Dv 128
+    (1, 2, 2, 65, 65, 192, 192, True, None),
+    (1, 4, 2, 200, 200, 128, 128, True, 50),     # window
+    (2, 4, 2, 50, 130, 128, 128, False, None),   # S != Sk
+    (1, 4, 4, 70, 150, 64, 64, True, None),
+    (1, 2, 1, 3, 3, 16, 16, True, None),       # row 0's dq is 0
+])
+def test_flash_attention_bwd_mma_route(dev, B, H, Hkv, S, Sk, D, Dv, causal,
+                                       window):
+    """K2b's bf16 tensor-core route at tile edges (64), groups 1, 6 and 48
+    (split over G slices), head dims 64 / 128 / 192 with Dv 128, causal,
+    window and not, S != Sk: each gradient within max|d| / max|plain| <
+    2e-2 of the plain version, and a rerun bit-equal."""
+    from repro_torch.kernels import flash_attention_bwd as t_fab
+    dtype = torch.bfloat16
+    q, k, v, o, lse, do = _bwd_inputs(dev, B, H, Hkv, S, D, Dv, causal,
+                                      window, dtype, Sk=Sk)
+    g = H // Hkv
+    plan = t_fab.bwd_plan(dtype, B, Hkv, Sk, g, D, Dv)
+    assert plan.route == t_fab.MMA
+    got = t_fab.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                    window=window)
+    want = ref.flash_attention_bwd_ref(
+        q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1), o, lse, do,
+        causal=causal, window=window)
+    want = (want[0], want[1].float().reshape(B, Hkv, g, Sk, D).sum(2),
+            want[2].float().reshape(B, Hkv, g, Sk, Dv).sum(2))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        _held(a, b, dtype, name)
+    again = t_fab.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                      window=window)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_flash_attention_bwd_float32_stays_scalar(dev, monkeypatch):
+    """float32 and head dims off the mma route take the scalar body; the
+    C side refuses a route the call does not fit."""
+    from repro_torch.kernels import flash_attention_bwd as t_fab
+    assert t_fab.bwd_plan(torch.float32, 2, 2, 77, 3, 32, 24).route == \
+        t_fab.SCALAR
+    assert t_fab.bwd_plan(torch.bfloat16, 1, 2, 40, 1, 256, 256).route == \
+        t_fab.SCALAR
+    q, k, v, o, lse, do = _bwd_inputs(dev, 1, 2, 2, 40, 32, 24, True, None,
+                                      torch.float32)
+    monkeypatch.setattr(t_fab, "bwd_plan",
+                        lambda *a: t_fab.BwdPlan(t_fab.MMA, 1))
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        t_fab.flash_attention_bwd(q, k, v, o, lse, do)
 
 
 @pytest.mark.parametrize("B,H,Hkv,S,D,Dv,causal,window,dtype",

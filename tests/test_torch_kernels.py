@@ -11,6 +11,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention as t_fa
+from repro_torch.kernels import flash_attention_bwd as t_fab
 from repro_torch.kernels import flash_decode as t_fd
 from repro_torch.kernels import neutron_matmul as t_k1
 from repro_torch.kernels import ops as tops
@@ -310,6 +311,142 @@ def test_neutron_matmul_rows_contiguous(args, contiguous):
 def test_neutron_matmul_contract_key(contract, dtype, key):
     """What K1's ``launches_by_contract`` counts a launch under."""
     assert t_k1.contract_key(contract, dtype) == key
+
+
+# K1's float32 GEMMs of chip_smoke.py phase 2 at contiguous x: the float32
+# mobilenet_v2 plan's stem, last 1x1 and fc at batch 8, the whisper-tiny
+# decoder's logits (a step, a prefill of 64), ff out and ff in
+@pytest.mark.parametrize("shape,want", [
+    # (batch, M, N, K) -> (route, tile_n, load, splits)
+    ((8, 12544, 32, 27), (t_k1.TILED, 32, 4, 1)),      # stem: K 27, 4 B
+    ((8, 49, 1280, 320), (t_k1.TILED, 64, 16, 1)),     # 140 tiles
+    ((8, 1, 1000, 1280), (t_k1.SKINNY, 4, 16, 4)),     # fc: 8 rows
+    ((1, 1, 51865, 384), (t_k1.SKINNY, 16, 16, 1)),    # logits step
+    ((1, 64, 51865, 384), (t_k1.TILED, 64, 16, 1)),    # prefill logits
+    ((1, 1, 384, 1536), (t_k1.SKINNY, 4, 16, 4)),      # ff out
+    ((1, 1, 1536, 384), (t_k1.SKINNY, 16, 16, 1)),     # ff in
+    ((1, 64, 384, 1536), (t_k1.TILED, 64, 16, 22)),    # prefill ff out
+])
+def test_neutron_matmul_float_plan_at_path_shapes(shape, want):
+    """The float plan at the path's GEMMs: the fc and a decode step's
+    products on the skinny route (K split over 4 warps where N is small),
+    the rest tiled; the stem's 32 columns in a 32-wide tile; 4-byte copies
+    where K = 27 breaks 16-byte alignment; K split over blocks only where
+    the tiles leave SMs idle."""
+    B, M, N, K = shape
+    assert tuple(t_k1.float_plan(B, M, N, K, (M * K, 0, K), (0, 512))) == \
+        want
+
+
+@pytest.mark.parametrize("R", [1, 15, 16, 17, 63, 64])
+@pytest.mark.parametrize("N,K", [(40, 64), (1000, 1280), (51865, 384),
+                                 (384, 1536), (1, 27), (129, 1001)])
+def test_neutron_matmul_float_plan_invariants(R, N, K):
+    """At any R, N, K: the route is SKINNY exactly up to 16 rows; a
+    skinny block's columns are 2 a warp over 8 / splits warp pairs, each
+    splitting warp keeps at least 256 elements of K where there is more
+    than one; a tiled split keeps at least one k-tile (two where K is
+    split); the plan does not depend on the pointer values but through
+    the load width."""
+    for B, M in ((1, R), (R, 1)):
+        a = t_k1.float_plan(B, M, N, K, (M * K, 0, K), (0, 512))
+        b = t_k1.float_plan(B, M, N, K, (M * K, 0, K), (4, 516))
+        assert (a.route, a.tile_n, a.splits) == (b.route, b.tile_n, b.splits)
+        assert b.load == 4 and a.load == (16 if K % 4 == 0 else 4)
+        if R <= t_k1.SKINNY_MAX_ROWS:
+            assert a.route == t_k1.SKINNY and a.splits in (1, 2, 4, 8)
+            assert a.tile_n == 2 * 8 // a.splits
+            if a.splits > 1:
+                assert K // a.splits >= t_k1.SKINNY_MIN_K
+        else:
+            k_tiles = -(-K // t_k1.F_BK)
+            assert a.route == t_k1.TILED
+            assert a.tile_n == (32 if N <= 32 else 64)
+            assert 1 <= a.splits <= k_tiles
+            if a.splits > 1:
+                assert k_tiles // a.splits >= t_k1.MIN_SPLIT_KTILES
+                assert -(-R // 64) * -(-N // a.tile_n) < t_k1.SMS
+
+
+def test_neutron_matmul_float_plan_strided_view():
+    """A stride-2 1x1 conv's view over C = 96 channels (rows 768 bytes
+    apart, images apart by a slot's pitch) keeps 16-byte loads; over C =
+    27 channels it falls to one element a load; bf16 counts in 2-byte
+    elements."""
+    strided = (28 * 28 * 96, 2 * 28 * 96, 2 * 96)
+    assert t_k1.float_plan(8, 196, 160, 96, strided, (0, 512)) == \
+        t_k1.FloatPlan(t_k1.TILED, 64, 16, 1)
+    assert t_k1.float_plan(8, 196, 160, 27, (28 * 28 * 27, 2 * 28 * 27,
+                                             54), (0, 512)).load == 4
+    assert t_k1.float_plan(1, 8, 40, 64, (512, 0, 64), (0, 512), 2) == \
+        t_k1.FloatPlan(t_k1.SKINNY, 16, 16, 1)
+    assert t_k1.float_plan(1, 8, 40, 60, (480, 0, 60), (0, 512), 2).load \
+        == 2
+
+
+def test_neutron_matmul_split_scratch_kept_per_stream_and_dtype(
+        monkeypatch):
+    """A split's partials and tickets are kept per (device, stream, dtype
+    of the partials): the int8 body's int32 sums and the float body's
+    float32 tiles of one stream are apart, grown when a call needs more
+    and reused, zeroed, when it needs no more."""
+    monkeypatch.setattr(t_k1, "_scratch", {})
+    dev = torch.device("cpu")
+    p8, t8 = t_k1._scratch_for(dev, 7, 4, 4 * t_k1.TILE ** 2, torch.int32)
+    pf, tf = t_k1._scratch_for(dev, 7, 6, 6 * 3 * 64 * 32, torch.float32)
+    assert (p8.dtype, p8.numel(), t8.numel()) == \
+        (torch.int32, 4 * t_k1.TILE ** 2, 4)
+    assert (pf.dtype, pf.numel(), tf.numel()) == \
+        (torch.float32, 6 * 3 * 64 * 32, 6)
+    assert tf.data_ptr() != t8.data_ptr()
+    assert not (p8.any() or t8.any() or pf.any() or tf.any())
+    again = t_k1._scratch_for(dev, 7, 2, 100, torch.float32)
+    assert again[0] is pf and again[1] is tf
+    grown = t_k1._scratch_for(dev, 7, 9, 9 * 64 * 64, torch.float32)
+    assert grown[0].numel() == 9 * 64 * 64 and grown[1].numel() == 9
+    assert t_k1._scratch_for(dev, 8, 1, 1, torch.float32)[0] is not \
+        grown[0]
+
+
+# K2b's shapes of chip_smoke.py phase 2 (B, H, Hkv, S, D, Dv, dtype) and
+# the route and G each takes
+@pytest.mark.parametrize("shape,want", [
+    ((8, 32, 32, 128, 128, 128, torch.bfloat16), (t_fab.MMA, 1)),
+    ((4, 48, 1, 100, 128, 128, torch.bfloat16), (t_fab.MMA, 24)),
+    ((1, 32, 16, 1040, 128, 128, torch.bfloat16), (t_fab.MMA, 1)),
+    ((2, 16, 16, 100, 192, 128, torch.bfloat16), (t_fab.MMA, 1)),
+    ((2, 6, 2, 77, 32, 24, torch.float32), (t_fab.SCALAR, 1)),
+    ((2, 6, 2, 77, 32, 24, torch.bfloat16), (t_fab.SCALAR, 1)),   # Dv 24
+    ((1, 2, 1, 40, 256, 256, torch.bfloat16), (t_fab.SCALAR, 1)),  # D 256
+    ((2, 4, 2, 65, 80, 80, torch.bfloat16), (t_fab.MMA, 2)),   # 8 blocks
+    ((1, 48, 1, 70, 128, 128, torch.bfloat16), (t_fab.MMA, 48)),
+])
+def test_flash_attention_bwd_plan_at_path_shapes(shape, want):
+    """K2b's route: MMA for bf16 with D and Dv multiples of 16 up to 192,
+    else SCALAR; a group of 48 over 8 blocks splits into 24 slices of 2
+    heads (192 blocks), over 2 blocks into 48."""
+    B, H, Hkv, S, D, Dv, dtype = shape
+    assert tuple(t_fab.bwd_plan(dtype, B, Hkv, S, H // Hkv, D, Dv)) == want
+
+
+@pytest.mark.parametrize("B,Hkv,Sk", [(1, 1, 1), (4, 1, 100), (8, 32, 128),
+                                      (1, 16, 1040), (2, 2, 77),
+                                      (1, 3, 64)])
+@pytest.mark.parametrize("group", [1, 2, 6, 7, 48])
+def test_flash_attention_bwd_group_split(B, Hkv, Sk, group):
+    """G divides the group (every slice has group / G heads); 1 where the
+    key-tile grid fills the 132 SMs; else the smallest divisor that fills
+    them, or the whole group where none does."""
+    G = t_fab.group_split(B, Hkv, Sk, group)
+    blocks = B * Hkv * -(-Sk // 64)
+    assert group % G == 0
+    if blocks >= 132 or group == 1:
+        assert G == 1
+    elif blocks * group < 132:
+        assert G == group
+    else:
+        assert blocks * G >= 132
+        assert all(blocks * d < 132 for d in range(1, G) if group % d == 0)
 
 
 @pytest.mark.parametrize("pairs,H,group", [
