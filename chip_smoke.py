@@ -147,14 +147,30 @@ each of which ends the run with a nonzero exit and no result on failure:
     128 tokens: losses and grad norms finite, the first step's fused_ce
     loss within 5e-2 of cross_entropy of the full forward's logits, wall
     ms per step, the busy share of the last step and K2b's device time
-    in it (torch.profiler), peak memory, and every attention through K2 (64 a step: the forward and
-    the remat recompute) and K2b (32 a step), no other kernel; then the
+    in it (torch.profiler; the run fails if it is 0), peak memory, and
+    every attention through K2 (64 a step: the forward and the remat
+    recompute) and K2b (32 a step), no other kernel; then the
     reduced minitron-4b in float32 for 3 steps on the card against the
     CPU from the same state (loss, grad norm, lr scale within 2e-4
     relative, parameters within 2 lr sum(lr_scale) + 2e-4 relative), a
     restart (8 steps checkpointed every 4, resumed to 12, against 12
     uninterrupted, within 1e-4), and reduced qwen2-vl-2b's loss falling
     over 25 steps.
+
+19. training of the ssm, hybrid, MoE and encoder-decoder families on the
+    card through ``make_train_step``: mamba2-370m, zamba2-2.7b,
+    granite-moe-1b-a400m and whisper-tiny at full width (bf16 parameters,
+    float32 AdamW moments, remat), 4 steps of batch 8 x 128 tokens each
+    (whisper's batch also carries audio embeddings (8, 1500, 384) drawn
+    from the seed): losses and grad norms finite, wall ms a step (median
+    of steps 2-4), the busy share of the last step and the device time
+    in it of K2b and K4b where the model runs them (torch.profiler; the
+    run fails if one is 0), peak memory, and the launches a step of K2,
+    K2b, K4 and K4b, each what the reference's remat gives
+    (``TRAIN_PATHS``, as minitron-4b's in phase 18), at the shapes phase
+    2 times; then each reduced config in float32 for 3 steps on the card
+    against the CPU (phase 18's bounds), and its loss falling over 8
+    steps at a constant learning rate.
 
 For the two SSM paths the prefill-vs-replay agreement is held in
 float32 at full width (TF32 off) and reported in bf16, beside how far
@@ -164,13 +180,21 @@ MoE paths hold it at a capacity that drops nothing (see
 
 Phase 2 also holds K2's log-sum-exp output (its training forward) at
 every serving path's K2 shape (o bit-equal to the call without it, lse
-within 1e-2 in bf16), and K2b, flash attention's backward, at the
-training shapes (``BWD_SHAPES``: per gradient max|d|/max|plain| < 2e-2
-in bf16, atol 2e-3 / rtol 1e-3 in float32, and the same bits on a
+within 1e-2 in bf16), and K2b, flash attention's backward, at shapes
+no training path gives it (``BWD_SHAPES``: per gradient max|d|/max|plain|
+< 2e-2 in bf16, atol 2e-3 / rtol 1e-3 in float32, and the same bits on a
 second call; each row names its route and group split), timed beside
-SDPA's backward alone; and that a tensor
-requiring grad that reaches K1, K3, K4 or K2 with a query offset raises
-under grad mode and launches nothing.
+SDPA's backward alone; K2 and K2b also at phases 18 and 19's shapes
+(minitron-4b's 24 heads padded to 32; whisper's
+encoder over 1500 frames and its cross-attention of 128 rows against
+1500 keys, not causal; zamba2's head dim 80; granite-moe's group of 2);
+K4 at phase 19's shapes and K4b, the SSD scan's backward, at them and at
+the serving prefill shapes (per gradient max|d|/max|plain| < 1e-4 for
+bf16 and float32 inputs alike: kernel and plain version do float32
+arithmetic on the same bits; and the same bits on a second call);
+that a tensor requiring grad that reaches K1, K3 or K2 with a query
+offset raises under grad mode and launches nothing; and that one reaching
+K4 runs K4 and K4b once each.
 
 In phases 3-10, 14 and 15 the weights are random from the seed.  Each path runs
 with the launch counters set to 0 just before it and read just after,
@@ -197,6 +221,7 @@ import sys
 import tempfile
 import threading
 import time
+from collections import Counter
 from pathlib import Path
 from typing import NamedTuple, Optional, Tuple
 
@@ -599,9 +624,13 @@ def timings(torch, kernel, plain, library=None) -> dict:
                 else call_ms(torch, library))
 
 
-def bound(nbytes: int, flops: int, dtype: str):
+def bound(nbytes: int, flops, dtype: Optional[str] = None):
+    """The larger of the time to move `nbytes` and to do `flops`
+    operations at `dtype`'s rate; without `dtype`, `flops` is {dtype:
+    operations} for work done at several rates."""
+    work = {dtype: flops} if dtype else flops
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = sum(f / PEAK_FLOPS[d] for d, f in work.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -886,18 +915,16 @@ def k2_lse_check(torch, q, k, v, a: AttnShape, o) -> float:
     return err
 
 
-# K2b (flash attention's backward) at the training shapes: minitron-4b's
-# (batch 8 x 128 tokens, 24 heads padded to 32, the kv expanded to them as
-# models/attention.py does), granite-20b's group of 48 over one kv head,
-# gemma3's window of 1024 at 1040 positions, MLA's D 192 with Dv 128, and
-# one small float32 case (GQA, a window, ragged tiles).  The first is the
-# one phase 18 trains at: K2 runs there twice a layer (forward and the
-# remat recompute), K2b once.
+# phases 18 and 19 train at full width with the batch the reference's
+# train_loop defaults to: 8 x 128 tokens, TRAIN_STEPS steps
 TRAIN_STEPS = 4
-TRAIN_LAYERS = 32
+TRAIN_SEQ, TRAIN_BATCH = 128, 8
+# K2b (flash attention's backward) at shapes no training path gives it:
+# granite-20b's group of 48 over one kv head, gemma3's window of 1024 at
+# 1040 positions, MLA's D 192 with Dv 128, and one small float32 case
+# (GQA, a window, ragged tiles); the training paths' shapes come from
+# TRAIN_PATHS
 BWD_SHAPES = (
-    AttnShape("train minitron-4b", 8, 32, 32, 128, 128, 128, None,
-              TRAIN_LAYERS * TRAIN_STEPS),
     AttnShape("granite-20b group", 4, 48, 1, 100, 128, 128, None, 0),
     AttnShape("gemma3-27b window", 1, 32, 16, 1040, 128, 128, 1024, 0),
     AttnShape("D 192 Dv 128", 2, 16, 16, 100, 192, 128, None, 0),
@@ -905,37 +932,92 @@ BWD_SHAPES = (
 )
 
 
+class TrainPath(NamedTuple):
+    """A model phases 18 and 19 train at full width: its (layers,
+    d_model), the launches a step of (K2, K2b, K4, K4b) that the
+    reference's remat gives (a layer under remat runs its forward twice
+    and its backward once; zamba2's shared block runs outside remat, as
+    the reference's ``group_body``), and whether ``train_loop`` drives it
+    (phase 18) or ``make_train_step`` (phase 19)."""
+    arch: str
+    width: Tuple[int, int]
+    per_step: Tuple[int, int, int, int]
+    loop: bool = False
+
+
+TRAIN_PATHS = (
+    TrainPath("minitron-4b", (32, 3072), (64, 32, 0, 0), loop=True),
+    TrainPath("mamba2-370m", (48, 1024), (0, 0, 96, 48)),
+    TrainPath("zamba2-2.7b", (54, 2560), (9, 9, 108, 54)),
+    TrainPath("granite-moe-1b-a400m", (24, 1024), (48, 24, 0, 0)),
+    # 4 encoder layers (self-attention over 1500 frames) and 4 decoder
+    # layers (causal self-attention, cross-attention to the 1500 frames)
+    TrainPath("whisper-tiny", (4, 384), (24, 12, 0, 0)),
+)
+
+
+def train_attention_shapes(tp: TrainPath, cfg):
+    """[(AttnShape, K2 launches, K2b launches)] of phase 19's run of `tp`
+    (TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens), as the model
+    gives K2 its operands (kv expanded to padded query heads); the
+    AttnShape's launches are K2b's."""
+    B, S, n = TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS
+    if cfg.family == "ssm":
+        return []
+    H, Hkv, hd, Hp = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        cfg.padded_heads
+    H2, Hkv2 = (Hp, Hp) if Hp != H else (H, Hkv)
+    t = f"train {tp.arch}"
+    if cfg.enc_dec:
+        Le, L, Se = cfg.n_enc_layers, cfg.n_layers, cfg.n_audio_frames
+        return [(AttnShape(f"{t} encoder", B, H2, Hkv2, Se, hd, hd, None,
+                           Le * n, causal=False), 2 * Le * n, Le * n),
+                (AttnShape(f"{t} self", B, H2, Hkv2, S, hd, hd, None, L * n),
+                 2 * L * n, L * n),
+                (AttnShape(f"{t} cross", B, H2, Hkv2, S, hd, hd, None, L * n,
+                           Sk=Se, causal=False), 2 * L * n, L * n)]
+    if cfg.family == "hybrid":
+        G = cfg.n_layers // cfg.shared_attn_every
+        return [(AttnShape(t, B, H2, Hkv2, S, hd, hd, None, G * n), G * n,
+                 G * n)]
+    L = cfg.n_layers
+    return [(AttnShape(t, B, H2, Hkv2, S, hd, hd, None, L * n), 2 * L * n,
+             L * n)]
+
+
 def k2b_row(torch, F, ops, randn, a: AttnShape) -> dict:
-    """K2b at shape a against its plain version on the same residuals (K2's
-    o and lse): per gradient max|d| / max|plain| < 2e-2 in bf16, atol 2e-3
-    / rtol 1e-3 in float32; timed beside SDPA's backward alone (autograd
-    through SDPA, less SDPA's forward)."""
+    """K2b at shape a (causal or not, over a.Sk keys) against its plain
+    version on the same residuals (K2's o and lse): per gradient max|d| /
+    max|plain| < 2e-2 in bf16, atol 2e-3 / rtol 1e-3 in float32; timed
+    beside SDPA's backward alone (autograd through SDPA, less SDPA's
+    forward)."""
     from repro_torch.kernels import flash_attention, flash_attention_bwd, ref
     f32 = a.tag.startswith("f32")
     dtype = torch.float32 if f32 else torch.bfloat16
     name = "float32" if f32 else "bfloat16"
+    Sk = a.Sk or a.S
     q = randn(a.B, a.H, a.S, a.D, dtype=dtype)
-    k = randn(a.B, a.Hkv, a.S, a.D, dtype=dtype)
-    v = randn(a.B, a.Hkv, a.S, a.Dv, dtype=dtype)
+    k = randn(a.B, a.Hkv, Sk, a.D, dtype=dtype)
+    v = randn(a.B, a.Hkv, Sk, a.Dv, dtype=dtype)
     do = randn(a.B, a.H, a.S, a.Dv, dtype=dtype)
-    o, lse = flash_attention.flash_attention(q, k, v, causal=True,
+    o, lse = flash_attention.flash_attention(q, k, v, causal=a.causal,
                                              window=a.window,
                                              return_lse=True)
     g = a.H // a.Hkv
 
     def kernel():
         return flash_attention_bwd.flash_attention_bwd(
-            q, k, v, o, lse, do, causal=True, window=a.window)
+            q, k, v, o, lse, do, causal=a.causal, window=a.window)
 
     def plain():
         dq, dk, dv = ref.flash_attention_bwd_ref(
             q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1), o, lse,
-            do, causal=True, window=a.window)
+            do, causal=a.causal, window=a.window)
         # autograd through the repeat sums the group's gradients
-        return (dq, dk.float().reshape(a.B, a.Hkv, g, a.S, a.D).sum(2),
-                dv.float().reshape(a.B, a.Hkv, g, a.S, a.Dv).sum(2))
+        return (dq, dk.float().reshape(a.B, a.Hkv, g, Sk, a.D).sum(2),
+                dv.float().reshape(a.B, a.Hkv, g, Sk, a.Dv).sum(2))
 
-    plan = flash_attention_bwd.bwd_plan(dtype, a.B, a.Hkv, a.S, g, a.D,
+    plan = flash_attention_bwd.bwd_plan(dtype, a.B, a.Hkv, Sk, g, a.D,
                                         a.Dv)
     route = ("mma" if plan.route == flash_attention_bwd.MMA
              else "scalar") + f", G {plan.G}"
@@ -963,7 +1045,9 @@ def k2b_row(torch, F, ops, randn, a: AttnShape) -> dict:
              f"differ (the kernel has no atomics)")
     # SDPA's backward alone: fwd+bwd less fwd, on leaf copies of q, k, v
     ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
-    if a.window is None:
+    if not a.causal:
+        sdpa_kw = {}
+    elif a.window is None:
         sdpa_kw = dict(is_causal=True)
     else:
         i = torch.arange(a.S, device="cuda")
@@ -984,7 +1068,8 @@ def k2b_row(torch, F, ops, randn, a: AttnShape) -> dict:
     both_call = call_ms(torch, lib_fwd_bwd)
     t.update(library_ms=both_ms - fwd_ms,
              library_call_ms=both_call - fwd_call)
-    pairs = a.B * a.H * causal_pairs(a.S, a.window)
+    pairs = a.B * a.H * (causal_pairs(a.S, a.window) if a.causal
+                         else a.S * Sk)
     b_ms, b_by = bound(nbytes(q, k, v, o, lse, do, *got),
                        int(2.5 * 2 * pairs * (a.D + a.Dv)), name)
     win = "" if a.window is None else f", window {a.window}"
@@ -993,8 +1078,10 @@ def k2b_row(torch, F, ops, randn, a: AttnShape) -> dict:
         source="src/repro_torch/csrc/flash_attention_bwd.cu",
         replaces="src/repro/kernels/ref.py:236 (_faf_bwd, the jnp custom "
                  "VJP of flash_attention_fused)",
-        shape=f"q ({a.B},{a.H},{a.S},{a.D}), k ({a.B},{a.Hkv},{a.S},"
-              f"{a.D}), v Dv {a.Dv} {name} causal{win} [route {route}]",
+        shape=f"q ({a.B},{a.H},{a.S},{a.D}), k ({a.B},{a.Hkv},{Sk},"
+              f"{a.D}), v Dv {a.Dv} {name} "
+              f"{'causal' if a.causal else 'not causal'}{win} "
+              f"[route {route}]",
         key=flash_attention.shape_key(q, k, v, a.window), expect=a.launches,
         launches=0, max_abs_err=max(errs), bound_ms=b_ms, bound_by=b_by,
         bit_equal_rerun=bit_equal, **t)
@@ -1002,8 +1089,11 @@ def k2b_row(torch, F, ops, randn, a: AttnShape) -> dict:
 
 def guard_check(torch, ops) -> None:
     """Under grad mode, a CUDA tensor that requires grad reaching a kernel
-    with no backward (K1, K3, K4, K2 with a query offset) raises, and no
-    kernel is launched: a kernel's output carries no gradient."""
+    with no backward (K1, K3, K2 with a query offset) raises, and no
+    kernel is launched: a kernel's output carries no gradient.  One that
+    reaches K4 runs K4 and, in the backward, K4b once each; under no_grad
+    the same call builds no graph."""
+    from repro_torch.kernels import ssd_scan, ssd_scan_bwd
     x = torch.zeros(4, 8, device="cuda", requires_grad=True)
     z = torch.zeros
 
@@ -1013,10 +1103,6 @@ def guard_check(torch, ops) -> None:
         "flash_decode (K3)": lambda: ops.flash_decode(
             x.reshape(1, 4, 8), z(1, 4, 5, 8, device="cuda"),
             z(1, 4, 5, 8, device="cuda")),
-        "ssd_scan (K4)": lambda: ops.ssd_scan(
-            x.reshape(1, 4, 1, 8), torch.ones(1, 4, 1, device="cuda"),
-            -torch.ones(1, device="cuda"), z(1, 4, 2, device="cuda"),
-            z(1, 4, 2, device="cuda"), chunk=4),
         "flash_attention (K2) with a q_offset": lambda: ops.flash_attention(
             x.reshape(1, 1, 4, 8), z(1, 1, 4, 8, device="cuda"),
             z(1, 1, 4, 8, device="cuda"),
@@ -1034,6 +1120,25 @@ def guard_check(torch, ops) -> None:
     if read_launches() != before:
         fail("a kernel without a backward launched under grad")
     print(f"  the guard: {', '.join(calls)} raise under grad, no launch")
+    x4 = torch.ones(1, 4, 1, 8, device="cuda", requires_grad=True)
+    a4 = (torch.ones(1, 4, 1, device="cuda"), -torch.ones(1, device="cuda"),
+          torch.ones(1, 4, 2, device="cuda"), torch.ones(1, 4, 2,
+                                                         device="cuda"))
+    n0 = (ssd_scan.launches, ssd_scan_bwd.launches)
+    y, _ = ops.ssd_scan(x4, *a4, chunk=4)
+    y.sum().backward()
+    torch.cuda.synchronize()
+    n1 = (ssd_scan.launches, ssd_scan_bwd.launches)
+    if n1 != (n0[0] + 1, n0[1] + 1) or x4.grad is None or \
+            not torch.isfinite(x4.grad).all():
+        fail(f"ssd_scan under grad launched K4, K4b {n1} after {n0}; "
+             f"x.grad {x4.grad}")
+    with torch.no_grad():
+        y, _ = ops.ssd_scan(x4, *a4, chunk=4)
+    if y.grad_fn is not None or ssd_scan_bwd.launches != n1[1]:
+        fail("ssd_scan under no_grad built a graph")
+    print("  ssd_scan (K4) under grad: K4 and K4b once each, finite "
+          "gradient; under no_grad no graph")
 
 
 def k3_row(torch, F, ops, randn, a: AttnShape) -> dict:
@@ -1069,6 +1174,113 @@ def k3_row(torch, F, ops, randn, a: AttnShape) -> dict:
         **timings(torch, kernel, plain,
                   lambda: F.scaled_dot_product_attention(
                       q[:, :, None], k, v, enable_gqa=True)))
+
+
+def k4_row(torch, randn, tag, B, S, H, P, N, L, pad, expect) -> dict:
+    """K4 in bf16 at x (B,S,H,P), N, chunk L, the last `pad` rows zero,
+    against its plain version, timed."""
+    from repro_torch.kernels import ref, ssd_scan
+    args = ssd_inputs(torch, randn, B, S, H, P, N, torch.bfloat16, pad=pad)
+    got = ssd_scan.ssd_chunk(*args, L)
+    err = max(check_close(torch, f"ssd_chunk bf16 {tag} {i}", g, w,
+                          "float32")
+              for i, (g, w) in enumerate(zip(got,
+                                             ref.ssd_chunk_ref(*args, L))))
+    b_ms, b_by = bound(nbytes(*args, *got), ssd_flops(B, S, H, P, N, L),
+                       "bfloat16")
+    return dict(
+        name="ssd_chunk", path=tag, route="cuda",
+        source="src/repro_torch/csrc/ssd_chunk.cu",
+        replaces="src/repro/kernels/ssd_scan.py:93",
+        shape=f"x ({B},{S},{H},{P}) bf16, N={N}, chunk {L}, {pad} zero rows",
+        expect=expect, max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+        **timings(torch, lambda: ssd_scan.ssd_chunk(*args, L),
+                  lambda: ref.ssd_chunk_ref(*args, L)))
+
+
+def ssd_bwd_flops(B, S, H, P, N, L) -> dict:
+    """Operations the function of K4b needs with bf16 x, Bm and Cm, by the
+    rate the card has for their operands: per (b, chunk), C B^T over s <=
+    t (both bf16) and the products of dCB summed over the heads with B and
+    C (dC and the first term of dB); per head, dG = dy x^T and G^T dy over
+    s <= t, Q = B dcontrib^T and x^T dcontrib.  Every product but C B^T
+    has a float32 operand: those count at the 3xTF32 rate, the best the
+    card has for float32-accurate products."""
+    tri = L * (L + 1) // 2
+    nbc = B * (S // L)
+    return {"bfloat16": nbc * tri * 2 * N,
+            "tf32": 3 * nbc * (2 * tri * 2 * N
+                               + H * (2 * tri * 2 * P + 2 * 2 * L * P * N))}
+
+
+SSD_BWD_GRADS = ("dx", "ddt", "dA", "dBm", "dCm")
+
+
+def k4b_grads(torch, randn, B, S, H, P, N, L, pad, dtype):
+    """K4b and its plain version on K4's inputs (as ``ssd_inputs``), K4's
+    own seg and random float32 cotangents: (kernel, plain, got, want, the
+    operands)."""
+    from repro_torch.kernels import ref, ssd_scan, ssd_scan_bwd
+    f32 = torch.float32
+    args = ssd_inputs(torch, randn, B, S, H, P, N, dtype, pad=pad)
+    seg = ssd_scan.ssd_chunk(*args, L)[3]
+    nc = S // L
+    cot = (randn(B, S, H, P, dtype=f32), randn(B, nc, H, P, N, dtype=f32),
+           randn(B, nc, H, dtype=f32), randn(B, S, H, dtype=f32))
+
+    def kernel():
+        return ssd_scan_bwd.ssd_chunk_bwd(*args, seg, *cot, L)
+
+    def plain():
+        return ref.ssd_chunk_bwd_ref(*args, seg, *cot, L)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    return kernel, plain, got, want, (*args, seg, *cot)
+
+
+def k4b_held(torch, tag, kernel, got, want, limit) -> dict:
+    """Each gradient of K4b within max|d| / max|plain| < `limit` and a
+    second call bit-equal; returns {gradient: max|d| / max|plain|}."""
+    rels = {}
+    for gname, g, w in zip(SSD_BWD_GRADS, got, want):
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            fail(f"ssd_chunk_bwd {tag} {gname}: {tuple(g.shape)} not finite "
+                 f"or not {tuple(w.shape)}")
+        rels[gname] = float((g - w).abs().max() / w.abs().max())
+        if not rels[gname] < limit:
+            fail(f"ssd_chunk_bwd {tag} {gname}: max|d| / max|plain| "
+                 f"{rels[gname]:.3g} >= {limit}")
+    if not all(torch.equal(g, a) for g, a in zip(got, kernel())):
+        fail(f"ssd_chunk_bwd {tag}: two calls on the same inputs differ "
+             f"(the kernel has no atomics)")
+    return rels
+
+
+def k4b_row(torch, randn, tag, B, S, H, P, N, L, pad, expect) -> dict:
+    """K4b with bf16 x, Bm, Cm at x (B,S,H,P), N, chunk L, the last `pad`
+    rows zero, against its plain version (per gradient max|d| /
+    max|plain| < 1e-4: both do float32 arithmetic on the same bf16
+    inputs and float32 cotangents; a rerun bit-equal), timed; no single
+    PyTorch call computes it."""
+    kernel, plain, got, want, ops_in = k4b_grads(
+        torch, randn, B, S, H, P, N, L, pad, torch.bfloat16)
+    rels = k4b_held(torch, tag, kernel, got, want, 1e-4)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    b_ms, b_by = bound(nbytes(*ops_in, *got),
+                       ssd_bwd_flops(B, S, H, P, N, L))
+    return dict(
+        name="ssd_chunk_bwd", path=tag, route="cuda",
+        source="src/repro_torch/csrc/ssd_chunk_bwd.cu",
+        replaces="none: autodiff of ssd_scan_ref, src/repro/kernels/"
+                 "ref.py:331-391 (the backward of K4, src/repro/kernels/"
+                 "ssd_scan.py:93)",
+        shape=f"x ({B},{S},{H},{P}) bf16, N={N}, chunk {L}, {pad} zero "
+              f"rows; max|d|/max|plain| "
+              f"{', '.join(f'{k} {v:.2g}' for k, v in rels.items())}",
+        expect=expect, launches=0, max_abs_err=err, rel_err=rels,
+        bit_equal_rerun=True, bound_ms=b_ms, bound_by=b_by,
+        **timings(torch, kernel, plain))
 
 
 def phase_kernels(torch, F, ops):
@@ -1138,6 +1350,18 @@ def phase_kernels(torch, F, ops):
                                              impl="ref")))
         print(f"  ops.ssd_scan f32 x (2,{S},3,16) N=8 chunk={L} with an "
               f"initial state: max|err| {e:.3g}")
+    # ssd_chunk_bwd (K4b) with float32 inputs: the same small cases
+    for B, S, H, P, N, L, pad in ((1, 32, 1, 8, 4, 8, 0),
+                                  (2, 128, 3, 16, 8, 32, 28),
+                                  (2, 96, 3, 24, 40, 32, 0),
+                                  (1, 256, 2, 128, 128, 128, 0)):
+        kernel, _, got, want, _ = k4b_grads(torch, randn, B, S, H, P, N, L,
+                                            pad, f32)
+        rels = k4b_held(torch, f"f32 ({B},{S},{H},{P})", kernel, got, want,
+                        1e-4)
+        print(f"  ssd_chunk_bwd f32 x ({B},{S},{H},{P}) N={N} chunk={L} "
+              f"zero rows {pad}: max|d|/max|plain| "
+              f"{max(rels.values()):.3g}, rerun bit-equal")
 
     rows = {}
     # each path's shapes come from its config
@@ -1149,42 +1373,46 @@ def phase_kernels(torch, F, ops):
         for a in k3_shapes:
             rows[("flash_decode", a.tag)] = k3_row(torch, F, ops, randn, a)
     decoder_attention_rows(torch, F, ops, randn, rows)
-    # the training forward and backward (phase 18's launches)
-    rows[("flash_attention", BWD_SHAPES[0].tag)] = k2_row(
-        torch, F, ops, randn, BWD_SHAPES[0]._replace(
-            launches=2 * TRAIN_LAYERS * TRAIN_STEPS))
     for a in BWD_SHAPES:
         rows[("flash_attention_bwd", a.tag)] = k2b_row(torch, F, ops, randn,
                                                        a)
+    # phases 18 and 19's training shapes: K2 (its lse checked) and K2b
+    for tp in TRAIN_PATHS:
+        for a, k2n, _ in train_attention_shapes(tp, cfgs[tp.arch]):
+            rows[("flash_attention", a.tag)] = k2_row(
+                torch, F, ops, randn, a._replace(launches=k2n))
+            rows[("flash_attention_bwd", a.tag)] = k2b_row(torch, F, ops,
+                                                           randn, a)
     guard_check(torch, ops)
 
     # ssd_chunk at the prefill shapes: the prompt of 200 padded to 256
     print("  ssd_chunk: library_ms is null; no single PyTorch call computes "
           "the gated intra-chunk SSD form with its state contributions")
+    # and K4b, its backward, at them (no serving path trains: 0
+    # launches) and at phase 19's training shapes, where K4 runs too
+    print("  ssd_chunk_bwd: library_ms is null; no single PyTorch call "
+          "computes the gradients of the intra-chunk SSD form")
     for path in (ZAMBA, MAMBA):
         cfg = cfgs[path.arch]
-        B, L, P = path.batch, cfg.ssm_chunk, cfg.ssm_head_dim
-        H, N = cfg.ssm_heads, cfg.ssm_state
-        S = -(-path.prompt_len // L) * L
-        args = ssd_inputs(torch, randn, B, S, H, P, N, torch.bfloat16,
-                          pad=S - path.prompt_len)
-        got = ssd_scan.ssd_chunk(*args, L)
-        err = max(check_close(torch, f"ssd_chunk bf16 {path.arch} {i}",
-                              g, w, "float32")
-                  for i, (g, w) in enumerate(zip(
-                      got, ref.ssd_chunk_ref(*args, L))))
-        b_ms, b_by = bound(nbytes(*args, *got),
-                           ssd_flops(B, S, H, P, N, L), "bfloat16")
-        rows[("ssd_chunk", path.arch)] = dict(
-            name="ssd_chunk", path=path.arch, route="cuda",
-            source="src/repro_torch/csrc/ssd_chunk.cu",
-            replaces="src/repro/kernels/ssd_scan.py:93",
-            shape=f"x ({B},{S},{H},{P}) bf16, N={N}, chunk {L}, "
-                  f"{S - path.prompt_len} zero rows",
-            expect=path.prefill[2], max_abs_err=err, bound_ms=b_ms,
-            bound_by=b_by,
-            **timings(torch, lambda: ssd_scan.ssd_chunk(*args, L),
-                      lambda: ref.ssd_chunk_ref(*args, L)))
+        dims = (path.batch, -(-path.prompt_len // cfg.ssm_chunk)
+                * cfg.ssm_chunk, cfg.ssm_heads, cfg.ssm_head_dim,
+                cfg.ssm_state, cfg.ssm_chunk)
+        pad = dims[1] - path.prompt_len
+        rows[("ssd_chunk", path.arch)] = k4_row(
+            torch, randn, path.arch, *dims, pad, path.prefill[2])
+        rows[("ssd_chunk_bwd", path.arch)] = k4b_row(
+            torch, randn, path.arch, *dims, pad, 0)
+    for tp in TRAIN_PATHS:
+        cfg = cfgs[tp.arch]
+        if not tp.per_step[2]:
+            continue
+        tag = f"train {tp.arch}"
+        dims = (TRAIN_BATCH, TRAIN_SEQ, cfg.ssm_heads, cfg.ssm_head_dim,
+                cfg.ssm_state, cfg.ssm_chunk)
+        rows[("ssd_chunk", tag)] = k4_row(torch, randn, tag, *dims, 0,
+                                          tp.per_step[2] * TRAIN_STEPS)
+        rows[("ssd_chunk_bwd", tag)] = k4b_row(torch, randn, tag, *dims, 0,
+                                               tp.per_step[3] * TRAIN_STEPS)
 
     phase_k1(torch, ops, rows)
 
@@ -1409,7 +1637,7 @@ def launch_counters():
 
 
 def reset_launches() -> None:
-    for mod in launch_counters() + (_bwd_counter(),):
+    for mod in launch_counters() + bwd_counters():
         mod.launches = 0
         if hasattr(mod, "launches_by_shape"):
             mod.launches_by_shape.clear()
@@ -3238,10 +3466,8 @@ def run_compiled_phases(torch, rows, vision_ref, images, rpa):
 # phase 18: training on the card
 # --------------------------------------------------------------------------
 
-# phase 18's runs: minitron-4b at full width as the reference's train_loop
-# defaults it (batch 8 x 128 tokens), the reduced configs' card-vs-CPU,
-# restart and loss-decrease runs as tests/test_train_e2e.py sizes them
-TRAIN_SEQ, TRAIN_BATCH = 128, 8
+# phase 18's reduced card-vs-CPU, restart and loss-decrease runs are sized
+# as tests/test_train_e2e.py sizes them
 LR = 3e-4                           # AdamWConfig().lr
 
 
@@ -3250,26 +3476,35 @@ K2B_KERNEL_NAME = re.compile(r"\(anonymous namespace\)::(?:delta|dkdv|dq|"
                              r"dkdv_mma|dq_mma|group_sum)_kernel\b")
 
 
-def _bwd_counter():
-    from repro_torch.kernels import flash_attention_bwd
-    return flash_attention_bwd
+def bwd_counters():
+    """The backward kernels' wrappers: K2b, K4b."""
+    from repro_torch.kernels import flash_attention_bwd, ssd_scan_bwd
+    return (flash_attention_bwd, ssd_scan_bwd)
 
 
-def _train_full(torch, rows) -> dict:
-    """Phase 18.1: minitron-4b at full width through ``train_loop``."""
+# the backward kernels as torch.profiler names them: K4b's
+# (csrc/ssd_chunk_bwd.cu) and K2b's (above), by their place in
+# TrainPath.per_step
+BWD_KERNEL_NAMES = {
+    1: ("K2b", K2B_KERNEL_NAME),
+    3: ("K4b", re.compile(r"\(anonymous namespace\)::ssd_chunk_bwd_"
+                          r"(?:reduce_)?kernel\b"))}
+
+
+def _steps_through_loop(torch, tp: TrainPath, cfg, on_step) -> dict:
+    """Phase 18's drive: the first step's loss recomputed through the
+    plain logits (cross_entropy of forward) on the initial state, then
+    TRAIN_STEPS steps through ``train_loop``, whose first loss must lie
+    within 5e-2 of it."""
     import gc
-
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data.pipeline import DataConfig, batch_for_step
     from repro_torch.launch.train import train_loop
     from repro_torch.models import lm
     from repro_torch.models.layers import cross_entropy
-    from repro_torch.models.registry import get_arch
     from repro_torch.models.train import init_train_state
-    cfg = get_arch("minitron-4b")
-    # the first step's loss, recomputed through the plain logits
     state = init_train_state(cfg, SEED, "cuda")
+    n_params = sum(p.numel() for p in state.params.parameters())
     b0 = batch_for_step(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH,
                                    seed=SEED), 0)
     labels = torch.from_numpy(b0["labels"]).long().cuda()
@@ -3279,8 +3514,63 @@ def _train_full(torch, rows) -> dict:
     del state
     gc.collect()
     torch.cuda.empty_cache()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses = train_loop(tp.arch, steps=TRAIN_STEPS, smoke=False,
+                        seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                        log_every=1, seed=SEED, on_step=on_step)
+    rel = abs(losses[0] - ce0) / abs(ce0)
+    if rel > 5e-2:
+        fail(f"phase 18: the first step's fused_ce loss {losses[0]:.5f} is "
+             f"not within 5e-2 of cross_entropy(forward) {ce0:.5f}")
+    print(f"  {tp.arch}: first loss {losses[0]:.5f} vs cross_entropy("
+          f"forward) {ce0:.5f}: rel {rel:.3g} (limit 5e-2)")
+    return dict(params=n_params, first_loss_vs_cross_entropy=rel,
+                cross_entropy=ce0)
 
-    steps, prof_box = [], {}
+
+def _steps_through_step_fn(torch, tp: TrainPath, cfg, on_step) -> dict:
+    """Phase 19's drive: TRAIN_STEPS steps of ``make_train_step``, each
+    reported to `on_step` as ``train_loop`` reports it, its clock
+    running from the call to the read of its loss (the batch is made
+    before it)."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.train import (TrainOptions, init_train_state,
+                                          make_train_step)
+    opts = TrainOptions(total_steps=TRAIN_STEPS)      # as train_loop's
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, SEED, "cuda", opts=opts)
+    n_params = sum(p.numel() for p in state.params.parameters())
+    step = make_train_step(cfg, opts=opts)
+    dcfg = DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+    for i in range(TRAIN_STEPS):
+        b = train_batch(cfg, dcfg, i)
+        t = time.monotonic()
+        state, m = step(state, b)
+        float(m["loss"])
+        on_step(i, m, time.monotonic() - t)
+    return dict(params=n_params)
+
+
+def _train_full(torch, rows, tp: TrainPath, phase: int) -> dict:
+    """Phases 18.1 and 19.1: `tp` at full width (bf16 parameters, float32
+    AdamW moments, remat), TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ
+    tokens, the last under torch.profiler: losses and grad norms finite;
+    the launches of K2, K2b, K4 and K4b ``tp.per_step`` a step, at the
+    shapes phase 2 times, and no other kernel; device time in the
+    profiled step in each backward kernel the path launches."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import flash_attention_bwd, ssd_scan_bwd
+    from repro_torch.models.registry import get_arch
+    cfg = get_arch(tp.arch)
+    if (cfg.n_layers, cfg.d_model) != tp.width or not cfg.remat:
+        fail(f"phase {phase}: {tp.arch} is not {tp.width} with remat")
+    steps = []
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
     def on_step(i, metrics, dt):
         steps.append(dict(loss=float(metrics["loss"]),
@@ -3288,98 +3578,124 @@ def _train_full(torch, rows) -> dict:
                           wall_ms=dt * 1e3))
         # the last step runs under the profiler
         if i == TRAIN_STEPS - 2:
-            prof_box["p"] = profile(activities=[ProfilerActivity.CPU,
-                                                ProfilerActivity.CUDA])
-            prof_box["p"].__enter__()
+            torch.cuda.synchronize()
+            prof.__enter__()
         elif i == TRAIN_STEPS - 1:
             torch.cuda.synchronize()
-            prof_box["p"].__exit__(None, None, None)
+            prof.__exit__(None, None, None)
 
-    reset_launches()
-    bwd = _bwd_counter()
-    torch.cuda.reset_peak_memory_stats()
-    t = time.monotonic()
+    # each drive sets the launch counts to 0 just before its steps
+    drive = _steps_through_loop if tp.loop else _steps_through_step_fn
     try:
-        losses = train_loop("minitron-4b", steps=TRAIN_STEPS, smoke=False,
-                            seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
-                            log_every=1, seed=SEED, on_step=on_step)
+        out = drive(torch, tp, cfg, on_step)
     except torch.cuda.OutOfMemoryError:
         print(torch.cuda.memory_summary())
-        fail("phase 18: minitron-4b does not train at full width in the "
-             "card's memory (summary above)")
-    wall_s = time.monotonic() - t
+        fail(f"phase {phase}: {tp.arch} does not train at full width in "
+             f"the card's memory (summary above)")
     peak = torch.cuda.max_memory_allocated()
-    k2 = read_launches()
-    k2_shapes = read_launches_by_shape()["flash_attention"]
-    k2b, k2b_shapes = bwd.launches, dict(bwd.launches_by_shape)
-    if len(losses) != TRAIN_STEPS or not all(
+    k = read_launches()
+    got = (k[0], flash_attention_bwd.launches, k[2], ssd_scan_bwd.launches)
+    want = tuple(n * TRAIN_STEPS for n in tp.per_step)
+    names = ("K2", "K2b", "K4", "K4b")
+    if got != want or k[1] or k[3]:
+        fail(f"phase {phase}: {tp.arch} launched {dict(zip(names, got))}, "
+             f"K3 {k[1]}, K1 {k[3]}; expected {dict(zip(names, want))} and "
+             f"no other kernel")
+    if len(steps) != TRAIN_STEPS or not all(
             math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
             for r in steps):
-        fail(f"phase 18: minitron-4b steps not all finite: {steps}")
-    rel = abs(losses[0] - ce0) / abs(ce0)
-    if rel > 5e-2:
-        fail(f"phase 18: the first step's fused_ce loss {losses[0]:.5f} is "
-             f"not within 5e-2 of cross_entropy(forward) {ce0:.5f}")
-    want = (2 * TRAIN_LAYERS * TRAIN_STEPS, 0, 0, 0)
-    if k2 != want or k2b != TRAIN_LAYERS * TRAIN_STEPS:
-        fail(f"phase 18: launches {dict(zip(LAUNCH_NAMES, k2))}, K2b {k2b}; "
-             f"expected K2 {want[0]} (forward and remat recompute), K2b "
-             f"{TRAIN_LAYERS * TRAIN_STEPS}, no other kernel")
-    for name, shapes in (("flash_attention", k2_shapes),
-                         ("flash_attention_bwd", k2b_shapes)):
-        r = rows[(name, BWD_SHAPES[0].tag)]
-        r["launches"] = shapes.get(r["key"], 0)
-        if r["launches"] != r["expect"] or sum(shapes.values()) != \
-                r["launches"]:
-            fail(f"phase 18: {name} launched {dict(shapes)}, expected "
-                 f"{r['expect']} at {r['key']}")
-    kernels, busy_us, k2b_us = {}, 0.0, 0.0
-    for e in prof_box["p"].events():
+        fail(f"phase {phase}: {tp.arch} steps not all finite: {steps}")
+    # each phase-2 row of this run: its launches, counted by shape
+    shapes = {"flash_attention":
+              read_launches_by_shape()["flash_attention"],
+              "flash_attention_bwd": Counter(
+                  flash_attention_bwd.launches_by_shape)}
+    for a, _, _ in train_attention_shapes(tp, cfg):
+        for name in shapes:
+            r = rows[(name, a.tag)]
+            r["launches"] = shapes[name].pop(r["key"], 0)
+            if r["launches"] != r["expect"]:
+                fail(f"phase {phase}: {name} [{a.tag}] launched "
+                     f"{r['launches']} times, expected {r['expect']}")
+    if any(shapes.values()):
+        fail(f"phase {phase}: {tp.arch} launched attention at shapes "
+             f"phase 2 does not time: {shapes}")
+    for name, n in (("ssd_chunk", got[2]), ("ssd_chunk_bwd", got[3])):
+        if n:
+            r = rows[(name, f"train {tp.arch}")]
+            r["launches"] = n
+            if n != r["expect"]:
+                fail(f"phase {phase}: {name} launched {n}, expected "
+                     f"{r['expect']}")
+    busy_us, kernels, n_kernels = 0.0, {}, 0
+    bwd_us = {name: 0.0 for j, (name, _) in BWD_KERNEL_NAMES.items()
+              if tp.per_step[j]}
+    for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             us = e.time_range.elapsed_us()
             busy_us += us
+            n_kernels += 1
             kernels[e.name[:60]] = kernels.get(e.name[:60], 0.0) + us
-            if K2B_KERNEL_NAME.search(e.name):
-                k2b_us += us
+            for name, pattern in BWD_KERNEL_NAMES.values():
+                if name in bwd_us and pattern.search(e.name):
+                    bwd_us[name] += us
+    if busy_us <= 0 or not all(bwd_us.values()):
+        fail(f"phase {phase}: the profiler saw {busy_us:.1f} us of device "
+             f"time in {tp.arch}'s step, of it {bwd_us} us in its backward "
+             f"kernels")
     step_ms = statistics.median(r["wall_ms"] for r in steps[1:])
-    if busy_us <= 0 or k2b_us <= 0:
-        fail(f"phase 18: the profiler saw {busy_us:.1f} us of device time "
-             f"and {k2b_us:.1f} us of K2b in a step")
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    out = dict(losses=losses, grad_norms=[r["grad_norm"] for r in steps],
-               first_loss_vs_cross_entropy=rel, cross_entropy=ce0,
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    out.update(losses=[r["loss"] for r in steps],
+               grad_norms=[r["grad_norm"] for r in steps],
                wall_ms_per_step=[r["wall_ms"] for r in steps],
-               step_ms_median_2_4=step_ms, busy_ms_profiled_step=busy_us / 1e3,
-               busy_share=busy_us / 1e3 / step_ms,
-               k2b_ms_profiled_step=k2b_us / 1e3,
-               kernels_profiled_step=sum(1 for e in prof_box["p"].events()
-                                         if e.device_type ==
-                                         torch.autograd.DeviceType.CUDA),
+               step_ms_median_2_4=step_ms,
+               busy_ms_profiled_step=busy_us / 1e3,
+               busy_share=busy_us / 1e3 / steps[-1]["wall_ms"],
+               kernels_profiled_step=n_kernels,
+               **{f"{n.lower()}_ms_profiled_step": us / 1e3
+                  for n, us in bwd_us.items()},
                top_kernels_ms=[(n, us / 1e3) for n, us in top],
-               peak_memory_bytes=peak, k2_per_step=k2[0] / TRAIN_STEPS,
-               k2b_per_step=k2b / TRAIN_STEPS, wall_s=wall_s)
-    print(f"  minitron-4b full width (32 layers, d 3072, 24 heads padded to "
-          f"32 over 8, vocab 256000, bf16, remat), batch {TRAIN_BATCH} x "
-          f"{TRAIN_SEQ}: losses {losses}, grad norms "
-          f"{out['grad_norms']}; first loss vs cross_entropy(forward) "
-          f"{rel:.3g}; wall ms per step {out['wall_ms_per_step']} (median "
-          f"of steps 2-4 {step_ms:.1f}); busy {busy_us / 1e3:.1f} ms of the "
-          f"profiled step (share {out['busy_share']:.3f}); peak "
-          f"{peak / 2**30:.2f} GiB; K2 {out['k2_per_step']:.0f} and K2b "
-          f"{out['k2b_per_step']:.0f} a step; K2b {k2b_us / 1e3:.3f} ms of "
-          f"the profiled step's device time; top {top[:4]}")
+               peak_memory_bytes=peak,
+               launches_per_step=dict(zip(names, (n / TRAIN_STEPS
+                                                  for n in got))))
+    bwd = ", ".join(f"{n} {us / 1e3:.3f} ms" for n, us in bwd_us.items())
+    print(f"  {tp.arch} full width ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {out['params'] / 1e9:.3f} B parameters, bf16, "
+          f"remat), batch {TRAIN_BATCH} x {TRAIN_SEQ}: losses "
+          f"{out['losses']}, grad norms {out['grad_norms']}; wall ms per "
+          f"step {out['wall_ms_per_step']} (median of steps 2-4 "
+          f"{step_ms:.1f}); busy {busy_us / 1e3:.1f} ms of the profiled "
+          f"step (share {out['busy_share']:.3f}, {n_kernels} kernels; "
+          f"{bwd}); peak {peak / 2**30:.2f} GiB; launches a step "
+          f"{out['launches_per_step']}; top {top[:4]}")
+    del prof
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
-def _train_card_vs_cpu(torch) -> dict:
-    """Phase 18.2: reduced minitron-4b in float32, 3 steps on the card and
+def train_batch(cfg, dcfg, step: int) -> dict:
+    """``batch_for_step``'s tokens and labels and, for an encoder-decoder
+    config, audio embeddings (B, n_audio_frames, d) float32 drawn from
+    (seed, step): the log-mel frontend is a stub, as in phase 14."""
+    from repro_torch.data.pipeline import batch_for_step
+    b = batch_for_step(dcfg, step)
+    if cfg.enc_dec:
+        b["audio_embed"] = np.random.default_rng((dcfg.seed, step)).normal(
+            size=(dcfg.global_batch, cfg.n_audio_frames, cfg.d_model)
+        ).astype(np.float32)
+    return b
+
+
+def _train_card_vs_cpu(torch, arch: str, phase: int) -> dict:
+    """Phase 18.2 / 19: reduced `arch` in float32, 3 steps on the card and
     on the CPU from the same state and batches."""
-    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.data.pipeline import DataConfig
     from repro_torch.models.convert import (train_state_from_numpy,
                                             train_state_to_host)
     from repro_torch.models.registry import get_arch
     from repro_torch.models.train import init_train_state, make_train_step
-    cfg = get_arch("minitron-4b").reduced(dtype="float32")
+    cfg = get_arch(arch).reduced(dtype="float32")
     host = train_state_to_host(cfg, init_train_state(cfg, SEED, "cpu"))
     states = {d: train_state_from_numpy(cfg, host, d)
               for d in ("cuda", "cpu")}
@@ -3387,7 +3703,7 @@ def _train_card_vs_cpu(torch) -> dict:
     dcfg = DataConfig(cfg.vocab, 32, 4, seed=SEED)
     worst, lr_sum = 0.0, 0.0
     for i in range(3):
-        b = batch_for_step(dcfg, i)
+        b = train_batch(cfg, dcfg, i)
         m = {}
         for d in ("cuda", "cpu"):
             states[d], m[d] = no_tf32(torch,
@@ -3397,7 +3713,8 @@ def _train_card_vs_cpu(torch) -> dict:
             r = abs(a - c) / max(abs(c), 1e-30)
             worst = max(worst, r)
             if r > 2e-4:
-                fail(f"phase 18: card vs CPU step {i} {key} {a} vs {c}")
+                fail(f"phase {phase}: {arch} card vs CPU step {i} {key} "
+                     f"{a} vs {c}")
         lr_sum += float(m["cpu"]["lr_scale"])
     atol = 2 * LR * lr_sum
     p_worst = 0.0
@@ -3406,12 +3723,13 @@ def _train_card_vs_cpu(torch) -> dict:
         d = (a.detach().cpu() - c.detach()).abs()
         bad = d > atol + 2e-4 * c.detach().abs()
         if bad.any():
-            fail(f"phase 18: card vs CPU parameters: {int(bad.sum())} "
-                 f"elements beyond {atol:.3g} + 2e-4 relative")
+            fail(f"phase {phase}: {arch} card vs CPU parameters: "
+                 f"{int(bad.sum())} elements beyond {atol:.3g} + 2e-4 "
+                 f"relative")
         p_worst = max(p_worst, float(d.max()))
-    print(f"  card vs CPU, reduced minitron-4b float32, 3 steps: loss / "
-          f"grad norm / lr scale max rel {worst:.3g} (limit 2e-4); "
-          f"parameters max|d| {p_worst:.3g} (limit {atol:.3g} + 2e-4 rel)")
+    print(f"  card vs CPU, reduced {arch} float32, 3 steps: loss / grad "
+          f"norm / lr scale max rel {worst:.3g} (limit 2e-4); parameters "
+          f"max|d| {p_worst:.3g} (limit {atol:.3g} + 2e-4 rel)")
     return dict(metrics_max_rel=worst, params_max_abs=p_worst,
                 params_atol=atol)
 
@@ -3453,11 +3771,46 @@ def _train_loss_decreases(torch) -> dict:
 
 
 def phase_train(torch, rows) -> dict:
-    out = dict(full=_train_full(torch, rows))
+    out = dict(full=_train_full(torch, rows, TRAIN_PATHS[0], 18))
     torch.cuda.empty_cache()
-    out.update(card_vs_cpu=_train_card_vs_cpu(torch),
+    out.update(card_vs_cpu=_train_card_vs_cpu(torch, "minitron-4b", 18),
                restart=_train_restart(torch),
                loss_decreases=_train_loss_decreases(torch))
+    return out
+
+
+def _train19_loss_falls(torch, arch: str) -> dict:
+    """Phase 19.3: reduced `arch` in float32 on the card, 8 steps at a
+    constant learning rate: the mean loss of the last 3 below that of
+    the first 3."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.registry import get_arch
+    from repro_torch.models.train import (TrainOptions, init_train_state,
+                                          make_train_step)
+    cfg = get_arch(arch).reduced(dtype="float32")
+    opts = TrainOptions(lr_schedule="constant")
+    state = init_train_state(cfg, SEED, "cuda", opts=opts)
+    step = make_train_step(cfg, opts=opts)
+    dcfg = DataConfig(cfg.vocab, 32, 4, seed=SEED)
+    losses = []
+    for i in range(8):
+        state, m = step(state, train_batch(cfg, dcfg, i))
+        losses.append(float(m["loss"]))
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    if not np.isfinite(losses).all() or not last < first:
+        fail(f"phase 19: reduced {arch}'s loss did not fall: {losses}")
+    print(f"  loss falls, reduced {arch}: {[round(x, 4) for x in losses]}")
+    return dict(first3=first, last3=last)
+
+
+def phase_train19(torch, rows) -> dict:
+    out = {}
+    for tp in TRAIN_PATHS[1:]:
+        out[tp.arch] = dict(full=_train_full(torch, rows, tp, 19))
+    for tp in TRAIN_PATHS[1:]:
+        out[tp.arch].update(
+            card_vs_cpu=_train_card_vs_cpu(torch, tp.arch, 19),
+            loss_falls=_train19_loss_falls(torch, tp.arch))
     return out
 
 
@@ -3536,6 +3889,15 @@ def main() -> None:
     out = phase_train(torch, rows)
     print(f"  training: {json.dumps(out)}")
     print(f"  phase 18 wall time {time.monotonic() - t:.1f} s")
+    print(f"== phase 19: training on the card: "
+          f"{', '.join(tp.arch for tp in TRAIN_PATHS[1:])} at full "
+          f"width, "
+          f"{TRAIN_STEPS} steps each; card vs CPU and loss falling at "
+          f"reduced configs")
+    t = time.monotonic()
+    out = phase_train19(torch, rows)
+    print(f"  training: {json.dumps(out)}")
+    print(f"  phase 19 wall time {time.monotonic() - t:.1f} s")
 
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",

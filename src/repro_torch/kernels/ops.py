@@ -25,12 +25,15 @@ On the card, ``chip_smoke.py`` phase 2 holds every kernel against its
 plain version at the shapes of its paths; phase 6 replays the int8
 vision plans (mobilenet_v2, resnet50_v1) with every conv and fc on K1.
 
-Gradients.  Attention is differentiable: with grad mode on and q, k or
-v requiring grad, ``flash_attention`` runs ``FlashAttentionFn``, whose
-forward is K2 with its log-sum-exp and whose backward is K2b
-(``flash_attention_bwd.py``), or their plain versions on the CPU.  The
-other kernels have no backward: a tensor that requires grad reaching
-K1, K3, K4 or K2 with a query offset under grad mode raises at once
+Gradients.  Attention and the SSD scan are differentiable.  With grad
+mode on and q, k or v requiring grad, ``flash_attention`` runs
+``FlashAttentionFn``, whose forward is K2 with its log-sum-exp and whose
+backward is K2b (``flash_attention_bwd.py``); with an input of
+``ssd_scan`` requiring grad, its intra-chunk part is ``SSDChunkFn``,
+K4 forward and K4b (``ssd_scan_bwd.py``) backward, and the cross-chunk
+recurrence differentiates through autograd; on the CPU both take their
+plain versions.  K1, K3 and K2 with a query offset have no backward: a
+tensor that requires grad reaching them under grad mode raises at once
 (``_no_backward``) on either device, so a training step can neither
 lose its gradients on the card (a kernel's output has no ``grad_fn``)
 nor differ there from the CPU.
@@ -47,6 +50,7 @@ from . import flash_decode as _fd
 from . import neutron_matmul as _nm
 from . import ref as _ref
 from . import ssd_scan as _ssd
+from . import ssd_scan_bwd as _ssdb
 
 IMPLS = ("auto", "ref")
 
@@ -67,9 +71,8 @@ def _no_backward(impl: str, kernel: str, *tensors) -> None:
         raise RuntimeError(
             f"{kernel} has no backward kernel, and a tensor that requires "
             f"grad reached it with grad mode on: its output would carry no "
-            f"gradient on the card.  Its backward is ROADMAP item 11's "
-            f"second half; run it under torch.no_grad() or on detached "
-            f"inputs")
+            f"gradient on the card.  No training path reaches it; run it "
+            f"under torch.no_grad() or on detached inputs")
 
 
 def _repeat_kv(k: torch.Tensor, v: torch.Tensor, H: int):
@@ -188,10 +191,17 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 64, init_state=None,
              impl: str = "auto"):
     """Full chunked SSD: the intra-chunk kernel (K4) and the cross-chunk
     recurrence in torch.  x (B,S,H,P); dt (B,S,H); A (H,); Bm/Cm (B,S,N).
-    Returns (y (B,S,H,P), final_state (B,H,P,N)) in x's dtype."""
+    Returns (y (B,S,H,P), final_state (B,H,P,N)) in x's dtype.  With
+    grad mode on and an input requiring grad the intra-chunk part is
+    ``SSDChunkFn`` (K4 and K4b); ``impl="ref"`` differentiates the plain
+    version by autograd."""
     plain = _plain(impl, x)
-    _no_backward(impl, "ssd_chunk (K4)", x, dt, A, Bm, Cm, init_state)
     chunk_fn = _ref.ssd_chunk_ref if plain else _ssd.ssd_chunk
+    if impl == "auto" and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, Bm, Cm, init_state)):
+        def chunk_fn(*args):
+            return SSDChunkFn.apply(*args, plain)
     return _ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,
                              init_state=init_state, chunk_fn=chunk_fn)
 
@@ -242,3 +252,36 @@ class FlashAttentionFn(torch.autograd.Function):
                 q, k, v, o, lse, do, causal=causal, window=window,
                 sm_scale=sm_scale)
         return dq, dk, dv, None, None, None, None, None
+
+
+class SSDChunkFn(torch.autograd.Function):
+    """The intra-chunk SSD with a backward kernel: forward K4
+    (``ssd_scan.ssd_chunk``) and backward K4b
+    (``ssd_scan_bwd.ssd_chunk_bwd``) for CUDA tensors (``plain`` False),
+    ``ref.ssd_chunk_ref`` and ``ref.ssd_chunk_bwd_ref`` with ``plain``
+    True.  It saves its inputs and seg; the backward takes the
+    cotangents of all four outputs (seg's too: ``ssd_scan_ref`` reads it
+    again for the cross-chunk term) and returns the gradients in the
+    inputs' dtypes.  The JAX package differentiates ``ssd_scan_ref`` by
+    autodiff; this is the same function's gradient.
+
+        SSDChunkFn.apply(x, dt, A, Bm, Cm, chunk, plain)
+            -> (y_intra, contrib, total, seg)
+    """
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk, plain):
+        fn = _ref.ssd_chunk_ref if plain else _ssd.ssd_chunk
+        y, contrib, total, seg = fn(x, dt, A, Bm, Cm, chunk)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, seg)
+        ctx.args = (chunk, plain)
+        return y, contrib, total, seg
+
+    @staticmethod
+    def backward(ctx, dy, dcontrib, dtotal, dseg):
+        x, dt, A, Bm, Cm, seg = ctx.saved_tensors
+        chunk, plain = ctx.args
+        fn = _ref.ssd_chunk_bwd_ref if plain else _ssdb.ssd_chunk_bwd
+        grads = fn(x, dt, A, Bm, Cm, seg, dy, dcontrib, dtotal, dseg, chunk)
+        return (*(g.to(t.dtype) for g, t in zip(grads, (x, dt, A, Bm, Cm))),
+                None, None)

@@ -358,6 +358,68 @@ def ssd_chunk_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             seg.reshape(Bsz, S, H))
 
 
+def ssd_chunk_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                      Bm: torch.Tensor, Cm: torch.Tensor, seg: torch.Tensor,
+                      dy: torch.Tensor, dcontrib: torch.Tensor,
+                      dtotal: torch.Tensor, dseg: torch.Tensor, chunk: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor, torch.Tensor]:
+    """The backward of ``ssd_chunk_ref`` in explicit formulas: from its
+    inputs, its output seg and the cotangents of its four outputs (dy
+    (B,S,H,P), dcontrib (B,nc,H,P,N), dtotal (B,nc,H), dseg (B,S,H)),
+    the gradients (dx, ddt, dA, dBm, dCm), all float32.  The JAX package
+    has no such function: it differentiates ``ssd_scan_ref`` by autodiff.
+
+    Per (b, chunk, head), with E[t,s] = exp(seg[t]-seg[s]) for s <= t
+    (else 0), G[t,s] = (C[t].B[s]) E[t,s] dt[s], W[s] = exp(seg[L-1] -
+    seg[s]) dt[s]:
+      dG = dy x^T (s <= t); dx = G^T dy + W[s] Q[s], Q = B dcontrib^T;
+      dC = (dG E dt) B, dB = (dG E dt)^T C + W[s] x[s] dcontrib, summed
+      over the heads; the exponents give seg the row sums of R = dG G
+      less its column sums, W gives it -dW W (and their sum to seg[L-1],
+      with dtotal total), dW = sum_p x Q; seg = cumsum(dt A) hands that
+      total back as a reverse cumulative sum rc: ddt += A rc and
+      dA = sum dt rc over batch, chunks and rows."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if S % chunk:
+        raise ValueError(f"S={S} is not a multiple of chunk={chunk}")
+    nc, L = S // chunk, chunk
+    xc = x.reshape(Bsz, nc, L, H, P).float()
+    dtc = dt.reshape(Bsz, nc, L, H).float()
+    Bc = Bm.reshape(Bsz, nc, L, N).float()
+    Cc = Cm.reshape(Bsz, nc, L, N).float()
+    sg = seg.reshape(Bsz, nc, L, H).float()
+    dyc = dy.reshape(Bsz, nc, L, H, P).float()
+    dsg = dseg.reshape(Bsz, nc, L, H).float()
+    dcf = dcontrib.float()
+    tri = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
+    # E (B,nc,L_t,L_s,H), masked to -inf above the diagonal before the exp
+    E = torch.exp((sg[:, :, :, None] - sg[:, :, None]).masked_fill(
+        ~tri[:, :, None], -math.inf))
+    cbe = torch.einsum("bcln,bcmn->bclm", Cc, Bc)[..., None] * E
+    G = cbe * dtc[:, :, None]
+    dG = torch.einsum("bclhp,bcmhp->bclmh", dyc, xc) * tri[:, :, None]
+    ew = torch.exp(sg[:, :, -1:] - sg)                      # (B,nc,L,H)
+    W = ew * dtc
+    Q = torch.einsum("bcsn,bchpn->bcshp", Bc, dcf)          # (B,nc,L,H,P)
+    dx = torch.einsum("bclmh,bclhp->bcmhp", G, dyc) + W[..., None] * Q
+    dW = (xc * Q).sum(-1)                                   # (B,nc,L,H)
+    dcb = (dG * E * dtc[:, :, None]).sum(-1)                # (B,nc,L,L)
+    dCm = torch.einsum("bclm,bcmn->bcln", dcb, Bc)
+    dBm = torch.einsum("bclm,bcln->bcmn", dcb, Cc) + torch.einsum(
+        "bcshp,bchpn->bcsn", xc * W[..., None], dcf)
+    R = dG * G
+    gs = dsg + R.sum(3) - R.sum(2) - dW * W
+    last = (dW * W).sum(2) + dtotal.float() * torch.exp(sg[:, :, -1])
+    gs = torch.cat([gs[:, :, :-1], gs[:, :, -1:] + last[:, :, None]], dim=2)
+    rc = torch.flip(torch.cumsum(torch.flip(gs, (2,)), dim=2), (2,))
+    ddt = (dG * cbe).sum(2) + dW * ew + rc * A.float()
+    dA = (rc * dtc).sum((0, 1, 2))
+    return (dx.reshape(Bsz, S, H, P), ddt.reshape(Bsz, S, H), dA,
+            dBm.reshape(Bsz, S, N), dCm.reshape(Bsz, S, N))
+
+
 ChunkFn = Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                torch.Tensor]]
 

@@ -1,0 +1,109 @@
+"""The backward of the Mamba2 SSD within a chunk (K4b) on the H100.
+
+Launch wrapper of the hand-written CUDA kernel ``csrc/ssd_chunk_bwd.cu``:
+the gradients of K4's four outputs (``ssd_scan.ssd_chunk``: y_intra,
+contrib, total, seg) with respect to x, dt, A, Bm and Cm.  The JAX
+package has no backward kernel to port: its models differentiate
+``ssd_scan_ref`` (``repro/kernels/ref.py:331-391``) by autodiff, and this
+computes the same gradient.  One block per (batch, chunk, head) writes dx
+and ddt and its head's partials of dBm, dCm and dA to a scratch buffer; a
+second launch sums them in a fixed order, so a rerun gives the same bits
+(no atomics).  Its plain PyTorch version is ``ref.ssd_chunk_bwd_ref``;
+``ops.SSDChunkFn`` chooses between the two by the device of the inputs.
+
+``launches`` counts the calls that launched the kernels (one per call,
+two CUDA kernels each).
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Tuple
+
+import torch
+
+from . import _build
+from .ssd_scan import MAX_DIM
+
+launches = 0
+_lock = threading.Lock()             # the counter, across threads
+
+_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  Bm: torch.Tensor, Cm: torch.Tensor, seg: torch.Tensor,
+                  dy: torch.Tensor, dcontrib: torch.Tensor,
+                  dtotal: torch.Tensor, dseg: torch.Tensor, chunk: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor, torch.Tensor]:
+    """x (B,S,H,P); dt (B,S,H); A (H,); Bm/Cm (B,S,N); seg (B,S,H), K4's
+    own output; the cotangents dy (B,S,H,P), dcontrib (B,nc,H,P,N),
+    dtotal (B,nc,H), dseg (B,S,H); S a multiple of `chunk`.
+
+    Returns (dx (B,S,H,P), ddt (B,S,H), dA (H,), dBm (B,S,N), dCm
+    (B,S,N)), all float32, as ``ref.ssd_chunk_bwd_ref``.  Launches on the
+    current stream and never synchronises.  Raises on inputs the kernel
+    does not take: tensors off CUDA, x/Bm/Cm other than one float32 or
+    bfloat16 dtype, any other input not float32, chunk, N or P above
+    128."""
+    global launches
+    if x.dim() != 4 or Bm.dim() != 3:
+        raise ValueError(f"x must be (B,S,H,P) and Bm (B,S,N); got "
+                         f"{tuple(x.shape)}, {tuple(Bm.shape)}")
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if min(Bsz, S, H, P, N, chunk) < 1 or max(P, N, chunk) > MAX_DIM:
+        raise ValueError(f"ssd_chunk_bwd takes nonempty B, S, H and 1 <= "
+                         f"chunk, N, P <= {MAX_DIM}; got x "
+                         f"{tuple(x.shape)}, N={N}, chunk={chunk}")
+    if S % chunk:
+        raise ValueError(f"S={S} is not a multiple of chunk={chunk}")
+    nc = S // chunk
+    want = {"dt": (Bsz, S, H), "A": (H,), "Bm": (Bsz, S, N),
+            "Cm": (Bsz, S, N), "seg": (Bsz, S, H), "dy": (Bsz, S, H, P),
+            "dcontrib": (Bsz, nc, H, P, N), "dtotal": (Bsz, nc, H),
+            "dseg": (Bsz, S, H)}
+    given = dict(dt=dt, A=A, Bm=Bm, Cm=Cm, seg=seg, dy=dy, dcontrib=dcontrib,
+                 dtotal=dtotal, dseg=dseg)
+    bad = {k: tuple(t.shape) for k, t in given.items()
+           if tuple(t.shape) != want[k]}
+    if bad:
+        raise ValueError(f"ssd_chunk_bwd: shapes {bad} do not fit x "
+                         f"{tuple(x.shape)}, N={N}, chunk={chunk}")
+    dev = x.device
+    if dev.type != "cuda" or any(t.device != dev for t in given.values()):
+        raise ValueError("ssd_chunk_bwd's kernel takes CUDA tensors on one "
+                         "device")
+    if x.dtype not in _build.DTYPE_CODES or Bm.dtype != x.dtype \
+            or Cm.dtype != x.dtype:
+        raise TypeError(f"ssd_chunk_bwd takes float32 or bfloat16 x, Bm, Cm "
+                        f"of one dtype; got {x.dtype}, {Bm.dtype}, "
+                        f"{Cm.dtype}")
+    f32 = [k for k in ("dt", "A", "seg", "dy", "dcontrib", "dtotal", "dseg")
+           if given[k].dtype != torch.float32]
+    if f32:
+        raise TypeError(f"ssd_chunk_bwd takes float32 {f32}")
+    x, dt, A, Bm, Cm, seg, dy, dcontrib, dtotal, dseg = (
+        t.contiguous() for t in (x, dt, A, Bm, Cm, seg, dy, dcontrib,
+                                 dtotal, dseg))
+    kw = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((Bsz, S, H, P), **kw)
+    ddt = torch.empty((Bsz, S, H), **kw)
+    dA = torch.empty((H,), **kw)
+    dB = torch.empty((Bsz, S, N), **kw)
+    dC = torch.empty((Bsz, S, N), **kw)
+    part = Bsz * nc * H
+    scratch = torch.empty(2 * part * chunk * N + part, **kw)
+    fn = _build.function("ssd_chunk_bwd", "ssd_chunk_bwd_launch", _ARGTYPES)
+    with torch.cuda.device(dev):
+        rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                Cm.data_ptr(), seg.data_ptr(), dy.data_ptr(),
+                dcontrib.data_ptr(), dtotal.data_ptr(), dseg.data_ptr(),
+                dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+                dC.data_ptr(), scratch.data_ptr(), Bsz, S, H, P, N, chunk,
+                _build.DTYPE_CODES[x.dtype], _build.stream_of(x))
+    _build.check(rc, "ssd_chunk_bwd")
+    with _lock:
+        launches += 1
+    return dx, ddt, dA, dB, dC

@@ -14,7 +14,9 @@ heartbeat to ``runtime/fault.py``'s ``FaultMonitor``, asynchronous
 checkpoints every `ckpt_every` steps in the reference's layout, and a
 restart from the latest one that fast-forwards the pipeline.  The
 reference's mesh arguments `n_data` and `n_model` are kept; above 1 they
-raise until the distribution work (ROADMAP item 12).
+raise until the distribution work (ROADMAP item 12).  Its batches carry
+no audio, so an encoder-decoder config (whisper) raises here; it trains
+through ``make_train_step`` (``chip_smoke.py`` phase 19).
 """
 from __future__ import annotations
 
@@ -53,6 +55,12 @@ def train_loop(arch: str, steps: int = 30, smoke: bool = True,
     cfg = get_arch(arch)
     if smoke:
         cfg = cfg.reduced()
+    if cfg.enc_dec:
+        raise ValueError(
+            f"{arch}: train_loop feeds tokens and labels only, as the "
+            f"reference's does; an encoder-decoder config also needs "
+            f"'audio_embed' (B, n_audio_frames, d) in each batch: call "
+            f"models.train.make_train_step with such batches")
     opts = TrainOptions(n_micro=n_micro, compress_grads=compress,
                         total_steps=max(steps, 2))
     step_fn = make_train_step(cfg, opts=opts)

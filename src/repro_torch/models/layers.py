@@ -9,8 +9,10 @@ explicit ``torch.Generator`` on the target device.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Sequence
+import threading
+from typing import Iterator, Optional, Sequence
 
 import torch
 from torch import nn
@@ -27,6 +29,26 @@ def param(shape, dtype: torch.dtype, device) -> nn.Parameter:
     """An uninitialised inference parameter (no gradient)."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
+
+
+_remat = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing() -> Iterator[None]:
+    """Marks, on this thread, the backward's recomputation of a layer's
+    forward under remat (``lm._maybe_remat``), so that state a forward
+    updates as a side effect (``MoE.dropped``) counts a step once."""
+    prev = in_recompute()
+    _remat.on = True
+    try:
+        yield
+    finally:
+        _remat.on = prev
+
+
+def in_recompute() -> bool:
+    return getattr(_remat, "on", False)
 
 
 # --------------------------------------------------------------------------

@@ -29,6 +29,7 @@ built.
 """
 from __future__ import annotations
 
+import contextlib
 from types import SimpleNamespace
 from typing import Dict, Optional, Tuple
 
@@ -45,7 +46,7 @@ from .attention import (MLA, Attention, _expand_kv, _kv_index, _mask_padded,
 from .config import ArchConfig
 from .layers import (MLP, cross_entropy, dense_init, dtype_of, embed,
                      embed_init, fused_ce, init_mlp, lm_logits, mlp, param,
-                     rms_norm)
+                     recomputing, rms_norm)
 from .moe import MoE, init_moe, moe
 from .ssm import SSM, SSMState, init_ssm, init_ssm_state, ssm_block
 
@@ -370,14 +371,20 @@ def _maybe_remat(fn, cfg: ArchConfig):
     """`fn` under activation checkpointing when ``cfg.remat`` is set and
     grad mode is on (the counterpart of ``jax.checkpoint`` around each
     scanned layer, ``repro/models/lm.py:254``): the layer keeps only its
-    input, and its forward, K2 included, runs again in the backward.
-    Serving (no grad) runs `fn` as it is."""
+    input, and its forward, K2 and K4 included, runs again in the
+    backward, inside ``layers.recomputing()``.  Serving (no grad) runs
+    `fn` as it is."""
     if not (cfg.remat and torch.is_grad_enabled()):
         return fn
 
     def remat(*args, **kwargs):
-        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=_remat_contexts, **kwargs)
     return remat
+
+
+def _remat_contexts():
+    return contextlib.nullcontext(), recomputing()
 
 
 def forward_hidden(cfg: ArchConfig, model: LM, batch: Dict
@@ -388,15 +395,18 @@ def forward_hidden(cfg: ArchConfig, model: LM, batch: Dict
     positions = torch.arange(S, device=h.device)[None].expand(B, S)
     if cfg.family == "hybrid":
         h0 = h      # the step's own embeddings feed every shared block
+        ssm_fn = _maybe_remat(_ssm_layer, cfg)
         for group in model.groups:
             for layer in group.ssm:
-                h, _ = _ssm_layer(layer, h, cfg)
-            # the shared block sees h + h0 and its output replaces h
+                h, _ = ssm_fn(layer, h, cfg)
+            # the shared block sees h + h0 and its output replaces h; it
+            # runs outside remat, as the reference's group_body
             h, _ = _decoder_layer(_lora_apply(model.shared, group.lora),
                                   h + h0, cfg, positions)
     elif cfg.family == "ssm":
+        ssm_fn = _maybe_remat(_ssm_layer, cfg)
         for layer in model.layers:
-            h, _ = _ssm_layer(layer, h, cfg)
+            h, _ = ssm_fn(layer, h, cfg)
     elif cfg.local_global_ratio:
         W = cfg.sliding_window
         layer_fn = _maybe_remat(_decoder_layer, cfg)
@@ -409,9 +419,10 @@ def forward_hidden(cfg: ArchConfig, model: LM, batch: Dict
     elif cfg.enc_dec:
         xkv = cross_kv(cfg, model,
                        encode_audio(cfg, model, batch["audio_embed"]))
+        layer_fn = _maybe_remat(_encdec_layer, cfg)
         for i, layer in enumerate(model.dec_layers):
-            h, _ = _encdec_layer(layer, h, cfg, positions,
-                                 (xkv["k"][i], xkv["v"][i]))
+            h, _ = layer_fn(layer, h, cfg, positions,
+                            (xkv["k"][i], xkv["v"][i]))
     else:
         mropep = _mrope_pos(cfg, positions)
         layer_fn = _maybe_remat(_decoder_layer, cfg)
@@ -448,7 +459,7 @@ def loss_fn(cfg: ArchConfig, model: LM, batch: Dict) -> torch.Tensor:
     0-d), the counterpart of ``repro/models/lm.py:loss_fn``: the chunked
     ``fused_ce`` when ``cfg.fused_ce_loss``, else ``cross_entropy`` of
     the logits.  deepseek-v3's multi-token-prediction loss is not built
-    (ROADMAP item 11's second half)."""
+    (ROADMAP item 11c; ``train.check_trainable`` refuses such a config)."""
     labels = _as_tokens(batch["labels"], model.device)
     if cfg.fused_ce_loss:
         h = forward_hidden(cfg, model, batch)
@@ -519,25 +530,32 @@ def _encdec_layer(p: EncDecLayer, h: torch.Tensor, cfg: ArchConfig,
                              cfg), new_cache
 
 
-@torch.no_grad()
+def _enc_layer(p: DecoderLayer, x: torch.Tensor, cfg: ArchConfig
+               ) -> torch.Tensor:
+    """An encoder layer: bidirectional self-attention, then the MLP."""
+    x = x + _bidir_attention(p.attn, rms_norm(p.norm1, x, cfg.norm_eps), cfg)
+    return x + _feed_forward(p, rms_norm(p.norm2, x, cfg.norm_eps), cfg)
+
+
 def encode_audio(cfg: ArchConfig, model: LM, audio_embed) -> torch.Tensor:
     """The whisper encoder alone: audio_embed (B, n_audio_frames, d), cast
     to the model dtype, plus `enc_pos`, through the bidirectional layers
-    and `enc_norm` -> encoder states (B, Se, d)."""
+    (each under remat in training, as the reference's ``enc_body``) and
+    `enc_norm` -> encoder states (B, Se, d).  Differentiable: serving
+    calls it under ``torch.no_grad()`` (``launch.serve.decode_aux``)."""
     x = _as_tensor(audio_embed, model.device).to(model.enc_pos.dtype)
     x = x + model.enc_pos
+    layer_fn = _maybe_remat(_enc_layer, cfg)
     for layer in model.enc_layers:
-        x = x + _bidir_attention(layer.attn,
-                                 rms_norm(layer.norm1, x, cfg.norm_eps), cfg)
-        x = x + _feed_forward(layer, rms_norm(layer.norm2, x, cfg.norm_eps),
-                              cfg)
+        x = layer_fn(layer, x, cfg)
     return rms_norm(model.enc_norm, x, cfg.norm_eps)
 
 
-@torch.no_grad()
 def cross_kv(cfg: ArchConfig, model: LM, enc: torch.Tensor) -> Dict:
     """Each decoder layer's cross-attention keys and values from the
-    encoder states: {"k", "v"}, each (L, B, Hkv, Se, hd)."""
+    encoder states: {"k", "v"}, each (L, B, Hkv, Se, hd).  Serving calls
+    it once a request, under ``torch.no_grad()``; the training forward
+    calls it once a step, outside the layers' remat."""
     B, Se, _ = enc.shape
     Hkv, hd = cfg.n_kv_heads, cfg.head_dim
 

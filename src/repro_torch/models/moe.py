@@ -27,7 +27,7 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from .config import ArchConfig
-from .layers import dense_init, param
+from .layers import dense_init, in_recompute, param
 
 
 class Experts(nn.Module):
@@ -47,7 +47,8 @@ class MoE(nn.Module):
     `n_shared_experts`, one shared gated MLP of width fe * n_shared.
 
     ``dropped`` (a 0-d int64 buffer) counts the assignments the capacity
-    bound has dropped since it was last zeroed."""
+    bound has dropped since it was last zeroed, once per forward also
+    under remat."""
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype, device):
         super().__init__()
@@ -138,7 +139,10 @@ def capacity(cfg: ArchConfig, T: int) -> int:
 
 def moe_dense(p: MoE, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Capacity-bounded sort dispatch.  x (B, S, d) -> (B, S, d); adds the
-    dropped assignments to ``p.dropped``.  Raises for a
+    dropped assignments to ``p.dropped``, once a forward: not in remat's
+    recomputation of the layer in the backward (``layers.recomputing``).
+    Differentiable by autograd: the router's gradient flows through the
+    kept assignments' top-k gates, as in the reference.  Raises for a
     ``cfg.moe_dispatch`` other than "sort"."""
     if cfg.moe_dispatch != "sort":
         raise NotImplementedError(
@@ -150,7 +154,8 @@ def moe_dense(p: MoE, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     gates, idx = _router_probs(p, x2d, cfg)
     xe, combine, keep = _dispatch_sort(x2d, gates, idx, cfg.n_experts,
                                        capacity(cfg, T))
-    p.dropped += keep.numel() - keep.sum()
+    if not in_recompute():      # remat runs the layer again in backward
+        p.dropped += keep.numel() - keep.sum()
     we = p.experts
     h = torch.bmm(xe, we.w_in)
     if cfg.gated_mlp:

@@ -13,11 +13,13 @@ the error feedback are lists in the order of ``model.parameters()``.
 ``models.convert.train_state_from_numpy`` / ``train_state_to_numpy``
 carry a state across to and from the reference's layout.
 
-Families trained by this port: dense (gemma3's windowed layers
-included) and vlm, whose training forward runs attention through K2 and
-its backward kernel K2b.  ssm, hybrid, moe and audio raise: their
-backward kernels (K4's, MoE dispatch, the encoder under grad) are ROADMAP
-item 11's second half.
+Every family trains: dense (gemma3's windowed layers included), vlm,
+moe, audio (whisper: the batch carries "audio_embed"), ssm and hybrid.
+Attention runs through K2 and its backward kernel K2b, the SSD scan
+through K4 and K4b; the MoE sort dispatch is plain torch, as the
+reference leaves it to XLA.  A config with deepseek-v3's
+multi-token-prediction block (``cfg.mtp``) raises: without ``_mtp_loss``
+the loss would not be the reference's (ROADMAP item 11c).
 """
 from __future__ import annotations
 
@@ -31,9 +33,6 @@ from repro_torch.runtime.overlap import accumulate_grads
 from . import lm
 from .config import ArchConfig
 from .convert import reference_groups
-
-TRAINED_FAMILIES = ("dense", "vlm")
-
 
 class TrainState(NamedTuple):
     params: lm.LM
@@ -51,12 +50,14 @@ class TrainOptions:
 
 
 def check_trainable(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for a family this port does not train."""
-    if cfg.family not in TRAINED_FAMILIES:
+    """Raise NotImplementedError for a config this port does not train:
+    one with the multi-token-prediction block."""
+    lm.check_supported(cfg)
+    if cfg.mtp:
         raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family!r} family is ROADMAP "
-            f"item 11's second half (its backward kernels are not ported); "
-            f"this port trains {TRAINED_FAMILIES}")
+            f"{cfg.name}: the multi-token-prediction loss (cfg.mtp) is "
+            f"ROADMAP item 11c; training without it would not give the "
+            f"reference's loss")
 
 
 def default_opt_config(cfg: ArchConfig) -> optim.AdamWConfig:

@@ -134,8 +134,20 @@ def test_checkpoints_cross_packages_both_ways(tmp_path, dtype):
     """A reference step's checkpoint restores in the port, and the port's
     save of it restores in the reference, with equal arrays; then each
     package's next step from the restored state equals the other's."""
-    jcfg = jget_arch(ARCH).reduced(dtype=dtype)
-    tcfg = get_arch(ARCH).reduced(dtype=dtype)
+    _cross_both_ways(tmp_path, ARCH, dtype)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "granite-moe-1b-a400m"])
+def test_checkpoints_of_the_other_trees_cross_both_ways(tmp_path, arch):
+    """The same for the hybrid tree (groups.ssm stacked over (G, R),
+    groups.lora over (G,), the unstacked shared block) and the MoE tree
+    (router and stacked experts), in float32."""
+    _cross_both_ways(tmp_path, arch, "float32")
+
+
+def _cross_both_ways(tmp_path, arch, dtype):
+    jcfg = jget_arch(arch).reduced(dtype=dtype)
+    tcfg = get_arch(arch).reduced(dtype=dtype)
     jstep = jax.jit(jtrain.make_train_step(jcfg))
     tstep = ttrain.make_train_step(tcfg)
     dcfg = jpipe.DataConfig(jcfg.vocab, 16, 2)

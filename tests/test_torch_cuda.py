@@ -325,6 +325,99 @@ def test_ssd_scan_on_the_card_matches_plain(dev, S, chunk, init):
     torch.testing.assert_close(s, s_ref, atol=2e-3, rtol=1e-3)
 
 
+# K4b at chip_smoke.py's rows (the training shapes, batch 8 x 128: one
+# chunk; the serving prefill shapes: two chunks, 56 zero rows) and small
+# float32 cases (ragged tiles, zero rows, N != P, the largest tile)
+SSD_BWD_CASES = [
+    (8, 128, 32, 64, 128, 128, 0, torch.bfloat16),   # mamba2-370m training
+    (8, 128, 80, 64, 64, 128, 0, torch.bfloat16),    # zamba2-2.7b training
+    (4, 256, 80, 64, 64, 128, 56, torch.bfloat16),   # zamba2-2.7b serving
+    (4, 256, 32, 64, 128, 128, 56, torch.bfloat16),  # mamba2-370m serving
+    (1, 32, 1, 8, 4, 8, 0, torch.float32),
+    (2, 128, 3, 16, 8, 32, 28, torch.float32),
+    (2, 96, 3, 24, 40, 32, 0, torch.float32),
+    (1, 256, 2, 128, 128, 128, 0, torch.float32),
+]
+
+
+def _ssd_cotangents(gen, dev, B, S, H, P, N, chunk):
+    nc = S // chunk
+    return (_randn(gen, (B, S, H, P), torch.float32, dev),
+            _randn(gen, (B, nc, H, P, N), torch.float32, dev),
+            _randn(gen, (B, nc, H), torch.float32, dev),
+            _randn(gen, (B, S, H), torch.float32, dev))
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,pad,dtype", SSD_BWD_CASES)
+def test_ssd_chunk_bwd_kernel_matches_plain(dev, B, S, H, P, N, chunk, pad,
+                                            dtype):
+    """K4b against ssd_chunk_bwd_ref on K4's own seg: per gradient
+    max|d| / max|plain| below 1e-4, for bf16 inputs as for float32 ones
+    (both sides do float32 arithmetic on the same input bits and float32
+    cotangents, so a kernel that rounded the cotangents or its partial
+    products to bf16 fails); a rerun gives the same bits (no atomics)."""
+    from repro_torch.kernels import ssd_scan_bwd as t_ssdb
+    gen = torch.Generator(device=dev).manual_seed(S + H + N + 1)
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, dev, B, S, H, P, N, dtype)
+    if pad:
+        for t in (x, dt, Bm, Cm):
+            t[:, S - pad:] = 0
+    seg = t_ssd.ssd_chunk(x, dt, A, Bm, Cm, chunk)[3]
+    cot = _ssd_cotangents(gen, dev, B, S, H, P, N, chunk)
+    n0 = t_ssdb.launches
+    got = t_ssdb.ssd_chunk_bwd(x, dt, A, Bm, Cm, seg, *cot, chunk)
+    want = ref.ssd_chunk_bwd_ref(x, dt, A, Bm, Cm, seg, *cot, chunk)
+    torch.cuda.synchronize()
+    assert t_ssdb.launches == n0 + 1
+    for name, g, w in zip(("dx", "ddt", "dA", "dBm", "dCm"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        assert torch.isfinite(g).all(), name
+        rel = float((g - w).abs().max() / w.abs().max())
+        assert rel < 1e-4, (name, rel)
+    if pad:                     # the zero rows carry no gradient to x
+        assert not got[0][:, S - pad:].any()
+    again = t_ssdb.ssd_chunk_bwd(x, dt, A, Bm, Cm, seg, *cot, chunk)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("S,chunk,init,dtype", [
+    (100, 32, True, torch.float32), (37, 16, False, torch.float32),
+    (70, 32, True, torch.bfloat16)])
+def test_ssd_scan_grad_on_the_card_matches_the_cpu(dev, S, chunk, init,
+                                                   dtype):
+    """ops.ssd_scan under grad on CUDA (SSDChunkFn: K4, then K4b; the
+    recurrence through autograd) and on the CPU (the plain versions) from
+    the same inputs and cotangents: float32 within atol 2e-3 / rtol 1e-3,
+    bf16 within 2e-2 of each gradient's max."""
+    from repro_torch.kernels import ssd_scan_bwd as t_ssdb
+    gen = torch.Generator().manual_seed(S)
+    B, H, P, N = 2, 3, 16, 8
+    xs = _ssd_inputs(gen, "cpu", B, S, H, P, N, dtype)
+    s0 = torch.randn(B, H, P, N, generator=gen).to(dtype) if init else None
+    dy = torch.randn(B, S, H, P, generator=gen).to(dtype)
+    ds = torch.randn(B, H, P, N, generator=gen).to(dtype)
+    grads = []
+    for d in ("cpu", dev):
+        ins = [t.detach().to(d).requires_grad_(True) for t in xs]
+        st = None if s0 is None else \
+            s0.detach().to(d).requires_grad_(True)
+        n0 = (t_ssd.launches, t_ssdb.launches)
+        y, fin = ops.ssd_scan(*ins, chunk=chunk, init_state=st)
+        torch.autograd.backward((y, fin), (dy.to(d), ds.to(d)))
+        if d != "cpu":
+            assert (t_ssd.launches, t_ssdb.launches) == (n0[0] + 1, n0[1] + 1)
+        grads.append([y.detach().cpu(), fin.detach().cpu()]
+                     + [t.grad.cpu() for t in ins]
+                     + ([] if st is None else [st.grad.cpu()]))
+    for a, b in zip(*grads):
+        if dtype == torch.float32:
+            torch.testing.assert_close(b, a, atol=2e-3, rtol=1e-3)
+        else:
+            a, b = a.float(), b.float()
+            assert float((a - b).abs().max() / a.abs().max()) < 2e-2
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     q = torch.zeros(1, 2, 16, device=dev, dtype=torch.float16)
     k = torch.zeros(1, 2, 8, 16, device=dev, dtype=torch.float16)
@@ -1410,6 +1503,9 @@ def test_flash_attention_bwd_kernel_matches_plain(dev, B, H, Hkv, S, D, Dv,
     (2, 4, 2, 50, 130, 128, 128, False, None),   # S != Sk
     (1, 4, 4, 70, 150, 64, 64, True, None),
     (1, 2, 1, 3, 3, 16, 16, True, None),       # row 0's dq is 0
+    # whisper-tiny's training cross-attention: 128 decoder rows against
+    # 1500 keys, a key tail of 28 past the 64-key tile
+    (8, 16, 16, 128, 1500, 64, 64, False, None),
 ])
 def test_flash_attention_bwd_mma_route(dev, B, H, Hkv, S, Sk, D, Dv, causal,
                                        window):
@@ -1506,17 +1602,32 @@ def test_kernels_without_backward_raise_under_grad_on_the_card(dev):
         lambda: ops.flash_decode(x.reshape(1, 4, 8),
                                  torch.zeros(1, 4, 5, 8, device=dev),
                                  torch.zeros(1, 4, 5, 8, device=dev)),
-        lambda: ops.ssd_scan(x.reshape(1, 4, 1, 8),
-                             torch.ones(1, 4, 1, device=dev),
-                             -torch.ones(1, device=dev),
-                             torch.zeros(1, 4, 2, device=dev),
-                             torch.zeros(1, 4, 2, device=dev), chunk=4),
     ]
-    counts = (t_k1.launches, t_fd.launches, t_ssd.launches)
+    counts = (t_k1.launches, t_fd.launches)
     for call in calls:
         with pytest.raises(RuntimeError, match="no backward kernel"):
             call()
-    assert (t_k1.launches, t_fd.launches, t_ssd.launches) == counts
+    assert (t_k1.launches, t_fd.launches) == counts
+
+
+def test_ssd_scan_takes_a_grad_on_the_card(dev):
+    """K4 has a backward: a tensor requiring grad reaching ops.ssd_scan
+    runs K4, and its backward K4b, once each; under no_grad no graph is
+    built."""
+    from repro_torch.kernels import ssd_scan_bwd as t_ssdb
+    x = torch.ones(1, 4, 1, 8, device=dev, requires_grad=True)
+    args = (torch.ones(1, 4, 1, device=dev), -torch.ones(1, device=dev),
+            torch.ones(1, 4, 2, device=dev), torch.ones(1, 4, 2, device=dev))
+    n0 = (t_ssd.launches, t_ssdb.launches)
+    y, _ = ops.ssd_scan(x, *args, chunk=4)
+    y.sum().backward()
+    torch.cuda.synchronize()
+    assert (t_ssd.launches, t_ssdb.launches) == (n0[0] + 1, n0[1] + 1)
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+    with torch.no_grad():
+        y, _ = ops.ssd_scan(x, *args, chunk=4)
+    assert y.grad_fn is None
+    assert t_ssdb.launches == n0[1] + 1
 
 
 def test_save_async_of_a_cuda_state_while_the_next_step_runs(dev, tmp_path):

@@ -411,3 +411,19 @@ def test_bf16_forward_matches_jax(arch):
     got = tlm.forward(cfg_t, model, {"tokens": prompts, **extra})
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(_np(got), _np(want), **BF16_TOL)
+
+
+def test_serving_runs_the_encoder_without_a_graph():
+    """``encode_audio`` and ``cross_kv`` are differentiable (the training
+    forward reaches the encoder through them); serving's ``decode_aux``
+    runs them under no_grad, so even a model whose parameters require
+    grad serves with no graph."""
+    cfg = tget_arch("whisper-tiny").reduced(dtype="float32")
+    model = tlm.init_params(cfg, 0, "cpu").requires_grad_(True)
+    _, extra = draw_inputs(cfg, np.random.default_rng(0), 2, 4)
+    aux, _ = decode_aux(cfg, model, extra)
+    assert aux["enc_states"].grad_fn is None
+    assert all(aux["cross_kv"][k].grad_fn is None for k in ("k", "v"))
+    enc = tlm.encode_audio(cfg, model, extra["audio_embed"])
+    assert enc.grad_fn is not None
+    assert tlm.cross_kv(cfg, model, enc)["k"].grad_fn is not None

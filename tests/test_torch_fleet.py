@@ -192,12 +192,17 @@ def test_fleet_serves_with_parity_and_balanced_routing(artifacts, ref):
 def test_fleet_hedge_rescues_stalled_replica(artifacts, ref):
     """A request stuck behind a stalled worker is re-issued to the other
     replica after the hedge timeout; the hedge's result settles the
-    ticket long before the stall clears."""
+    ticket long before the stall clears.  The warm-up requests are not
+    hedged: on a loaded host one of them takes longer than the 80 ms
+    hedge timeout, and its hedge would spend the fleet's hedge budget (a
+    tenth of the requests), so the stalled request would wait out the
+    stall unhedged."""
     fleet = _fleet(artifacts, hedge_after_ms=80.0, heartbeat_timeout_s=60.0)
     try:
         x = _feed(fleet)
         for _ in range(4):                       # warm both replicas
-            fleet.submit("m0", x).result(timeout=60)
+            fleet.submit("m0", x, hedge=False).result(timeout=60)
+        assert fleet.stats()["hedges"] == 0
         with chaos.inject() as c:
             c.stall_worker(0, seconds=3.0)       # one replica's worker
             t0 = time.monotonic()

@@ -592,20 +592,53 @@ def test_flash_attention_bwd_ref_matches_reference():
                                      "none", torch.zeros(1, 4, 3)),
     lambda x: tops.flash_decode(x.reshape(1, 4, 8), torch.zeros(1, 4, 5, 8),
                                 torch.zeros(1, 4, 5, 8)),
-    lambda x: tops.ssd_scan(x.reshape(1, 4, 1, 8), torch.ones(1, 4, 1),
-                            -torch.ones(1), torch.zeros(1, 4, 2),
-                            torch.zeros(1, 4, 2), chunk=4),
     lambda x: tops.flash_attention(
         x.reshape(1, 1, 4, 8), torch.zeros(1, 1, 4, 8),
         torch.zeros(1, 1, 4, 8), q_offset=torch.zeros(1, dtype=torch.int32)),
 ])
 def test_kernels_without_backward_refuse_a_grad(call):
-    """A tensor that requires grad reaching K1, K3, K4 or K2 with a query
+    """A tensor that requires grad reaching K1, K3 or K2 with a query
     offset under grad mode raises, on the CPU as on the card; under
     no_grad, or with impl="ref", the same call runs."""
     x = torch.zeros(4, 8, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward kernel.*item 11"):
+    with pytest.raises(RuntimeError, match="no backward kernel"):
         call(x)
     with torch.no_grad():
         call(x)
     call(x.detach())
+
+
+@pytest.mark.parametrize("S,chunk,init", [(13, 4, True), (16, 16, False)])
+def test_ssd_scan_under_grad_gives_the_plain_versions_gradients(S, chunk,
+                                                                init):
+    """K4 has a backward: ops.ssd_scan under grad (SSDChunkFn, whose
+    backward is K4b's plain version on the CPU) gives the gradients of
+    autograd through the plain version (impl="ref"), for every input and
+    the initial state; under no_grad it builds no graph."""
+    rng = np.random.default_rng(S)
+    B, H, P, N = 2, 3, 4, 5
+    xs = [torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.normal(size=(B, S, H, P)), rng.uniform(1e-3, 0.1, (B, S, H)),
+        -rng.uniform(0.5, 2.0, (H,)), rng.normal(size=(B, S, N)),
+        rng.normal(size=(B, S, N)), rng.normal(size=(B, H, P, N)))]
+    if not init:
+        xs[5] = None
+    cot = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+           for s in ((B, S, H, P), (B, H, P, N))]
+    grads = []
+    for impl in ("auto", "ref"):
+        ins = [None if t is None else t.clone().requires_grad_(True)
+               for t in xs]
+        y, fin = tops.ssd_scan(*ins[:5], chunk=chunk, init_state=ins[5],
+                               impl=impl)
+        if impl == "auto":
+            assert y.grad_fn is not None
+        torch.autograd.backward((y, fin), cot)
+        grads.append([t.grad for t in ins if t is not None])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    with torch.no_grad():
+        y, fin = tops.ssd_scan(*[None if t is None else
+                                 t.requires_grad_(True) for t in xs][:5],
+                               chunk=chunk)
+    assert y.grad_fn is None and fin.grad_fn is None

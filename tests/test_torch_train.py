@@ -1,7 +1,9 @@
 """The port's training step and loop (``repro_torch.models.train``,
 ``repro_torch.launch.train``) against the JAX package on the CPU.
 
-Reduced minitron-4b and qwen2-vl-2b in float32 start from the reference's
+Reduced minitron-4b, qwen2-vl-2b, mamba2-370m, zamba2-2.7b,
+granite-moe-1b-a400m and whisper-tiny (its batches carry audio
+embeddings) in float32 start from the reference's
 own initial state (carried across with
 ``models.convert.train_state_from_numpy``) and take 3 steps on the
 batches ``batch_for_step`` gives, against ``jax.jit(make_train_step(cfg,
@@ -61,6 +63,17 @@ def _assert_params_close(got, want, atol):
                                    rtol=RTOL, err_msg=str(path))
 
 
+def _batch(cfg, dcfg, step):
+    """``batch_for_step``'s tokens and labels and, for whisper, the audio
+    embeddings (B, n_audio_frames, d) float32 drawn from the step."""
+    b = jpipe.batch_for_step(dcfg, step)
+    if cfg.enc_dec:
+        b["audio_embed"] = np.random.default_rng(step).normal(
+            size=(dcfg.global_batch, cfg.n_audio_frames, cfg.d_model)
+        ).astype(np.float32)
+    return b
+
+
 def _run_both(arch, opts_kw, steps=3, seq_len=32, batch=4):
     """Both packages from the reference's initial state over `steps`
     steps; returns (port metrics, reference metrics, port state,
@@ -81,7 +94,7 @@ def _run_both(arch, opts_kw, steps=3, seq_len=32, batch=4):
                             global_batch=batch)
     jm, tm = [], []
     for i in range(steps):
-        b = jpipe.batch_for_step(dcfg, i)
+        b = _batch(jcfg, dcfg, i)
         jstate, m = jstep(jstate, b)
         jm.append({k: float(v) for k, v in m.items()})
         tstate, m = tstep(tstate, b)
@@ -97,8 +110,125 @@ def _run_both(arch, opts_kw, steps=3, seq_len=32, batch=4):
     ("minitron-4b", {"n_micro": 2, "compress_grads": True}),
     ("qwen2-vl-2b", {"n_micro": 2, "compress_grads": True,
                      "lr_schedule": "constant"}),
+    # the ssm, hybrid, MoE and encoder-decoder families: K4 and its
+    # backward, the shared block with LoRA, the sort dispatch, the encoder
+    ("mamba2-370m", {}),
+    ("granite-moe-1b-a400m", {}),
+    ("granite-moe-1b-a400m", {"n_micro": 2, "compress_grads": True}),
+    ("whisper-tiny", {}),
 ])
 def test_train_step_matches_reference(arch, opts_kw):
+    _hold_against_reference(arch, opts_kw)
+
+
+#: zamba2's LoRA A-factors: B starts at zero, so A's gradient is
+#: proportional to B.  AdamW's first step moves an element by
+#: lr g / (|g| + eps), and one element of each B-factor, whose first
+#: gradient lies near eps (1e-8), takes a step that differs by 2-3%
+#: between the packages although the gradients agree within 3.3e-5 of
+#: their max (test_zamba2_gradients_match_reference_from_the_same_state).
+#: A's moments inherit it: 1.3e-3 of their max after step 2, 1.8e-4
+#: (in_a) and 6.1e-4 (q_a) after step 3.
+LORA_A = {"groups.lora.q_a", "groups.lora.in_a"}
+LORA_A_MOMENTS = 2e-3
+
+
+def test_zamba2_train_step_matches_reference():
+    """The hybrid family (SSD layers, the shared block with each group's
+    LoRA), as test_train_step_matches_reference holds the other families:
+    every bound the same, but the moments of the two LoRA A-factors
+    (``LORA_A``), held within ``LORA_A_MOMENTS`` of their max."""
+    _hold_against_reference("zamba2-2.7b", {}, loose_moments=LORA_A)
+
+
+def test_zamba2_gradients_match_reference_from_the_same_state():
+    """From the reference's state after one compressed step (n_micro=2,
+    compress_grads), each package's gradient on the next batch: every
+    leaf within 1e-4 of its max (read: at most 3.3e-5), the LoRA
+    A-factors' included, which are no longer 0 once B has moved.  Then
+    ``compress_grads`` with that state's error feedback: each reference
+    leaf, ``groups.ssm``'s stacked over (G, R) included, has one scale on
+    both sides (within 1e-4; read 3.3e-5), and the decompressed gradients
+    differ only by one int8 step, where the value before rounding lies
+    within 2e-3 of a rounding tie (read: 66 such elements, at most 6.8e-4
+    of a step from it), elsewhere within 1e-4 of the leaf's max (read
+    3.3e-5).  Three steps of the compressed trajectory
+    cannot be held at the file's 1e-2 moment bound: one such flip in the
+    last step moves an element of m by 0.1 of a step, which is 1.1e-2 of
+    conv_w's max|m|."""
+    from repro.optim import compression as jcomp
+    from repro_torch import optim as toptim
+    from repro_torch.models.convert import (reference_groups,
+                                            stack_reference_tree)
+    jcfg = jget_arch("zamba2-2.7b").reduced(dtype="float32")
+    tcfg = get_arch("zamba2-2.7b").reduced(dtype="float32")
+    jopts = jtrain.TrainOptions(n_micro=2, compress_grads=True)
+    jstate = jtrain.init_train_state(jcfg, jax.random.PRNGKey(0),
+                                     opts=jopts)
+    dcfg = jpipe.DataConfig(vocab=jcfg.vocab, seq_len=32, global_batch=4)
+    jstate, _ = jax.jit(jtrain.make_train_step(jcfg, opts=jopts))(
+        jstate, jpipe.batch_for_step(dcfg, 0))
+    b = jpipe.batch_for_step(dcfg, 1)
+    jg = jax.jit(jax.grad(lambda p: jlm.loss_fn(jcfg, p, b)))(
+        jstate.params)
+    jdec, _ = jcomp.compress_grads(jg, jstate.error_fb)
+    tstate = train_state_from_numpy(
+        tcfg, jax.tree_util.tree_map(np.asarray, jstate), "cpu")
+    model = tstate.params
+    tlm.loss_fn(tcfg, model, b).backward()
+    grads = [p.grad for p in model.parameters()]
+    tdec, _ = toptim.compress_grads(grads, tstate.error_fb,
+                                    groups=reference_groups(tcfg, model))
+    leaves = zip(_leaves_with_paths(stack_reference_tree(tcfg, model,
+                                                         grads)),
+                 _leaves_with_paths(jg),
+                 _leaves_with_paths(stack_reference_tree(tcfg, model,
+                                                         tdec)),
+                 _leaves_with_paths(jdec),
+                 _leaves_with_paths(jstate.error_fb))
+    n_lora_a = 0
+    for (path, g, w, t, j, e) in ((p, g.numpy(), np.asarray(w), t.numpy(),
+                                   np.asarray(j), np.asarray(e))
+                                  for (p, g), (_, w), (_, t), (_, j), (_, e)
+                                  in leaves):
+        key = ".".join(k.key for k in path)
+        assert np.abs(w).max() > 0, key
+        assert np.abs(g - w).max() <= 1e-4 * np.abs(w).max(), key
+        n_lora_a += key in LORA_A
+        # the largest value before rounding maps to 127 on either side
+        s_t, s_j = np.abs(t).max() / 127, np.abs(j).max() / 127
+        assert abs(s_t / s_j - 1) < 1e-4, key
+        d = np.abs(t - j)
+        flip = d > s_j / 2
+        assert (d[flip] < 1.5 * s_j).all(), key
+        r = (w + e)[flip] / s_j
+        assert (np.abs(r - np.floor(r) - 0.5) < 2e-3).all(), key
+        assert (d[~flip] <= 1e-4 * np.abs(j).max()).all(), key
+    assert n_lora_a == 2
+
+
+def test_moe_drops_count_once_under_remat():
+    """Remat runs an MoE layer's forward again in the backward; the
+    dropped assignments are counted once a step, as many as a forward
+    without remat counts."""
+    import dataclasses
+    from repro_torch.models.moe import MoE
+    cfg = dataclasses.replace(
+        get_arch("granite-moe-1b-a400m").reduced(dtype="float32"),
+        capacity_factor=0.5)
+    b = tpipe.batch_for_step(tpipe.DataConfig(cfg.vocab, 16, 2), 0)
+    dropped = {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        model = tlm.init_params(c, 0, "cpu").requires_grad_(True)
+        tlm.loss_fn(c, model, b).backward()
+        dropped[remat] = sum(int(m.dropped) for m in model.modules()
+                             if isinstance(m, MoE))
+    assert dropped[False] > 0
+    assert dropped[True] == dropped[False]
+
+
+def _hold_against_reference(arch, opts_kw, loose_moments=()):
     tm, jm, tstate, jstate, p0 = _run_both(arch, opts_kw)
     for t, j in zip(tm, jm):
         assert t["step"] == j["step"]
@@ -122,7 +252,9 @@ def test_train_step_matches_reference(arch, opts_kw):
         for (path, a), (_, b) in zip(
                 _leaves_with_paths(getattr(tstate.opt, name)),
                 _leaves_with_paths(getattr(jstate.opt, name))):
-            assert np.abs(a - b).max() <= bound * np.abs(b).max(), \
+            key = ".".join(k.key for k in path)
+            lim = LORA_A_MOMENTS if key in loose_moments else bound
+            assert np.abs(a - b).max() <= lim * np.abs(b).max(), \
                 (name, path)
     assert int(tstate.opt.step) == int(jstate.opt.step) == 3
     if opts_kw.get("compress_grads"):
@@ -130,10 +262,52 @@ def test_train_step_matches_reference(arch, opts_kw):
 
 
 def test_train_step_raises_for_families_left_to_the_second_half():
-    for arch in ("mamba2-370m", "zamba2-2.7b", "granite-moe-1b-a400m",
-                 "whisper-tiny"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            ttrain.make_train_step(get_arch(arch).reduced())
+    """deepseek-v3's multi-token-prediction loss is left to item 11c: a
+    config with ``mtp`` raises (its MoE family trains without it)."""
+    cfg = get_arch("deepseek-v3-671b").reduced()
+    assert cfg.mtp
+    with pytest.raises(NotImplementedError, match="item 11c"):
+        ttrain.make_train_step(cfg)
+    with pytest.raises(NotImplementedError, match="item 11c"):
+        ttrain.init_train_state(cfg, 0, "cpu")
+
+
+def test_whisper_encoder_gets_the_reference_gradients():
+    """Training whisper reaches its encoder: every encoder parameter
+    (enc_pos, enc_norm, enc_layers) gets a gradient, nonzero, equal to
+    jax.grad of the reference's loss_fn on the same weights and batch
+    within 1e-4 of each leaf's max."""
+    from repro_torch.models.convert import (params_from_numpy,
+                                            stack_reference_tree)
+    jcfg = jget_arch("whisper-tiny").reduced(dtype="float32")
+    tcfg = get_arch("whisper-tiny").reduced(dtype="float32")
+    params = jlm.init_params(jcfg, jax.random.PRNGKey(2))
+    b = _batch(jcfg, jpipe.DataConfig(jcfg.vocab, 16, 2), 0)
+    want = jax.grad(lambda p: jlm.loss_fn(jcfg, p, b))(params)
+    model = params_from_numpy(
+        tcfg, jax.tree_util.tree_map(np.asarray, params), "cpu")
+    model.requires_grad_(True)
+    tlm.loss_fn(tcfg, model, b).backward()
+    got = stack_reference_tree(tcfg, model,
+                               [p.grad for p in model.parameters()])
+    n = 0
+    for key in ("enc_pos", "enc_norm", "enc_layers"):
+        for (path, g), (_, w) in zip(_leaves_with_paths(got[key]),
+                                     _leaves_with_paths(want[key])):
+            w = np.asarray(w)
+            assert np.abs(w).max() > 0, (key, path)
+            np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                       atol=1e-4 * np.abs(w).max(),
+                                       err_msg=f"{key} {path}")
+            n += 1
+    assert n == 2 + len(_leaves_with_paths(want["enc_layers"]))
+
+
+def test_train_loop_refuses_an_encoder_decoder_config():
+    """The reference's train_loop feeds tokens and labels only; the
+    port's says why it cannot train whisper."""
+    with pytest.raises(ValueError, match="audio_embed"):
+        train_loop("whisper-tiny", steps=1, device="cpu")
 
 
 def test_loss_fn_matches_reference_both_ways():
