@@ -11,12 +11,13 @@ each of which ends the run with a nonzero exit and no result on failure:
    registers and spills), and the count of tensor-core instructions
    (HMMA/HGMMA, IMMA/IGMMA) in each library's SASS, which must not be 0
    in any instance of the bf16 flash_attention and ssd_chunk kernels, of
-   the bf16 flash_attention_bwd kernels, or of the int8 and the tiled
-   float (3xTF32) neutron_matmul kernels;
+   the bf16 flash_attention_bwd kernels, of the bf16 ssd_chunk_bwd
+   kernel and its reduce (3xTF32), or of the int8 and the tiled float
+   (3xTF32) neutron_matmul kernels;
 2. every kernel on the card against its plain PyTorch version, at the
    shapes each serving path gives it (bf16; int8 for K1 at the vision
    plans' shapes, compared for equality) and at small ragged cases (f32;
-   K4 also bf16 with N, P not multiples of 16; K1 also in its Pallas
+   K4 and K4b also bf16 with N, P not multiples of 16; K1 also in its Pallas
    contract: f32, bf16, int8 requant, per-channel scale; K1 at both
    contracts, K2 and K3 in float32 at phase 13's decoder shapes, K2 with
    its query offset, which probes hold at lanes of different offsets;
@@ -564,10 +565,12 @@ PROFILE_LEAD = 8
 
 
 def device_ms(torch, fn, iters: int = 30, warmup: int = 3,
-              attempts: int = 3) -> float:
+              attempts: int = 3, split=None):
     """Median over `iters` calls of the device time of the CUDA kernels
     one call of `fn` launches (their durations summed), from
-    torch.profiler's kernel events, the L2 flushed before each call.
+    torch.profiler's kernel events, the L2 flushed before each call;
+    with `split` (a compiled pattern), also each kernel's median, keyed
+    by the pattern's match in its name: (total, {kernel: ms}).
     The flush is a bitwise_not of the 64 MB buffer, a kernel that no
     timed call launches: in the device's order of kernels on the stream,
     each flush starts the next call's kernels, and is not counted.  A
@@ -601,11 +604,22 @@ def device_ms(torch, fn, iters: int = 30, warmup: int = 3,
             if "bitwise_not" in name:
                 per_call.append([])
             elif per_call:
-                per_call[-1].append(us)
+                per_call[-1].append((name, us))
         per_call = per_call[-iters:]
         if len(per_call) == iters and all(per_call) and \
                 len({len(k) for k in per_call}) == 1:
-            return statistics.median(sum(k) for k in per_call) / 1e3
+            total = statistics.median(sum(us for _, us in k)
+                                      for k in per_call) / 1e3
+            if split is None:
+                return total
+            parts = {}
+            for k in per_call:
+                for name, us in k:
+                    m = split.search(name)
+                    parts.setdefault(m.group(0) if m else name[:40],
+                                     []).append(us)
+            return total, {n: statistics.median(v) / 1e3
+                           for n, v in parts.items()}
     fail(f"the profiler saw {len(per_call)} of {iters} calls in each of "
          f"{attempts} sessions, the last with {[len(k) for k in per_call]} "
          f"kernels after each flush; the first: "
@@ -653,6 +667,10 @@ TENSOR_CORE_KERNELS = (
      "the tiled float neutron_matmul kernel (3xTF32)"),
     ("ssd_chunk", "ssd_chunk_bf16_kernel", ("HMMA", "HGMMA"),
      "the bf16 ssd_chunk kernel"),
+    ("ssd_chunk_bwd", "ssd_chunk_bwd_bf16_kernel", ("HMMA", "HGMMA"),
+     "the bf16 ssd_chunk_bwd kernel"),
+    ("ssd_chunk_bwd", "ssd_chunk_bwd_bf16_reduce_kernel", ("HMMA", "HGMMA"),
+     "the bf16 ssd_chunk_bwd reduce kernel (3xTF32)"),
 )
 
 
@@ -1202,15 +1220,18 @@ def ssd_bwd_flops(B, S, H, P, N, L) -> dict:
     """Operations the function of K4b needs with bf16 x, Bm and Cm, by the
     rate the card has for their operands: per (b, chunk), C B^T over s <=
     t (both bf16) and the products of dCB summed over the heads with B and
-    C (dC and the first term of dB); per head, dG = dy x^T and G^T dy over
+    C (dC and dB's second term); per head, dG = dy x^T and G^T dy over
     s <= t, Q = B dcontrib^T and x^T dcontrib.  Every product but C B^T
-    has a float32 operand: those count at the 3xTF32 rate, the best the
-    card has for float32-accurate products."""
+    has a float32 operand and counts as TF32 work at float32 accuracy:
+    three TF32 products where both operands are float32 (G^T dy), two
+    where the other operand is bf16 and so exact in TF32 (dC, dB's second
+    term, dG, Q, x^T dcontrib)."""
     tri = L * (L + 1) // 2
     nbc = B * (S // L)
     return {"bfloat16": nbc * tri * 2 * N,
-            "tf32": 3 * nbc * (2 * tri * 2 * N
-                               + H * (2 * tri * 2 * P + 2 * 2 * L * P * N))}
+            "tf32": nbc * (2 * 2 * tri * 2 * N
+                           + H * (2 * 2 * tri * P + 3 * 2 * tri * P
+                                  + 2 * 2 * 2 * L * P * N))}
 
 
 SSD_BWD_GRADS = ("dx", "ddt", "dA", "dBm", "dCm")
@@ -1269,6 +1290,10 @@ def k4b_row(torch, randn, tag, B, S, H, P, N, L, pad, expect) -> dict:
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     b_ms, b_by = bound(nbytes(*ops_in, *got),
                        ssd_bwd_flops(B, S, H, P, N, L))
+    # where the call's device time goes, by kernel (the bf16 body, the
+    # sum over head groups, the dC / dB products)
+    _, parts = device_ms(torch, kernel, split=re.compile(
+        r"ssd_chunk_bwd_\w*kernel"))
     return dict(
         name="ssd_chunk_bwd", path=tag, route="cuda",
         source="src/repro_torch/csrc/ssd_chunk_bwd.cu",
@@ -1277,8 +1302,11 @@ def k4b_row(torch, randn, tag, B, S, H, P, N, L, pad, expect) -> dict:
                  "ssd_scan.py:93)",
         shape=f"x ({B},{S},{H},{P}) bf16, N={N}, chunk {L}, {pad} zero "
               f"rows; max|d|/max|plain| "
-              f"{', '.join(f'{k} {v:.2g}' for k, v in rels.items())}",
+              f"{', '.join(f'{k} {v:.2g}' for k, v in rels.items())}; "
+              f"kernels ms "
+              f"{', '.join(f'{k} {v:.4f}' for k, v in parts.items())}",
         expect=expect, launches=0, max_abs_err=err, rel_err=rels,
+        kernels_ms=parts,
         bit_equal_rerun=True, bound_ms=b_ms, bound_by=b_by,
         **timings(torch, kernel, plain))
 
@@ -1350,16 +1378,22 @@ def phase_kernels(torch, F, ops):
                                              impl="ref")))
         print(f"  ops.ssd_scan f32 x (2,{S},3,16) N=8 chunk={L} with an "
               f"initial state: max|err| {e:.3g}")
-    # ssd_chunk_bwd (K4b) with float32 inputs: the same small cases
-    for B, S, H, P, N, L, pad in ((1, 32, 1, 8, 4, 8, 0),
-                                  (2, 128, 3, 16, 8, 32, 28),
-                                  (2, 96, 3, 24, 40, 32, 0),
-                                  (1, 256, 2, 128, 128, 128, 0)):
+    # ssd_chunk_bwd (K4b) with float32 inputs: the same small cases; in
+    # bf16 (the tensor-core body) N and P off 16 and a head group of 4
+    # that does not divide H, with zero rows
+    bf = torch.bfloat16
+    for B, S, H, P, N, L, pad, dt in ((1, 32, 1, 8, 4, 8, 0, f32),
+                                      (2, 128, 3, 16, 8, 32, 28, f32),
+                                      (2, 96, 3, 24, 40, 32, 0, f32),
+                                      (1, 256, 2, 128, 128, 128, 0, f32),
+                                      (2, 96, 3, 24, 40, 32, 0, bf),
+                                      (100, 32, 5, 24, 40, 32, 20, bf)):
+        name = str(dt).replace("torch.", "")
         kernel, _, got, want, _ = k4b_grads(torch, randn, B, S, H, P, N, L,
-                                            pad, f32)
-        rels = k4b_held(torch, f"f32 ({B},{S},{H},{P})", kernel, got, want,
-                        1e-4)
-        print(f"  ssd_chunk_bwd f32 x ({B},{S},{H},{P}) N={N} chunk={L} "
+                                            pad, dt)
+        rels = k4b_held(torch, f"{name} ({B},{S},{H},{P})", kernel, got,
+                        want, 1e-4)
+        print(f"  ssd_chunk_bwd {name} x ({B},{S},{H},{P}) N={N} chunk={L} "
               f"zero rows {pad}: max|d|/max|plain| "
               f"{max(rels.values()):.3g}, rerun bit-equal")
 
@@ -3488,7 +3522,7 @@ def bwd_counters():
 BWD_KERNEL_NAMES = {
     1: ("K2b", K2B_KERNEL_NAME),
     3: ("K4b", re.compile(r"\(anonymous namespace\)::ssd_chunk_bwd_"
-                          r"(?:reduce_)?kernel\b"))}
+                          r"(?:bf16_)?(?:reduce_|sum_)?kernel\b"))}
 
 
 def _steps_through_loop(torch, tp: TrainPath, cfg, on_step) -> dict:

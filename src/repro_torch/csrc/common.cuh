@@ -1,7 +1,7 @@
 // Helpers shared by the kernels of repro_torch: element conversion to and
 // from the f32 that every kernel computes in, warp reductions, and the
 // asynchronous copies, `ldmatrix` loads and `mma.sync` products of the
-// tensor-core bodies (K1 int8, K2 and K4 bf16).
+// tensor-core bodies (K1 int8 and 3xTF32, K2, K2b, K4 and K4b bf16).
 #pragma once
 
 #include <cstdint>
@@ -73,14 +73,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Four 8x8 matrices of 16-bit elements (or 8x16 bytes); lane l gives the
-// address of row l % 8 of matrix l / 8.
+// Four (two) 8x8 matrices of 16-bit elements (or 8x16 bytes); lane l
+// gives the address of row l % 8 of matrix l / 8.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
                                             const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
 }
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
                                                   const void* p) {
@@ -99,6 +104,53 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Rows [0, rows) x columns [0, cols) of a bf16 matrix (row stride ld_src)
+// into shared memory at pitch ld, zero up to prows x pcols, by the whole
+// block; 16-byte asynchronous copies where `vec` (cols % 8 == 0, 16-byte
+// aligned rows), else element by element.
+__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           int rows, int cols,
+                                           size_t ld_src, int prows,
+                                           int pcols, int ld, bool vec) {
+  const int cpr = pcols / 8;
+  for (int i = threadIdx.x; i < prows * cpr; i += blockDim.x) {
+    const int r = i / cpr;
+    const int c = (i - r * cpr) * 8;
+    __nv_bfloat16* d = dst + r * ld + c;
+    if (vec) {
+      const bool ok = r < rows && c < cols;
+      cp_async<16>(d, ok ? src + r * ld_src + c : src, ok);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        d[j] = (r < rows && c + j < cols) ? src[r * ld_src + c + j]
+                                          : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// c += a (16 x 8, row) * b (8 x 8, col), tf32 in, f32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// v as the two halves of a 3xTF32 operand: hi = v with its low 13
+// mantissa bits cleared (a tf32 value), lo = v - hi (exact in f32; the
+// tensor core reads its top 19 bits, so lo is taken to tf32 by
+// truncation, an error below 2^-20 |v|).
+__device__ __forceinline__ void tf32_hi_lo(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(v) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
 }
 
 }  // namespace rt

@@ -830,30 +830,22 @@ neutron_matmul_skinny(const Params p) {
   }
 }
 
-// c += a (16 x 8, row) * b (8 x 8, col), tf32 in, f32 accumulate.
-__device__ __forceinline__ void mma_tf32(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using rt::mma_tf32;
 
-// The operand halves of N values where SPLIT (f32 inputs): hi = v with its
-// low 13 mantissa bits cleared (a tf32 value), lo = v - hi (exact in f32;
-// the tensor core reads its top 19 bits, so lo is taken to tf32 by
-// truncation, an error below 2^-20 |v|).  Where not SPLIT (bf16 inputs,
-// exact in tf32) hi = v.
+// The operand halves of N values where SPLIT (f32 inputs): rt::tf32_hi_lo.
+// Where not SPLIT (bf16 inputs, exact in tf32) hi = v.
 template <bool SPLIT, int N>
 __device__ __forceinline__ void tf32_split(const float (&v)[N],
                                            uint32_t (&hi)[N],
                                            uint32_t (&lo)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    hi[i] = __float_as_uint(v[i]) & (SPLIT ? 0xffffe000u : 0xffffffffu);
-    lo[i] = SPLIT ? __float_as_uint(v[i] - __uint_as_float(hi[i])) : 0u;
+    if (SPLIT) {
+      rt::tf32_hi_lo(v[i], hi[i], lo[i]);
+    } else {
+      hi[i] = __float_as_uint(v[i]);
+      lo[i] = 0u;
+    }
   }
 }
 

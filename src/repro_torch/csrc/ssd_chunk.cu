@@ -298,6 +298,7 @@ using bf16 = __nv_bfloat16;
 using rt::cp_async;
 using rt::cp_async_commit;
 using rt::cp_async_wait;
+using rt::stage_bf16;
 using rt::ldmatrix_x4;
 using rt::ldmatrix_x4_trans;
 using rt::mma_bf16;
@@ -321,31 +322,6 @@ struct TcDims {
            sizeof(float) * (3 * LP + kTcWarps);
   }
 };
-
-// rows [0, rows) x columns [0, cols) of a bf16 matrix (row stride ld_src)
-// into shared memory at pitch ld, zero up to prows x pcols; 16-byte
-// asynchronous copies where `vec` (cols % 8 == 0, 16-byte aligned rows),
-// else element by element.
-__device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* src,
-                                           int rows, int cols,
-                                           size_t ld_src, int prows,
-                                           int pcols, int ld, bool vec) {
-  const int cpr = pcols / 8;
-  for (int i = threadIdx.x; i < prows * cpr; i += kTcThreads) {
-    const int r = i / cpr;
-    const int c = (i - r * cpr) * 8;
-    bf16* d = dst + r * ld + c;
-    if (vec) {
-      const bool ok = r < rows && c < cols;
-      cp_async<16>(d, ok ? src + r * ld_src + c : src, ok);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        d[j] = (r < rows && c + j < cols) ? src[r * ld_src + c + j]
-                                          : __float2bfloat16(0.f);
-    }
-  }
-}
 
 // (v0, v1) as bf16 pairs hi + lo: hi = bf16(v), lo = bf16(v - hi), so
 // that hi + lo carries v to about 2^-16 of itself.

@@ -5,14 +5,33 @@ the gradients of K4's four outputs (``ssd_scan.ssd_chunk``: y_intra,
 contrib, total, seg) with respect to x, dt, A, Bm and Cm.  The JAX
 package has no backward kernel to port: its models differentiate
 ``ssd_scan_ref`` (``repro/kernels/ref.py:331-391``) by autodiff, and this
-computes the same gradient.  One block per (batch, chunk, head) writes dx
-and ddt and its head's partials of dBm, dCm and dA to a scratch buffer; a
-second launch sums them in a fixed order, so a rerun gives the same bits
-(no atomics).  Its plain PyTorch version is ``ref.ssd_chunk_bwd_ref``;
-``ops.SSDChunkFn`` chooses between the two by the device of the inputs.
+computes the same gradient.  Its plain PyTorch version is
+``ref.ssd_chunk_bwd_ref``; ``ops.SSDChunkFn`` chooses between the two by
+the device of the inputs.
 
-``launches`` counts the calls that launched the kernels (one per call,
-two CUDA kernels each).
+What bounds it on the card: the bytes it must move (dy, dcontrib and dx
+in float32: 31 MB at mamba2-370m's training shape, 65 MB at
+zamba2-2.7b's, 9-19 us at 3.35 TB/s); its products, at float32 accuracy
+on the tensor cores, need 7-12 us at 495 TFLOP/s.  In bfloat16 (every
+training path) a block of 16 warps takes a (batch, chunk) pair and a
+group of ``bwd_head_group`` heads: C·Bᵀ once for the group on the bf16
+tensor cores, every product with a float32 operand in 3xTF32
+``mma.sync`` (two TF32 products where the other operand is bf16), only
+the tiles on and above the diagonal (key s as the row), the row tiles
+paired so that the warps share the triangle evenly, the next head's x
+and dy staged while a head computes; the group's sums of dCB and of dB's
+first term go to a scratch, a second launch sums them over the groups in
+order and a third takes dC and dB's second term once per pair, so a
+rerun gives the same bits (no atomics).  Float32 inputs, and bfloat16
+shapes whose buffers do not fit a block, take the first design: scalar
+FMAs, one block per (batch, chunk, head), per-head partials summed by a
+second launch.  What is left: a block's first loads are not hidden
+behind another block's work (one block an SM), the group partials cost
+as many bytes as the compulsory traffic at one head a group, and the
+``mma.sync`` chains issue well below the TF32 peak.
+
+``launches`` counts the calls that launched the kernels (one per call;
+three CUDA kernels each in bfloat16, two in float32).
 """
 from __future__ import annotations
 
@@ -23,12 +42,24 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .ssd_scan import MAX_DIM
+from .ssd_scan import MAX_DIM, head_group
 
 launches = 0
 _lock = threading.Lock()             # the counter, across threads
 
-_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_SCRATCH_ARGTYPES = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+
+
+def bwd_head_group(pairs: int, H: int) -> int:
+    """Heads per block of the bf16 body for ``pairs`` (batch, chunk)
+    pairs of H heads: K4's rule (``ssd_scan.head_group``), the largest
+    group up to MAX_GROUP whose grid of ``pairs * ceil(H / group)``
+    blocks still makes MIN_WAVES waves of the SMS SMs, else 1.  A block
+    of this kernel fills an SM, so the waves are counted in blocks as
+    for K4.  A larger group computes C·Bᵀ once for more heads and writes
+    fewer dCB and dB partials, but puts fewer blocks in flight."""
+    return head_group(pairs, H)
 
 
 def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -42,8 +73,9 @@ def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dtotal (B,nc,H), dseg (B,S,H); S a multiple of `chunk`.
 
     Returns (dx (B,S,H,P), ddt (B,S,H), dA (H,), dBm (B,S,N), dCm
-    (B,S,N)), all float32, as ``ref.ssd_chunk_bwd_ref``.  Launches on the
-    current stream and never synchronises.  Raises on inputs the kernel
+    (B,S,N)), all float32, as ``ref.ssd_chunk_bwd_ref``.  The bf16 body
+    takes ``bwd_head_group`` heads a block.  Launches on the current
+    stream and never synchronises.  Raises on inputs the kernel
     does not take: tensors off CUDA, x/Bm/Cm other than one float32 or
     bfloat16 dtype, any other input not float32, chunk, N or P above
     128."""
@@ -93,8 +125,14 @@ def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dA = torch.empty((H,), **kw)
     dB = torch.empty((Bsz, S, N), **kw)
     dC = torch.empty((Bsz, S, N), **kw)
-    part = Bsz * nc * H
-    scratch = torch.empty(2 * part * chunk * N + part, **kw)
+    group = bwd_head_group(Bsz * nc, H)
+    code = _build.DTYPE_CODES[x.dtype]
+    floats = ctypes.c_longlong()
+    size = _build.function("ssd_chunk_bwd", "ssd_chunk_bwd_scratch",
+                           _SCRATCH_ARGTYPES)
+    _build.check(size(Bsz, S, H, P, N, chunk, group, code,
+                      ctypes.byref(floats)), "ssd_chunk_bwd")
+    scratch = torch.empty(floats.value, **kw)
     fn = _build.function("ssd_chunk_bwd", "ssd_chunk_bwd_launch", _ARGTYPES)
     with torch.cuda.device(dev):
         rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
@@ -102,7 +140,7 @@ def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 dcontrib.data_ptr(), dtotal.data_ptr(), dseg.data_ptr(),
                 dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
                 dC.data_ptr(), scratch.data_ptr(), Bsz, S, H, P, N, chunk,
-                _build.DTYPE_CODES[x.dtype], _build.stream_of(x))
+                group, code, _build.stream_of(x))
     _build.check(rc, "ssd_chunk_bwd")
     with _lock:
         launches += 1

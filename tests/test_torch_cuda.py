@@ -337,6 +337,19 @@ SSD_BWD_CASES = [
     (2, 128, 3, 16, 8, 32, 28, torch.float32),
     (2, 96, 3, 24, 40, 32, 0, torch.float32),
     (1, 256, 2, 128, 128, 128, 0, torch.float32),
+    # the bf16 tensor-core body at N 40, P 24, L 32 (zero-filled to 48, 32,
+    # 32 in shared memory), one chunk a sequence; enough (b, c) pairs that
+    # bwd_head_group gives groups of 2 and 4 that do not divide H; zero
+    # rows; and P 128 with N 128, whose buffers do not fit a block (the
+    # scalar body in bf16)
+    (2, 32, 3, 24, 40, 32, 0, torch.bfloat16),
+    (100, 32, 3, 24, 40, 32, 20, torch.bfloat16),    # group 2 of 3
+    (66, 32, 5, 24, 40, 32, 0, torch.bfloat16),      # group 2 of 5
+    (100, 32, 5, 24, 40, 32, 20, torch.bfloat16),    # group 4 of 5
+    (2, 96, 3, 24, 40, 32, 28, torch.bfloat16),      # nc 3
+    (2, 80, 3, 24, 40, 40, 12, torch.bfloat16),      # chunk 40: 3 row tiles
+    (2, 32, 3, 16, 8, 8, 0, torch.bfloat16),         # chunk 8: one row tile
+    (1, 256, 2, 128, 128, 128, 0, torch.bfloat16),
 ]
 
 
@@ -355,7 +368,10 @@ def test_ssd_chunk_bwd_kernel_matches_plain(dev, B, S, H, P, N, chunk, pad,
     max|d| / max|plain| below 1e-4, for bf16 inputs as for float32 ones
     (both sides do float32 arithmetic on the same input bits and float32
     cotangents, so a kernel that rounded the cotangents or its partial
-    products to bf16 fails); a rerun gives the same bits (no atomics)."""
+    products to bf16 fails, and so would plain TF32 products: 4e-4 to
+    1e-3 in the CPU emulation of tests/test_torch_ssd_bwd.py, where the
+    3xTF32 plan of the bf16 body stays near 1e-6); a rerun gives the same
+    bits (no atomics)."""
     from repro_torch.kernels import ssd_scan_bwd as t_ssdb
     gen = torch.Generator(device=dev).manual_seed(S + H + N + 1)
     x, dt, A, Bm, Cm = _ssd_inputs(gen, dev, B, S, H, P, N, dtype)

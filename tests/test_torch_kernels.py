@@ -465,6 +465,26 @@ def test_ssd_chunk_head_group(pairs, H, group):
             assert pairs * -(-H // (group + 1)) < 198
 
 
+@pytest.mark.parametrize("pairs,H,group", [
+    (8, 32, 1),      # mamba2-370m: training (8 x 128) and serving (4 x 256)
+    (8, 80, 3),      # zamba2-2.7b: training and serving, 216 blocks
+    (100, 3, 2), (66, 5, 2), (100, 5, 4),   # groups not dividing H
+    (2, 3, 1), (1, 1, 1), (33, 8, 1), (200, 80, 8), (198, 4, 4),
+])
+def test_ssd_bwd_head_group(pairs, H, group):
+    """K4b's bf16 blocks (one an SM) take the largest group of heads, up
+    to MAX_GROUP, whose grid still makes 1.5 waves of the 132 SMs, else
+    one head."""
+    from repro_torch.kernels import ssd_scan_bwd as t_ssdb
+    got = t_ssdb.bwd_head_group(pairs, H)
+    assert got == group
+    assert 1 <= got <= min(t_ssd.MAX_GROUP, H)
+    if got > 1:
+        assert pairs * -(-H // got) >= 1.5 * 132
+    if got < min(t_ssd.MAX_GROUP, H):
+        assert pairs * -(-H // (got + 1)) < 1.5 * 132
+
+
 @pytest.mark.parametrize("call,match", [
     (lambda: t_k1.neutron_matmul(torch.zeros(4, 8), torch.zeros(8, 3)),
      "CUDA"),
