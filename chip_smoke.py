@@ -54,10 +54,10 @@ each of which ends the run with a nonzero exit and no result on failure:
 9. deepseek-v3-671b at full width with its depth (only) cut to 4 layers:
    3 dense MLA layers and one MLA layer with 256 experts and a shared
    one (K2 at D = 192, Dv = 128; K3 over 128 kv heads);
-10. gemma3-27b at full width and depth (10 groups of 5 local layers,
-   window 1024, and a global one, then 2 local layers), with a prompt of
-   1040, so that K2 runs its window at S > 1024 and the local layers'
-   rings wrap in the decode replay;
+10. gemma3-27b at full width with its depth cut to 14 layers (2 groups
+   of 5 local layers, window 1024, and a global one, then 2 local
+   layers), with a prompt of 1040, so that K2 runs its window at
+   S > 1024 and the local layers' rings wrap in the decode replay;
 11. mobilenet_v2 and resnet50_v1 at 224 through the product path,
    ``repro_torch.api.compile(name, precision="int8")``: PTQ and the NPU
    compile on the host (ticks, DDR bytes, modeled latency and the
@@ -75,7 +75,9 @@ each of which ends the run with a nonzero exit and no result on failure:
    equal ``CompiledModel.__call__``'s at batch 1 bit for bit, float32
    outputs of 8 requests lie within ``float_plan_tol`` of the plain path
    on the CPU; K1 launches 36 / 54 / one per conv and fc of the float32
-   model in each batch; the workers' streams differ.  Then the chaos
+   model in each batch; no worker is recycled (none is faulted: a batch
+   beats from its progress) and the live workers' streams differ.  Then
+   the chaos
    ladder on int8 mobilenet_v2: a transient plan fault retried, the
    breaker tripped, requests failed fast with ``BreakerOpen`` while it is
    open (nothing launched, nothing moved to the host), the probe's
@@ -84,7 +86,8 @@ each of which ends the run with a nonzero exit and no result on failure:
    at batch 1 and 8 are printed;
 13. LM decode on the NPU compile path: ``repro_torch.api.DecodeSession``
    serving the whisper-tiny decoder of ``frontends/lm.py`` at full width
-   (4 layers, d_model 384, 6 heads of 64, d_ff 1536, vocab 51865) at
+   with its depth cut to 2 of its 4 layers (d_model 384, 6 heads of 64,
+   d_ff 1536, vocab 51865) at
    float32 and at int8: its 7 (seq, kv) models compiled (seconds
    printed) and loaded, from their artifacts, into the same session on
    the CPU; request A (prompt 6) and B (prompt 60) alone, every prefill
@@ -93,8 +96,8 @@ each of which ends the run with a nonzero exit and no result on failure:
    step, the count printed per step), the greedy tokens against the CPU
    session's (equal at float32; the first divergence printed at int8);
    then A and B interleaved step by step with the counters from 0: the
-   tokens equal the solo runs, K1 25 a step (by contract), K3 4 a decode
-   step and K2 4 a prefill (by shape, at shapes phase 2 times), every
+   tokens equal the solo runs, K1 13 a step (by contract), K3 2 a decode
+   step and K2 2 a prefill (by shape, at shapes phase 2 times), every
    plan built once.  Prefill ms, decode ms per token, tokens/s, the
    device busy share of a decode step (torch.profiler) and kernels a
    step are printed;
@@ -171,7 +174,31 @@ each of which ends the run with a nonzero exit and no result on failure:
     (``TRAIN_PATHS``, as minitron-4b's in phase 18), at the shapes phase
     2 times; then each reduced config in float32 for 3 steps on the card
     against the CPU (phase 18's bounds), and its loss falling over 8
-    steps at a constant learning rate.
+    steps at a constant learning rate.  Then deepseek-v3 reduced in
+    float32 with its multi-token-prediction block, 3 steps on the card
+    against the CPU, K2 and K2b at its MLA shape counted by shape.
+
+20. distribution on the card: two ranks, one process each, share the
+    H100 over a gloo process group (NCCL takes one rank a device), on a
+    mesh (data 1, model 2).  granite-moe-1b-a400m at full width, 3 steps
+    of 8 x 128 tokens: each rank holds 16 of the 32 experts (moe_a2a's
+    all_to_all) and 8 of the 16 query heads; per rank the step walls,
+    peak memory, K2 / K2b launches at the shard's shape and the losses,
+    which must be the same bits on both ranks.  Then mamba2-370m at full
+    width, its depth cut to 4 layers, 2 steps likewise: each rank runs
+    the SSD block on 16 of its 32 heads, K4 and K4b at that shard's
+    shape (phase 2 times them there).  Then reduced granite-moe,
+    deepseek-v3 (MLA on each rank's heads, its mtp block) and mamba2 in
+    float32 over the same mesh, 3 steps on the card against the same
+    two ranks on the CPU (phase 18's bounds).  Then one granite-20b
+    decoder layer at full width (MQA: the cache of 128 positions split
+    over the ranks), batch 4, decoded at positions 63 and 64 (one in
+    each rank's half) against the same layer's decode on one rank
+    without a mesh, within 2e-2 of max|out|; each rank launches K3 with
+    its log-sum-exp at each step.  DTensor's own collectives
+    (``full_tensor``, ``redistribute``) on CUDA tensors over gloo crash a
+    rank on this machine, so the main path runs c10d collectives only
+    and no DTensor reaches the card.
 
 For the two SSM paths the prefill-vs-replay agreement is held in
 float32 at full width (TF32 off) and reported in bf16, beside how far
@@ -307,12 +334,14 @@ GRANITE_MOE = ServingPath("granite-moe-1b-a400m", 4, 100, 16, (24, 1024),
 DEEPSEEK = ServingPath("deepseek-v3-671b", 4, 100, 8, (4, 7168),
                        serve=(0, 4 * 108, 0, 0), prefill=(4, 0, 0, 0),
                        small={}, layers=4)
-# gemma3-27b: 10 groups of 5 local layers (window 1024) and 1 global, then
-# 2 local layers; a prompt of 1040 runs K2's window at S > 1024 and wraps
-# the local layers' rings in the decode replay.
-GEMMA = ServingPath("gemma3-27b", 4, 1040, 8, (62, 5376),
-                    serve=(0, 62 * 1048, 0, 0), prefill=(62, 0, 0, 0),
-                    small={})
+# gemma3-27b at full width, its depth cut from 62 layers to 14 (to keep
+# the script inside its time limit): 2 groups of 5 local layers (window
+# 1024) and 1 global, then 2 local layers, as the full model's grouped
+# stack and tail lay them out; a prompt of 1040 runs K2's window at
+# S > 1024 and wraps the local layers' rings in the decode replay.
+GEMMA = ServingPath("gemma3-27b", 4, 1040, 8, (14, 5376),
+                    serve=(0, 14 * 1048, 0, 0), prefill=(14, 0, 0, 0),
+                    small={}, layers=14)
 # whisper-tiny, nothing cut: 4 encoder layers over 1500 audio frames (K2
 # not causal, S = Sk = 1500), 4 decoder layers of 6 heads padded to 16.
 # serve runs the encoder once (4) and, at each of 48 steps, the
@@ -345,7 +374,9 @@ class AttnShape(NamedTuple):
     ``shape_key``.  K2 attends to `Sk` keys (0: S), causally or not;
     `expand` (the config's H, Hkv) marks whisper's cross-attention, whose
     cached K/V at Hkv heads are expanded to the padded heads in every
-    call."""
+    call; `lse` a K3 call that also returns its log-sum-exp (phase 20's
+    sequence-sharded decode).  A tag that starts with "f32" is a float32
+    row, any other bf16."""
     tag: str
     B: int
     H: int
@@ -358,6 +389,7 @@ class AttnShape(NamedTuple):
     Sk: int = 0
     causal: bool = True
     expand: Optional[Tuple[int, int]] = None
+    lse: bool = False
 
 
 def attention_shapes(path: ServingPath, cfg):
@@ -463,16 +495,18 @@ K1_SHAPES = (
 )
 
 # phase 13: the whisper-tiny decoder of the LM decode path at full width
-# (src/repro_torch/configs/whisper_tiny.py: 4 layers, d_model 384, 6 heads
-# of 64, d_ff 1536, gelu, vocab 51865; nothing cut), compiled through
-# DecodeSession at float32 and at int8.  Request A's prompt has the length
+# (src/repro_torch/configs/whisper_tiny.py: d_model 384, 6 heads of 64,
+# d_ff 1536, gelu, vocab 51865), its depth cut from 4 layers to 2 to keep
+# the script inside its time limit, compiled through DecodeSession at
+# float32 and at int8.  Request A's prompt has the length
 # of BENCH_decode.json's (6) and crosses kv 8 -> 16 -> 32 -> 64; B's (60)
 # prefills at s64/kv64 and grows to kv 128.  Each gets DECODE_NEW tokens:
-# the prefill's and DECODE_NEW - 1 decode steps.
-DECODER = dict(scale=1, n_layers=4, vocab=51865)
-DECODER_WIDTH = (4, 384, 6, 64, 1536, 51865)
+# the prefill's and DECODE_NEW - 1 decode steps, the fewest that still take
+# A into kv 64 (its last step attends to 33 positions).
+DECODER = dict(scale=1, n_layers=2, vocab=51865)
+DECODER_WIDTH = (2, 384, 6, 64, 1536, 51865)
 DECODE_PROMPTS = (6, 60)
-DECODE_NEW = 40
+DECODE_NEW = 28
 DECODE_PRECISIONS = ("float32", "int8")
 DECODE_TIMED = 5        # warm prefills timed per request
 DECODE_PROFILED = 8     # decode steps under torch.profiler
@@ -678,7 +712,10 @@ def phase_sass(_build) -> None:
     """Tensor-core instructions (HMMA/HGMMA, IMMA/IGMMA) in each library's
     SASS; every instance of the kernels of TENSOR_CORE_KERNELS must have
     them."""
-    counts = {name: _build.tensor_core_ops(name) for name in _build.SOURCES}
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(_build.SOURCES)) as pool:
+        counts = dict(zip(_build.SOURCES,
+                          pool.map(_build.tensor_core_ops, _build.SOURCES)))
     for name, per_fn in counts.items():
         total = {op: sum(c[op] for c in per_fn.values())
                  for op in _build.TENSOR_CORE_OPS}
@@ -832,8 +869,11 @@ def k2_row(torch, F, ops, randn, a: AttnShape) -> dict:
     from repro_torch.kernels import flash_attention
     from repro_torch.models.attention import _kv_index
     Sk = a.Sk or a.S
-    q = randn(a.B, a.H, a.S, a.D)
-    k, v = randn(a.B, a.Hkv, Sk, a.D), randn(a.B, a.Hkv, Sk, a.Dv)
+    dname = "float32" if a.tag.startswith("f32") else "bfloat16"
+    dtype = getattr(torch, dname)
+    q = randn(a.B, a.H, a.S, a.D, dtype=dtype)
+    k = randn(a.B, a.Hkv, Sk, a.D, dtype=dtype)
+    v = randn(a.B, a.Hkv, Sk, a.Dv, dtype=dtype)
 
     def kernel():
         return ops.flash_attention(q, k, v, causal=a.causal, window=a.window)
@@ -843,8 +883,8 @@ def k2_row(torch, F, ops, randn, a: AttnShape) -> dict:
                                    impl="ref")
 
     got = kernel()
-    err = check_close(torch, f"flash_attention bf16 {a.tag}", got, plain(),
-                      "bfloat16")
+    err = check_close(torch, f"flash_attention {dname} {a.tag}", got,
+                      plain(), dname)
     lse_err = k2_lse_check(torch, q, k, v, a, got)
     print(f"  flash_attention [{a.tag}] with its lse (the training "
           f"forward): o bit-equal, lse max|err| {lse_err:.3g}")
@@ -890,14 +930,14 @@ def k2_row(torch, F, ops, randn, a: AttnShape) -> dict:
     pairs = a.B * a.H * (causal_pairs(a.S, a.window) if a.causal
                          else a.S * Sk)
     b_ms, b_by = bound(nbytes(q, k, v, got), 2 * pairs * (a.D + a.Dv),
-                       "bfloat16")
+                       dname)
     win = "" if a.window is None else f", window {a.window}"
     return dict(
         name="flash_attention", path=a.tag, route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:116",
         shape=f"q ({a.B},{a.H},{a.S},{a.D}), k ({a.B},{a.Hkv},{Sk},"
-              f"{a.D}), v Dv {a.Dv} bf16 "
+              f"{a.D}), v Dv {a.Dv} {'f32' if dname == 'float32' else 'bf16'} "
               f"{'causal' if a.causal else 'not causal'}{win}",
         key=flash_attention.shape_key(q, k, v, a.window), expect=a.launches,
         max_abs_err=err, lse_err=lse_err, bound_ms=b_ms, bound_by=b_by,
@@ -1168,25 +1208,37 @@ def k3_row(torch, F, ops, randn, a: AttnShape) -> dict:
     kv_len = torch.full((a.B,), a.S, dtype=torch.int32, device="cuda")
 
     def kernel():
-        return ops.flash_decode(q, k, v, kv_len=kv_len)
+        return ops.flash_decode(q, k, v, kv_len=kv_len, return_lse=a.lse)
 
     def plain():
-        return ops.flash_decode(q, k, v, kv_len=kv_len, impl="ref")
+        return ops.flash_decode(q, k, v, kv_len=kv_len, impl="ref",
+                                return_lse=a.lse)
 
     got = kernel()
-    err = check_close(torch, f"flash_decode bf16 {a.tag}", got, plain(),
-                      "bfloat16")
+    if a.lse:
+        (got, lse), (want, lse_want) = got, plain()
+        err = check_close(torch, f"flash_decode bf16 {a.tag}", got, want,
+                          "bfloat16")
+        e = check_close(torch, f"flash_decode lse {a.tag}", lse, lse_want,
+                        "float32")
+        print(f"  flash_decode [{a.tag}] with its lse: lse max|err| "
+              f"{e:.3g}")
+        got = (got, lse)
+    else:
+        err = check_close(torch, f"flash_decode bf16 {a.tag}", got,
+                          plain(), "bfloat16")
     e = k3_boundary_probe(torch, ops, randn, a)
     print(f"  flash_decode [{a.tag}] kv_len probe (k = 0, markers at the "
           f"last valid key and the one after): max|err| {e:.3g}")
-    b_ms, b_by = bound(nbytes(q, k, v, kv_len, got),
+    outs = got if a.lse else (got,)
+    b_ms, b_by = bound(nbytes(q, k, v, kv_len, *outs),
                        2 * a.B * a.H * a.S * (a.D + a.Dv), "bfloat16")
     return dict(
         name="flash_decode", path=a.tag, route="cuda",
         source="src/repro_torch/csrc/flash_decode.cu",
         replaces="src/repro/kernels/flash_decode.py:96",
         shape=f"q ({a.B},{a.H},{a.D}) x cache ({a.B},{a.Hkv},{a.S},"
-              f"{a.D}), v Dv {a.Dv} bf16",
+              f"{a.D}), v Dv {a.Dv} bf16{' +lse' if a.lse else ''}",
         key=flash_decode.shape_key(q, k, v), expect=a.launches,
         max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
         **timings(torch, kernel, plain,
@@ -1417,6 +1469,17 @@ def phase_kernels(torch, F, ops):
                 torch, F, ops, randn, a._replace(launches=k2n))
             rows[("flash_attention_bwd", a.tag)] = k2b_row(torch, F, ops,
                                                            randn, a)
+    # phase 20's shards (one rank's heads of granite-moe's training, one
+    # rank's positions of granite-20b's decode cache, with the lse) and
+    # phase 19's deepseek-v3 training with its mtp block (reduced, f32)
+    for a, k2n in dist_attention_shapes():
+        if a.lse:
+            rows[("flash_decode", a.tag)] = k3_row(torch, F, ops, randn, a)
+            continue
+        rows[("flash_attention", a.tag)] = k2_row(
+            torch, F, ops, randn, a._replace(launches=k2n))
+        rows[("flash_attention_bwd", a.tag)] = k2b_row(torch, F, ops, randn,
+                                                       a)
     guard_check(torch, ops)
 
     # ssd_chunk at the prefill shapes: the prompt of 200 padded to 256
@@ -1447,6 +1510,10 @@ def phase_kernels(torch, F, ops):
                                           tp.per_step[2] * TRAIN_STEPS)
         rows[("ssd_chunk_bwd", tag)] = k4b_row(torch, randn, tag, *dims, 0,
                                                tp.per_step[3] * TRAIN_STEPS)
+    # phase 20's SSD shards: one rank's heads
+    tag, dims, k4n, k4bn = dist_ssd_dims()
+    rows[("ssd_chunk", tag)] = k4_row(torch, randn, tag, *dims, 0, k4n)
+    rows[("ssd_chunk_bwd", tag)] = k4b_row(torch, randn, tag, *dims, 0, k4bn)
 
     phase_k1(torch, ops, rows)
 
@@ -1673,6 +1740,8 @@ def launch_counters():
 def reset_launches() -> None:
     for mod in launch_counters() + bwd_counters():
         mod.launches = 0
+        if hasattr(mod, "lse_launches"):
+            mod.lse_launches = 0
         if hasattr(mod, "launches_by_shape"):
             mod.launches_by_shape.clear()
         if hasattr(mod, "launches_by_contract"):
@@ -2185,6 +2254,9 @@ def _session_warm(torch, api, models, per_batch, images, workers):
                     t.result(timeout=600)
                 nb = sess.stats()["models"][name]["batches"] - b0
                 k1 = read_launches()[3]
+                if sess.stats()["pool"]["recycled_workers"]:
+                    fail(f"phase 12 warm-up: a worker was recycled with no "
+                         f"fault injected: {sess._pool.recycle_log}")
                 if k1 != per_batch[name] * nb:
                     fail(f"phase 12 {name}: K1 launched {k1} times in "
                          f"{nb} batches, expected {per_batch[name]} a "
@@ -2285,7 +2357,16 @@ def _session_traffic(torch, api, models, per_batch, images, want,
         if by_contract != want_contract:
             fail(f"phase 12 ({workers} workers): K1 launched {by_contract} "
                  f"by contract, expected {want_contract}")
-        streams = [h["stream"] for h in st["workers"].values()]
+        # no fault is injected here: no worker may be recycled (a recycled
+        # worker's stream stays in worker_health() beside its
+        # replacement's, so the stream check reads the live workers)
+        pool = st["pool"]
+        if pool["recycled_workers"] or pool["redispatched_batches"]:
+            fail(f"phase 12 ({workers} workers): {pool['recycled_workers']}"
+                 f" workers recycled with no fault injected: "
+                 f"{sess._pool.recycle_log}")
+        streams = [h["stream"] for h in st["workers"].values()
+                   if not h["abandoned"]]
         if None in streams or len(set(streams)) != workers:
             fail(f"phase 12: the workers' streams are {streams}")
         out = dict(workers=workers, streams=len(set(streams)),
@@ -2305,6 +2386,7 @@ def _session_traffic(torch, api, models, per_batch, images, want,
                             - b0[n]["batched_requests"]) / batches[n],
                 service_p50_ms=svc.percentile(50),
                 service_p99_ms=svc.percentile(99),
+                service_max_ms=svc.snapshot()["max_ms"],
                 k1_launches=per_batch[n] * batches[n])
         return out
     finally:
@@ -2460,9 +2542,12 @@ def phase_session(torch, rows, int8_models, images, rpa) -> dict:
             print(f"  {workers} worker(s) {n}: {m['requests_s']:.1f} "
                   f"requests/s, p50 {m['p50_ms']:.2f} / p99 "
                   f"{m['p99_ms']:.2f} ms, mean batch {m['mean_batch']:.2f},"
-                  f" batch service p50 {m['service_p50_ms']:.2f} ms, K1 "
+                  f" batch service p50 {m['service_p50_ms']:.2f} / max "
+                  f"{m['service_max_ms']:.2f} ms (heartbeat timeout 500 ms),"
+                  f" K1 "
                   f"{m['k1_launches']} in {m['batches']} batches")
-        print(f"  {workers} worker(s): {res['requests_s']:.1f} requests/s "
+        print(f"  {workers} worker(s): 0 workers recycled; "
+              f"{res['requests_s']:.1f} requests/s "
               f"over {3 * SESSION_REQUESTS} requests in {res['wall_s']:.2f}"
               f" s; float32 max err/tol {res['f32_err_over_tol_max']:.3g}")
     for r in rows.values():
@@ -3837,6 +3922,33 @@ def _train19_loss_falls(torch, arch: str) -> dict:
     return dict(first3=first, last3=last)
 
 
+def _train_mtp(torch, rows) -> dict:
+    """Phase 19.4: deepseek-v3 reduced in float32 with its
+    multi-token-prediction block (the loss adds 0.3 x the CE of token
+    t+2 through one more MLA + MoE layer), 3 steps on the card against
+    the CPU as the other families; every MLA layer's attention on K2 and
+    K2b at D = d_nope + d_rope, Dv = d_v (counted by shape: the
+    counters from 0 just before the card-vs-CPU run)."""
+    from repro_torch.kernels import flash_attention_bwd
+    reset_launches()
+    out = _train_card_vs_cpu(torch, MTP_ARCH, 19)
+    shapes = {"flash_attention":
+              read_launches_by_shape()["flash_attention"],
+              "flash_attention_bwd": Counter(
+                  flash_attention_bwd.launches_by_shape)}
+    for name, by_shape in shapes.items():
+        r = rows[(name, MTP_TAG)]
+        r["launches"] = by_shape.pop(r["key"], 0)
+        if r["launches"] != r["expect"] or any(by_shape.values()):
+            fail(f"phase 19: {MTP_ARCH} reduced launched {name} "
+                 f"{r['launches']} times at its shape (expected "
+                 f"{r['expect']}), and at others {dict(by_shape)}")
+    out["launches"] = {n: rows[(n, MTP_TAG)]["launches"] for n in shapes}
+    print(f"  {MTP_ARCH} reduced with mtp: K2 / K2b "
+          f"{out['launches']} in 3 steps on the card")
+    return out
+
+
 def phase_train19(torch, rows) -> dict:
     out = {}
     for tp in TRAIN_PATHS[1:]:
@@ -3845,6 +3957,452 @@ def phase_train19(torch, rows) -> dict:
         out[tp.arch].update(
             card_vs_cpu=_train_card_vs_cpu(torch, tp.arch, 19),
             loss_falls=_train19_loss_falls(torch, tp.arch))
+    out[MTP_ARCH] = dict(card_vs_cpu=_train_mtp(torch, rows))
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 20: distribution on the card
+# --------------------------------------------------------------------------
+
+# phase 19's deepseek-v3 run with its multi-token-prediction block: the
+# config reduced (2 layers and the mtp layer, 4 MLA heads of D 32, Dv 16)
+# and trained in float32 on batches of 4 x 32, as _train_card_vs_cpu's
+MTP_ARCH = "deepseek-v3-671b"
+MTP_TAG = f"f32 train {MTP_ARCH} reduced"
+# phase 20: DIST_WORLD ranks share the one H100, one process each, over a
+# gloo process group (NCCL takes one rank a device); the mesh is
+# (data 1, model DIST_WORLD)
+DIST_WORLD = 2
+DIST_TRAIN_ARCH = "granite-moe-1b-a400m"
+DIST_TRAIN_STEPS = 3
+DIST_DECODE_ARCH = "granite-20b"
+DIST_DECODE_BATCH, DIST_DECODE_CACHE = 4, 128
+# one decode step at the last position of rank 0's half of the cache,
+# one at the first of rank 1's
+DIST_DECODE_POS = (DIST_DECODE_CACHE // 2 - 1, DIST_DECODE_CACHE // 2)
+# the SSD block's shards: mamba2-370m at full width (d 1024, 32 SSD heads
+# of 64, N 128), its depth cut from 48 layers to DIST_SSM_LAYERS, each
+# rank on 16 of the 32 heads
+DIST_SSM_ARCH = "mamba2-370m"
+DIST_SSM_LAYERS = 4
+DIST_SSM_STEPS = 2
+# phase 20.2 holds these reduced configs on the mesh, card against CPU:
+# attention and moe_a2a; MLA, the MoE stack and the mtp block; the SSD
+# block
+DIST_REDUCED = (DIST_TRAIN_ARCH, "deepseek-v3-671b", DIST_SSM_ARCH)
+DIST_TIMEOUT_S = 420
+#: the ranks' device (the CPU only in a rehearsal of the phase's code)
+DIST_DEVICE = "cuda"
+
+
+def dist_attention_shapes():
+    """[(AttnShape, K2 launches)]: phase 20's K2/K2b shape (one rank's 8 of
+    granite-moe's 16 query heads over its 4 of 8 kv heads, remat: K2
+    twice a layer a step, K2b once; launches summed over the ranks), its
+    K3 shape (one rank's half of granite-20b's decode cache, with the
+    lse; the 48 query heads computed on every rank) and the deepseek-v3
+    mtp run's K2/K2b shape (3 layers, no remat, 3 steps)."""
+    from repro_torch.models.registry import get_arch
+    n = DIST_WORLD
+    cfg = get_arch(DIST_TRAIN_ARCH)
+    L, hd = cfg.n_layers, cfg.head_dim
+    per = L * DIST_TRAIN_STEPS * n
+    train = AttnShape(f"dist {DIST_TRAIN_ARCH} rank of {n}", TRAIN_BATCH,
+                      cfg.padded_heads // n, cfg.n_kv_heads // n, TRAIN_SEQ,
+                      hd, hd, None, per)
+    g = get_arch(DIST_DECODE_ARCH)
+    decode = AttnShape(f"dist {DIST_DECODE_ARCH} rank of {n}",
+                       DIST_DECODE_BATCH, g.n_heads, g.n_kv_heads,
+                       DIST_DECODE_CACHE // n, g.head_dim, g.head_dim, None,
+                       len(DIST_DECODE_POS) * n, lse=True)
+    m = get_arch(MTP_ARCH).reduced(dtype="float32")
+    layers = (m.n_layers + 1) * 3
+    mtp = AttnShape(MTP_TAG, 4, m.n_heads, m.n_heads, 32, m.d_nope + m.d_rope,
+                    m.d_v, None, layers)
+    return [(train, 2 * per), (decode, 0), (mtp, layers)]
+
+
+def dist_ssd_dims():
+    """(tag, (B, S, H, P, N, chunk), K4 launches, K4b launches) of phase
+    20's SSD shards: one rank's half of mamba2-370m's heads, remat (K4
+    twice a layer a step, K4b once), launches summed over the ranks."""
+    from repro_torch.models.registry import get_arch
+    n = DIST_WORLD
+    cfg = get_arch(DIST_SSM_ARCH)
+    per = DIST_SSM_LAYERS * DIST_SSM_STEPS * n
+    return (f"dist {DIST_SSM_ARCH} rank of {n}",
+            (TRAIN_BATCH, TRAIN_SEQ, cfg.ssm_heads // n, cfg.ssm_head_dim,
+             cfg.ssm_state, cfg.ssm_chunk), 2 * per, per)
+
+
+def _layer_specs(cfg, layer):
+    """{parameter name: spec} of one decoder layer, as the reference's
+    rules lay out that layer of a stack."""
+    from types import SimpleNamespace
+
+    from repro_torch.models import sharding
+    tree = {}
+    for name, p in layer.named_parameters():
+        sub = tree
+        *path, key = ("layers", *name.split("."))
+        for k in path:
+            sub = sub.setdefault(k, {})
+        sub[key] = SimpleNamespace(shape=(1, *p.shape))
+    specs = sharding.tree_partition_specs(tree)
+    out = {}
+    for name, _ in layer.named_parameters():
+        sub = specs["layers"]
+        for k in name.split("."):
+            sub = sub[k]
+        out[name] = sub[1:]
+    return out
+
+
+def _dist_train_full(torch, mesh, arch, steps, layers=None) -> dict:
+    """Phase 20.1 on this rank: `arch` at full width (its depth cut to
+    `layers`) over the mesh's `model` axis, `steps` steps of TRAIN_BATCH
+    x TRAIN_SEQ tokens: granite-moe-1b-a400m on this rank's 16 of 32
+    experts through moe_a2a and its 8 of 16 query heads, mamba2-370m on
+    its 16 of 32 SSD heads; wall per step, peak memory, K2 / K2b
+    launches by shape, K4 / K4b launches, losses."""
+    import dataclasses
+    import gc
+
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import (flash_attention, flash_attention_bwd,
+                                     ssd_scan, ssd_scan_bwd)
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import sharding
+    from repro_torch.models.registry import get_arch
+    from repro_torch.models.train import (TrainOptions, init_train_state,
+                                          make_train_step)
+    cfg = get_arch(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    opts = TrainOptions(total_steps=steps)
+    with use_mesh(mesh):
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(cfg, SEED, DIST_DEVICE, opts=opts)
+        first = state.params.layers[0]
+        if cfg.family == "ssm":
+            experts, heads = 0, first.ssm.A_log.shape[0]
+        else:
+            experts = first.moe.experts.w_in.shape[0]
+            heads = first.attn.wq.shape[1] // cfg.head_dim
+        local = sum(p.numel() for p in state.params.parameters())
+        step = make_train_step(cfg, opts=opts)
+        dcfg = DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+        losses, norms, walls = [], [], []
+        for i in range(steps):
+            b = train_batch(cfg, dcfg, i)
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            walls.append((time.monotonic() - t) * 1e3)
+            norms.append(float(m["grad_norm"]))
+        out = dict(losses=losses, grad_norms=norms, wall_ms=walls,
+                   peak_bytes=torch.cuda.max_memory_allocated(),
+                   local_params=local, experts=experts, heads=heads,
+                   model_rank=sharding.axis_rank("model"),
+                   k2=flash_attention.launches,
+                   k2b=flash_attention_bwd.launches,
+                   k4=ssd_scan.launches, k4b=ssd_scan_bwd.launches,
+                   k2_shapes=dict(flash_attention.launches_by_shape),
+                   k2b_shapes=dict(flash_attention_bwd.launches_by_shape))
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_card_vs_cpu(torch, mesh, arch) -> dict:
+    """Phase 20.2 on this rank: reduced `arch` in float32 over the same
+    mesh, 3 steps on the card and 3 on the CPU (gloo carries both) from
+    the same state; every rank's metrics and its gathered parameters."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models.convert import (train_state_from_numpy,
+                                            train_state_to_host)
+    from repro_torch.models.registry import get_arch
+    from repro_torch.models.train import init_train_state, make_train_step
+    cfg = get_arch(arch).reduced(dtype="float32")
+    host = train_state_to_host(cfg, init_train_state(cfg, SEED, "cpu"))
+    dcfg = DataConfig(cfg.vocab, 32, 4, seed=SEED)
+    out = {}
+    with use_mesh(mesh):
+        step = make_train_step(cfg)
+        for d in (DIST_DEVICE, "cpu"):
+            state = train_state_from_numpy(cfg, host, d)
+            ms = []
+            for i in range(3):
+                state, m = no_tf32(torch, lambda: step(
+                    state, train_batch(cfg, dcfg, i)))
+                ms.append({k: float(v) for k, v in m.items()})
+            params = train_state_to_host(cfg, state).params
+            out["card" if d == DIST_DEVICE else "cpu"] = (ms, params)
+    return out
+
+
+def _dist_decode(torch, mesh) -> dict:
+    """Phase 20.3 on this rank: one granite-20b decoder layer at full
+    width (48 query heads over one kv head, so the cache is split by
+    positions), batch DIST_DECODE_BATCH against a cache of
+    DIST_DECODE_CACHE, decoded at DIST_DECODE_POS: first with no mesh on
+    the whole cache (the one-rank reference, on the card), then with the
+    layer cut by its specs and this rank's half of the cache; K3's
+    launches (with the lse) counted from 0 over the mesh's steps."""
+    from repro_torch.kernels import flash_decode
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import lm, sharding
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.models.registry import get_arch
+    cfg = get_arch(DIST_DECODE_ARCH)
+    dt = dtype_of(cfg.dtype)
+    B, S, hd = DIST_DECODE_BATCH, DIST_DECODE_CACHE, cfg.head_dim
+    gen = torch.Generator(device=DIST_DEVICE).manual_seed(SEED)
+    layer = lm.DecoderLayer(cfg, dt, DIST_DEVICE)
+    with torch.no_grad():
+        lm._init_decoder_layer(gen, layer)
+    ck = torch.randn((B, cfg.n_kv_heads, S, hd), generator=gen,
+                     device=DIST_DEVICE).to(dt)
+    cv = torch.randn((B, cfg.n_kv_heads, S, hd), generator=gen,
+                     device=DIST_DEVICE).to(dt)
+    xs = [torch.randn((B, 1, cfg.d_model), generator=gen,
+                      device=DIST_DEVICE).to(dt) for _ in DIST_DECODE_POS]
+
+    def run(kc, vc):
+        outs, walls = [], []
+        for x, pos in zip(xs, DIST_DECODE_POS):
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            h, _ = lm._decoder_layer(
+                layer, x, cfg, torch.full((B, 1), pos, device=DIST_DEVICE),
+                kv_cache=(kc, vc), cache_pos=pos)
+            torch.cuda.synchronize()
+            walls.append((time.monotonic() - t) * 1e3)
+            outs.append(h.float().cpu())
+        return outs, walls
+
+    with torch.no_grad():
+        ref_k, ref_v = ck.clone(), cv.clone()
+        ref_outs, ref_walls = run(ref_k, ref_v)
+        with use_mesh(mesh):
+            specs = _layer_specs(cfg, layer)
+            for name, p in layer.named_parameters():
+                sharding.shard_tensor(p, specs[name])
+            i, n = sharding.axis_rank("model"), \
+                sharding.mesh_axis_size("model")
+            cols = slice(i * S // n, (i + 1) * S // n)
+            kc, vc = ck[:, :, cols].clone(), cv[:, :, cols].clone()
+            reset_launches()
+            outs, walls = run(kc, vc)
+            k3 = dict(launches=flash_decode.launches,
+                      lse=flash_decode.lse_launches,
+                      shapes=dict(flash_decode.launches_by_shape))
+    rel = max(float((o - r).abs().max() / r.abs().max())
+              for o, r in zip(outs, ref_outs))
+    cache = max(float((a.float() - b.float()).abs().max() / b.abs().max())
+                for a, b in ((kc, ref_k[:, :, cols]), (vc, ref_v[:, :, cols])))
+    return dict(rel=rel, cache_max_abs=cache, wall_ms=walls,
+                ref_wall_ms=ref_walls, k3=k3,
+                sharded={n: tuple(p.shape) for n, p in layer.named_parameters()
+                         if getattr(p, "_tp_dim", None) is not None})
+
+
+def _dist_rank(rank, world, store, out_dir):
+    """One rank of phase 20 (a spawned process on the shared H100): the
+    three parts in turn, its results (or its traceback) pickled to
+    ``out_dir``."""
+    import datetime
+    import pickle
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    res = {}
+    try:
+        from repro_torch.kernels import _build
+        from repro_torch.launch.mesh import make_mesh
+        _build.build_all()          # loads what the parent built
+        mesh = make_mesh(1, world, device=DIST_DEVICE)
+        res["train"] = _dist_train_full(torch, mesh, DIST_TRAIN_ARCH,
+                                        DIST_TRAIN_STEPS)
+        res["ssm"] = _dist_train_full(torch, mesh, DIST_SSM_ARCH,
+                                      DIST_SSM_STEPS, DIST_SSM_LAYERS)
+        res["card_vs_cpu"] = {a: _dist_card_vs_cpu(torch, mesh, a)
+                              for a in DIST_REDUCED}
+        res["decode"] = _dist_decode(torch, mesh)
+    except BaseException:
+        res["error"] = traceback.format_exc()
+    finally:
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+        dist.destroy_process_group()
+
+
+def phase_dist(torch, rows) -> dict:
+    """Phase 20 (see the module docstring): DIST_WORLD ranks, one process
+    each, spawned on the one H100 with a gloo group."""
+    import pickle
+
+    import torch.multiprocessing as mp
+    n = DIST_WORLD
+    d = tempfile.mkdtemp(prefix="chip-smoke-dist-")
+    try:
+        ctx = mp.spawn(_dist_rank, args=(n, os.path.join(d, "store"), d),
+                       nprocs=n, join=False)
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    for p in ctx.processes:
+                        p.kill()
+                    fail(f"phase 20: the ranks did not end within "
+                         f"{DIST_TIMEOUT_S} s")
+        except Exception as e:          # a rank died (or raised)
+            fail(f"phase 20: a rank died: {e!r}")
+        res = []
+        for r in range(n):
+            with open(os.path.join(d, f"rank{r}.pkl"), "rb") as f:
+                res.append(pickle.load(f))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    for r, x in enumerate(res):
+        if "error" in x:
+            fail(f"phase 20 rank {r}:\n{x['error']}")
+    (train_shape, _), (decode_shape, _), _ = dist_attention_shapes()
+    # 20.1: the same loss bits on every rank, each rank its half
+    tr = [x["train"] for x in res]
+    if len({tuple(t["losses"]) for t in tr}) != 1 or not all(
+            math.isfinite(v) for v in tr[0]["losses"] + tr[0]["grad_norms"]):
+        fail(f"phase 20: the ranks' losses differ or are not finite: "
+             f"{[t['losses'] for t in tr]}")
+    if {(t["experts"], t["heads"]) for t in tr} != {(16, 8)}:
+        fail(f"phase 20: the ranks hold (experts, heads) "
+             f"{[(t['experts'], t['heads']) for t in tr]}, not (16, 8)")
+    for name, key in (("flash_attention", "k2_shapes"),
+                      ("flash_attention_bwd", "k2b_shapes")):
+        r = rows[(name, train_shape.tag)]
+        got = Counter()
+        for t in tr:
+            got.update(t[key])
+        r["launches"] = got.pop(r["key"], 0)
+        if r["launches"] != r["expect"] or any(got.values()):
+            fail(f"phase 20: {name} launched {r['launches']} times at the "
+                 f"shard's shape (expected {r['expect']}), and at others "
+                 f"{dict(got)}")
+    for r, t in enumerate(tr):
+        print(f"  rank {r} ({t['experts']} experts, {t['heads']} heads, "
+              f"{t['local_params'] / 1e9:.3f} B parameters): step wall ms "
+              f"{[round(w, 1) for w in t['wall_ms']]}, peak "
+              f"{t['peak_bytes'] / 2**30:.2f} GiB, K2 {t['k2']} / K2b "
+              f"{t['k2b']}, losses {t['losses']}")
+    # 20.1 for the SSD block: the same loss bits, each rank 16 heads,
+    # K4 and K4b at the shard's shape as often as the layers say
+    sm = [x["ssm"] for x in res]
+    if len({tuple(t["losses"]) for t in sm}) != 1 or not all(
+            math.isfinite(v) for v in sm[0]["losses"] + sm[0]["grad_norms"]):
+        fail(f"phase 20: the ranks' {DIST_SSM_ARCH} losses differ or are not "
+             f"finite: {[t['losses'] for t in sm]}")
+    tag, dims, k4n, k4bn = dist_ssd_dims()
+    if {t["heads"] for t in sm} != {dims[2]}:
+        fail(f"phase 20: the ranks hold {[t['heads'] for t in sm]} SSD "
+             f"heads, not {dims[2]}")
+    for name, key, want in (("ssd_chunk", "k4", k4n),
+                            ("ssd_chunk_bwd", "k4b", k4bn)):
+        rows[(name, tag)]["launches"] = got = sum(t[key] for t in sm)
+        if got != want:
+            fail(f"phase 20: {name} launched {got} times over the ranks "
+                 f"(expected {want})")
+    for r, t in enumerate(sm):
+        print(f"  {DIST_SSM_ARCH} ({DIST_SSM_LAYERS} layers) rank {r} "
+              f"({t['heads']} SSD heads, {t['local_params'] / 1e9:.3f} B "
+              f"parameters): step wall ms "
+              f"{[round(w, 1) for w in t['wall_ms']]}, peak "
+              f"{t['peak_bytes'] / 2**30:.2f} GiB, K4 {t['k4']} / K4b "
+              f"{t['k4b']}, losses {t['losses']}")
+    # 20.2: card against CPU, every rank, each reduced config
+    cvc = {}
+    for arch in DIST_REDUCED:
+        worst, p_worst, atol = 0.0, 0.0, 0.0
+        for r, x in enumerate(res):
+            (mc, pc), (mh, ph) = (x["card_vs_cpu"][arch]["card"],
+                                  x["card_vs_cpu"][arch]["cpu"])
+            for i, (a, c) in enumerate(zip(mc, mh)):
+                for key in ("loss", "grad_norm", "lr_scale"):
+                    rel = abs(a[key] - c[key]) / max(abs(c[key]), 1e-30)
+                    worst = max(worst, rel)
+                    if rel > 2e-4:
+                        fail(f"phase 20 rank {r}: {arch} card vs CPU step "
+                             f"{i} {key} {a[key]} vs {c[key]}")
+            atol = 2 * LR * sum(m["lr_scale"] for m in mh)
+            flat = _flat_tensors(pc), _flat_tensors(ph)
+            for (k, a), (_, c) in zip(*flat):
+                dd = (a.float() - c.float()).abs()
+                if (dd > atol + 2e-4 * c.float().abs()).any():
+                    fail(f"phase 20 rank {r}: {arch} card vs CPU "
+                         f"parameter {k}")
+                p_worst = max(p_worst, float(dd.max()))
+        print(f"  card vs CPU, reduced {arch} float32 on the (1, {n}) mesh, "
+              f"3 steps: metrics max rel {worst:.3g} (limit 2e-4), "
+              f"parameters max|d| {p_worst:.3g} (limit {atol:.3g} + 2e-4 "
+              f"rel)")
+        cvc[arch] = dict(metrics_max_rel=worst, params_max_abs=p_worst,
+                         params_atol=atol)
+    # 20.3: the sequence-sharded decode
+    dec = [x["decode"] for x in res]
+    r = rows[("flash_decode", decode_shape.tag)]
+    got = Counter()
+    for x in dec:
+        got.update(x["k3"]["shapes"])
+    r["launches"] = got.pop(r["key"], 0)
+    if r["launches"] != r["expect"] or any(got.values()) or any(
+            x["k3"]["lse"] != len(DIST_DECODE_POS) for x in dec):
+        fail(f"phase 20: K3 launched {[x['k3'] for x in dec]}; expected "
+             f"{len(DIST_DECODE_POS)} with the lse on each rank")
+    for rk, x in enumerate(dec):
+        if not (x["rel"] < 2e-2 and x["cache_max_abs"] < 2e-2):
+            fail(f"phase 20 rank {rk}: the sequence-sharded decode is "
+                 f"{x['rel']:.3g} of max|out| from the one-rank decode "
+                 f"(limit 2e-2), its cache half {x['cache_max_abs']:.3g}")
+        print(f"  decode rank {rk}: max|d|/max|one rank| {x['rel']:.3g} "
+              f"(limit 2e-2), its cache half {x['cache_max_abs']:.3g} of "
+              f"max|cache|; step wall ms "
+              f"{[round(w, 2) for w in x['wall_ms']]} (one rank, no mesh: "
+              f"{[round(w, 2) for w in x['ref_wall_ms']]}); K3 "
+              f"{x['k3']['launches']}, with the lse {x['k3']['lse']}; "
+              f"sharded {x['sharded']}")
+    print("  gloo carried this phase's collectives on CUDA tensors: "
+          "all_gather_into_tensor (every gather and rank-order sum) and "
+          "all_to_all_single (moe_a2a); DTensor's own collectives are not "
+          "run on the card (full_tensor crashes a rank there: ROADMAP.md)")
+    return dict(train=[{k: v for k, v in t.items() if "shapes" not in k}
+                       for t in tr],
+                ssm=[{k: v for k, v in t.items() if "shapes" not in k}
+                     for t in sm],
+                card_vs_cpu=cvc,
+                decode=[dict(rel=x["rel"], cache_max_abs=x["cache_max_abs"],
+                             wall_ms=x["wall_ms"], ref_wall_ms=x["ref_wall_ms"],
+                             k3_launches=x["k3"]["launches"],
+                             k3_lse_launches=x["k3"]["lse"]) for x in dec])
+
+
+def _flat_tensors(tree, prefix=""):
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out += _flat_tensors(v, f"{prefix}{k}.")
+        else:
+            out.append((prefix + k, v))
     return out
 
 
@@ -3932,6 +4490,15 @@ def main() -> None:
     out = phase_train19(torch, rows)
     print(f"  training: {json.dumps(out)}")
     print(f"  phase 19 wall time {time.monotonic() - t:.1f} s")
+    print(f"== phase 20: distribution on the card: {DIST_WORLD} ranks over "
+          f"gloo on the one card, mesh (data 1, model {DIST_WORLD}): "
+          f"{DIST_TRAIN_ARCH} at full width, {DIST_TRAIN_STEPS} steps; "
+          f"reduced card vs CPU; {DIST_DECODE_ARCH}'s sequence-sharded "
+          f"decode")
+    t = time.monotonic()
+    out = phase_dist(torch, rows)
+    print(f"  distribution: {json.dumps(out)}")
+    print(f"  phase 20 wall time {time.monotonic() - t:.1f} s")
 
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",

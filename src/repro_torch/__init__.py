@@ -35,3 +35,9 @@ def resolve_device(device=None) -> torch.device:
                 "the plain PyTorch versions on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def is_dtensor(x) -> bool:
+    """Whether `x` is a ``torch.distributed.tensor.DTensor`` (read from
+    its type, so nothing of ``torch.distributed`` is imported)."""
+    return any(c.__name__ == "DTensor" for c in type(x).__mro__)

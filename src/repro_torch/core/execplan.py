@@ -285,10 +285,13 @@ class ExecPlan:
         if tracer is not None and not tracer.plan_steps:
             tracer = None
         st = None
+        beat = _trace.progress_listener()
         try:
             if tracer is None and step_times is None:
                 for st in self.steps:
                     st.run(bufs, n)
+                    if beat is not None:    # a serving worker's beat
+                        beat()
             elif step_times is not None and self.device.type == "cuda":
                 self._run_device_timed(bufs, n, tracer, trace_id,
                                        step_times)
@@ -569,6 +572,7 @@ def lower_float_steps(g: Graph, tiling, program,
         return torch.tensor(float(v), dtype=f32, device=device)
 
     for op in g.topo_ops():
+        _trace.progress()
         a = op.attrs
         k = op.kind
         oid = ids[op.outputs[0]]

@@ -11,8 +11,10 @@ Its plain PyTorch version is ``ref.flash_decode_ref``;
 ``ops.flash_decode`` chooses between the two by the device of the
 inputs.
 
-``launches`` counts the kernel launches of this process, and
-``launches_by_shape`` the same launches by ``shape_key``.
+``launches`` counts the kernel launches of this process,
+``launches_by_shape`` the same launches by ``shape_key``, and
+``lse_launches`` those that also wrote the log-sum-exp (a
+sequence-sharded decode's, ``models.attention._decode_seq_sharded``).
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import torch
 from . import _build
 
 launches = 0
+lse_launches = 0
 launches_by_shape: Counter = Counter()
 # guards the counters and the scratch dict: serving workers launch from
 # several threads
@@ -93,7 +96,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Launches once on the current stream and never synchronises.  Raises
     on inputs the kernel does not take: tensors off CUDA, dtypes other
     than float32/bfloat16, D or Dv above 256."""
-    global launches
+    global launches, lse_launches
     B, H, D = q.shape
     if k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"k, v must be (B,Hkv,S,D); got {tuple(k.shape)}, "
@@ -147,5 +150,6 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(rc, "flash_decode")
     with _lock:
         launches += 1
+        lse_launches += return_lse
         launches_by_shape[shape_key(q, k, v)] += 1
     return (out, lse) if return_lse else out

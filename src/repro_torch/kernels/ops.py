@@ -44,6 +44,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch import is_dtensor
+
 from . import flash_attention as _fa
 from . import flash_attention_bwd as _fab
 from . import flash_decode as _fd
@@ -75,6 +77,16 @@ def _no_backward(impl: str, kernel: str, *tensors) -> None:
             f"under torch.no_grad() or on detached inputs")
 
 
+def _local_only(kernel: str, *tensors) -> None:
+    """Raise if a DTensor reaches `kernel`: the kernels take plain
+    tensors, and under a mesh each rank runs them on its local shard
+    (``models.sharding``)."""
+    for t in tensors:
+        if t is not None and is_dtensor(t):
+            raise TypeError(f"{kernel} takes plain tensors; a DTensor "
+                            f"reached it: pass each rank's local shard")
+
+
 def _repeat_kv(k: torch.Tensor, v: torch.Tensor, H: int):
     Hkv = k.shape[1]
     if H != Hkv:
@@ -92,6 +104,7 @@ def neutron_matmul(x, w, bias=None, scale=None, act: str = "none",
                    out_dtype=None, out_scale: Optional[float] = None,
                    impl: str = "auto", **block_kw):
     """The Pallas kernel's contract: x (M,K) @ w (K,N) -> (M,N)."""
+    _local_only("neutron_matmul (K1)", x, w, bias, scale)
     plain = _plain(impl, x)
     _no_backward(impl, "neutron_matmul (K1)", x, w, bias, scale)
     if plain:
@@ -108,6 +121,7 @@ def neutron_matmul_plan(x, w, bias, sc, act: str, out_scale: float,
                         impl: str = "auto"):
     """The int8 plan's contract, written into ``out`` (batch, M, N) in
     place; see ``neutron_matmul.neutron_matmul_plan``."""
+    _local_only("neutron_matmul_plan (K1)", x, w, out)
     plain = _plain(impl, x)
     _no_backward(impl, "neutron_matmul_plan (K1)", x, w, bias, sc, out)
     if plain:
@@ -121,6 +135,7 @@ def neutron_matmul_nk(x, wt, bias, act: str, out, impl: str = "auto"):
     """The Pallas contract in float32 with an (N, K) weight, written into
     ``out`` (batch, M, N) in place; see
     ``neutron_matmul.neutron_matmul_nk``."""
+    _local_only("neutron_matmul_nk (K1)", x, wt, out)
     plain = _plain(impl, x)
     _no_backward(impl, "neutron_matmul_nk (K1)", x, wt, bias, out)
     if plain:
@@ -141,6 +156,7 @@ def flash_attention(q, k, v, causal: bool = True,
     ``q_offset`` (B,) int: each lane's query position in the keys (see
     ``ref.flash_attention_ref``).  With grad mode on and q, k or v
     requiring grad this is ``FlashAttentionFn`` (no ``q_offset``)."""
+    _local_only("flash_attention (K2)", q, k, v)
     plain = _plain(impl, q)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         if q_offset is not None:
@@ -171,6 +187,7 @@ def flash_attention(q, k, v, causal: bool = True,
 def flash_decode(q, k, v, kv_len=None, sm_scale: Optional[float] = None,
                  return_lse: bool = False, impl: str = "auto", **block_kw):
     """q (B,H,D); k (B,Hkv,S,D); v (B,Hkv,S,Dv) -> (B,H,Dv) [, lse]."""
+    _local_only("flash_decode (K3)", q, k, v)
     plain = _plain(impl, q)
     _no_backward(impl, "flash_decode (K3)", q, k, v)
     if plain:
@@ -195,6 +212,7 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 64, init_state=None,
     grad mode on and an input requiring grad the intra-chunk part is
     ``SSDChunkFn`` (K4 and K4b); ``impl="ref"`` differentiates the plain
     version by autograd."""
+    _local_only("ssd_scan (K4)", x, dt, A, Bm, Cm, init_state)
     plain = _plain(impl, x)
     chunk_fn = _ref.ssd_chunk_ref if plain else _ssd.ssd_chunk
     if impl == "auto" and torch.is_grad_enabled() and any(
@@ -208,6 +226,9 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 64, init_state=None,
 
 ssd_step = _ref.ssd_step_ref          # O(1) decode step (plain torch)
 apply_activation = _ref.apply_activation
+#: merges K3's per-shard (o, lse) of a sequence-sharded cache (plain
+#: torch, as in the reference: a few elementwise ops on (N, B, H, D))
+combine_decode_shards = _ref.combine_decode_shards
 
 
 class FlashAttentionFn(torch.autograd.Function):

@@ -314,6 +314,19 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
+def combine_decode_shards(outs: torch.Tensor, lses: torch.Tensor
+                          ) -> torch.Tensor:
+    """Merge per-shard decode partials by the log-sum-exp identity: outs
+    (N, B, H, D) and their lses (N, B, H), one per key range, into
+    (B, H, D) in outs' dtype.  A shard that saw no key (lse -1e30)
+    weighs nothing."""
+    m = lses.max(dim=0).values
+    w = torch.exp(lses - m)                          # (N, B, H)
+    denom = w.sum(dim=0)
+    o = (outs.float() * w[..., None]).sum(dim=0)
+    return (o / torch.clamp(denom, min=1e-30)[..., None]).to(outs.dtype)
+
+
 # --------------------------------------------------------------------------
 # Mamba2 SSD (state-space duality) chunked scan
 # --------------------------------------------------------------------------

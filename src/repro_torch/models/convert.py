@@ -21,13 +21,14 @@ of the stacked layers:
     enc_dec  enc_pos (n_audio_frames, d), enc_norm  top level
              enc_layers.{norm1, norm2, attn.*, mlp.*}  over (n_enc_layers,)
              dec_layers.{..., xattn.*, norm3}       over (L,)
+    mtp      mtp.{proj, norm, layer.*}              one block (deepseek-v3)
 
 so ``tree["layers"]["attn"]["wq"]`` has shape (L, d, Hp*hd).  Weights
 keep the JAX layout, so ``x @ w`` is the same product on both sides.  A
 leaf whose shape or dtype does not fit, a stack whose leading axes are
-not the model's, and a leaf that nothing takes raise ``ValueError``;
-the only subtree left out is deepseek-v3's ``mtp`` block, which serves
-only the training loss.
+not the model's, and a leaf that nothing takes raise ``ValueError``.
+deepseek-v3's ``mtp`` block is carried when the tree has it (the model
+is then built with its ``MTP`` block).
 
 The training state crosses the same way.  ``reference_leaves(cfg,
 model)`` lists the leaves of the reference's parameter tree in JAX's
@@ -47,6 +48,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import sharding
 from .config import ArchConfig
 from .lm import LM
 
@@ -68,7 +70,8 @@ def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
     return t.to(device)
 
 
-SKIPPED = ("mtp",)
+#: subtrees of the reference's tree that the port does not carry
+SKIPPED = ()
 
 
 def _leaves(tree: Dict, prefix: Tuple[str, ...] = ()):
@@ -82,7 +85,7 @@ def _leaves(tree: Dict, prefix: Tuple[str, ...] = ()):
 @torch.no_grad()
 def params_from_numpy(cfg: ArchConfig, tree: Dict, device) -> LM:
     """The port's LM holding the weights of `tree` (see module doc)."""
-    model = LM(cfg, device)
+    model = LM(cfg, device, mtp="mtp" in tree)
     taken = set()
 
     def stack(path: Tuple[str, ...], lead: Tuple[int, ...]) -> Dict:
@@ -158,6 +161,10 @@ def params_from_numpy(cfg: ArchConfig, tree: Dict, device) -> LM:
         if cfg.family != "ssm":
             layers(model.dense_layers, ("dense_layers",))
         layers(model.layers, ("layers",))
+    if model.mtp is not None:
+        put(model.mtp.proj, tree["mtp"]["proj"], "mtp.proj", "mtp.proj")
+        put(model.mtp.norm, tree["mtp"]["norm"], "mtp.norm", "mtp.norm")
+        module(model.mtp.layer, tree["mtp"]["layer"], (), ("mtp", "layer"))
 
     left = sorted(".".join(path) for path, _ in _leaves(tree)
                   if path[0] not in SKIPPED
@@ -213,6 +220,10 @@ def reference_leaves(cfg: ArchConfig, model: LM) -> LeafMap:
             stack(model.dense_layers, ("dense_layers",),
                   (len(model.dense_layers),))
         stack(model.layers, ("layers",), (len(model.layers),))
+    if model.mtp is not None:
+        entries[("mtp", "proj")] = ((), [model.mtp.proj])
+        entries[("mtp", "norm")] = ((), [model.mtp.norm])
+        stack([model.mtp.layer], ("mtp", "layer"), ())
     return [(path, *entries[path]) for path in sorted(entries)]
 
 
@@ -256,9 +267,11 @@ def stack_reference_tree(cfg: ArchConfig, model: LM,
     """`tensors`, one per parameter of `model` in the order of
     ``model.parameters()`` (its moments, say), as the reference's nested
     dict with stacked leaves: new host tensors that share no memory with
-    `tensors`."""
+    `tensors`.  Under a mesh each is first gathered in full
+    (``sharding.full_tensor``; every rank calls this)."""
     index = {id(p): i for i, p in enumerate(model.parameters())}
-    return _nest({path: _host([tensors[index[id(t)]] for t in ts], lead)
+    return _nest({path: _host([sharding.full_tensor(t, tensors[index[id(t)]])
+                               for t in ts], lead)
                   for path, lead, ts in reference_leaves(cfg, model)})
 
 
@@ -272,10 +285,11 @@ def split_reference_tree(cfg: ArchConfig, model: LM, tree: Dict,
     out: List = [None] * len(index)
     for path, lead, ts in reference_leaves(cfg, model):
         a = tensor_from_numpy(_lookup(tree, path), device)
-        if tuple(a.shape) != (*lead, *ts[0].shape):
+        shape = sharding.full_shape(ts[0])
+        if tuple(a.shape) != (*lead, *shape):
             raise ValueError(f"{'.'.join(path)}: {tuple(a.shape)} does not "
-                             f"fit {(*lead, *ts[0].shape)}")
-        a = a.reshape(-1, *ts[0].shape)
+                             f"fit {(*lead, *shape)}")
+        a = a.reshape(-1, *shape)
         for n, t in enumerate(ts):
             out[index[id(t)]] = a[n].clone()
     return out
@@ -332,14 +346,20 @@ def train_state_from_numpy(cfg: ArchConfig, tree, device) -> Any:
     with stacked leaves, numpy arrays or host tensors): the reference's
     own ``TrainState`` mapped to numpy, ``train_state_to_host``'s output,
     or a restored checkpoint.  The moments and the error feedback keep
-    the dtypes of the tree; the parameters require grad."""
+    the dtypes of the tree; the parameters require grad.  Under a mesh
+    every tensor is cut to this rank's shard (``sharding.shard_params``,
+    ``sharding.shard_like``)."""
     from repro_torch.optim import AdamWState
     from .train import TrainState
     model = params_from_numpy(cfg, tree.params, device)
+    if sharding.active_mesh() is not None:
+        sharding.shard_params(cfg, model)
     model.requires_grad_(True)
+    params = list(model.parameters())
 
     def split(src: Dict) -> List[torch.Tensor]:
-        return split_reference_tree(cfg, model, src, device)
+        full = split_reference_tree(cfg, model, src, device)
+        return [sharding.shard_like(p, t) for p, t in zip(params, full)]
 
     opt = tree.opt
     step = tensor_from_numpy(opt.step, device).to(torch.int32).reshape(())

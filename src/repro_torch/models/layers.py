@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops
+from . import sharding
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -166,6 +167,18 @@ def init_mlp(gen: torch.Generator, p: MLP) -> MLP:
 
 def mlp(p: MLP, x: torch.Tensor, act: str = "silu",
         gated: bool = True) -> torch.Tensor:
+    """The (gated) MLP.  Under a `model` mesh axis larger than 1 it runs
+    on this rank's columns of w_in / w_gate and rows of w_out, and sums
+    the partial outputs over the axis (``models.sharding``)."""
+    if sharding.model_parallel():
+        xs = sharding.copy_to(x)
+        h = xs @ sharding.local(p.w_in, 1)
+        if gated:
+            g = xs @ sharding.local(p.w_gate, 1)
+            h = ops.apply_activation(g, act) * h
+        else:
+            h = ops.apply_activation(h, act)
+        return sharding.reduce_from(h @ sharding.local(p.w_out, 0))
     h = x @ p.w_in
     if gated:
         h = ops.apply_activation(x @ p.w_gate, act) * h

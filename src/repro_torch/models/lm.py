@@ -15,7 +15,9 @@ with cross-attention to it):
                                             -> (logits (B, V), cache)
     encode_audio(cfg, model, audio_embed)   -> encoder states (B, Se, d)
     cross_kv(cfg, model, enc)               -> per-layer cross K/V
-    loss_fn(cfg, model, batch)              -> next-token CE (training)
+    loss_fn(cfg, model, batch)              -> next-token CE (training),
+                                               plus deepseek-v3's
+                                               multi-token prediction
 
 `batch` holds "tokens" (B, S) and, for whisper, "audio_embed"
 (B, n_audio_frames, d) or, for qwen2-vl, optionally "vision_embed"
@@ -24,8 +26,18 @@ the cache: whisper's {"enc_states", "cross_kv"}, qwen2-vl's
 {"vision_embed"}.  The JAX package scans over layer-stacked parameters;
 here the layers are ``ModuleList``s walked by Python loops, run eagerly,
 and the caches are updated in place.  deepseek-v3's
-multi-token-prediction block serves only the training loss and is not
-built.
+multi-token-prediction block (``MTP``) serves only the training loss:
+it is built for training (``init_params(..., mtp=True)``) and when a
+reference tree carries it, and serving leaves it out.
+
+Under a mesh (``models.sharding``) each rank holds its shards of the
+parameters (``sharding.shard_params``) and its rows of the batch; every
+attention (GQA, MLA, gemma3's windows, whisper's encoder and
+cross-attention, zamba2's shared block with its LoRA), the SSD block,
+the MLP and MoE run in the depth format, on this rank's heads, columns
+or experts; the embedding and the LM head take their weights in full.
+The decode caches hold this rank's rows and, over `model`, what
+``registry.cache_specs`` splits there (``init_cache``).
 """
 from __future__ import annotations
 
@@ -40,9 +52,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
-from .attention import (MLA, Attention, _expand_kv, _kv_index, _mask_padded,
-                        attention, decode_windowed, init_attention, init_mla,
-                        mla_attention)
+from .attention import (MLA, Attention, _attention_tp, _expand_kv,
+                        _kv_index, _mask_padded, attention, decode_windowed,
+                        init_attention, init_mla, mla_attention)
+from . import sharding
 from .config import ArchConfig
 from .layers import (MLP, cross_entropy, dense_init, dtype_of, embed,
                      embed_init, fused_ce, init_mlp, lm_logits, mlp, param,
@@ -155,6 +168,19 @@ def _grouped_dims(cfg: ArchConfig) -> Tuple[int, int, int]:
     return G, R, cfg.n_layers - G * (R + 1)
 
 
+class MTP(nn.Module):
+    """deepseek-v3's multi-token-prediction block: proj (2d, d), one
+    decoder `layer` (MoE when the config has experts) and `norm` (d,)."""
+
+    def __init__(self, cfg: ArchConfig, dtype: torch.dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        self.proj = param((2 * d, d), dtype, device)
+        self.layer = DecoderLayer(cfg, dtype, device,
+                                  use_moe=bool(cfg.n_experts))
+        self.norm = param((d,), dtype, device)
+
+
 class LM(nn.Module):
     """embed (V, d), final_norm (d,), lm_head (d, V) unless tied, and by
     family:
@@ -167,10 +193,11 @@ class LM(nn.Module):
       * hybrid: `groups` (ZambaGroups) and the `shared` DecoderLayer;
       * enc_dec (whisper): `enc_pos` (n_audio_frames, d), `enc_layers`
         (DecoderLayers, bidirectional), `enc_norm` (d,) and `dec_layers`
-        (EncDecLayers).
+        (EncDecLayers);
+    and, with `mtp` and ``cfg.mtp``, the ``MTP`` block `mtp`, last.
     Parameters uninitialised."""
 
-    def __init__(self, cfg: ArchConfig, device):
+    def __init__(self, cfg: ArchConfig, device, mtp: bool = False):
         super().__init__()
         check_supported(cfg)
         dtype = dtype_of(cfg.dtype)
@@ -207,6 +234,7 @@ class LM(nn.Module):
             n_dense, n_moe = _moe_flags(cfg)
             self.dense_layers = stack(n_dense if n_moe else 0)
             self.layers = stack(n_moe or n_dense, bool(n_moe))
+        self.mtp = (MTP(cfg, dtype, device) if mtp and cfg.mtp else None)
 
     @property
     def head(self) -> torch.Tensor:
@@ -218,12 +246,15 @@ class LM(nn.Module):
 
 
 @torch.no_grad()
-def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> LM:
+def init_params(cfg: ArchConfig, seed: int = 0, device=None,
+                mtp: bool = False) -> LM:
     """Random weights drawn on `device` from a generator seeded with
     `seed` (the same distributions as the JAX package, other numbers);
-    norms start at zero as there."""
+    norms start at zero as there.  With `mtp` a config's
+    multi-token-prediction block is built too, drawn after every other
+    weight (so the others do not depend on it)."""
     device = resolve_device(device)
-    model = LM(cfg, device)
+    model = LM(cfg, device, mtp=mtp)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     embed_init(gen, model.embed)
@@ -247,8 +278,13 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> LM:
             embed_init(gen, model.enc_pos)
             model.enc_norm.zero_()
         for layer in model.modules():
-            if isinstance(layer, DecoderLayer):
+            if isinstance(layer, DecoderLayer) and (
+                    model.mtp is None or layer is not model.mtp.layer):
                 _init_decoder_layer(gen, layer)
+    if model.mtp is not None:
+        dense_init(gen, model.mtp.proj)
+        _init_decoder_layer(gen, model.mtp.layer)
+        model.mtp.norm.zero_()
     return model
 
 
@@ -285,15 +321,31 @@ def _decoder_layer(p: DecoderLayer, h: torch.Tensor, cfg: ArchConfig,
     default; 0: full)."""
     hn = rms_norm(p.norm1, h, cfg.norm_eps)
     if isinstance(p.attn, MLA):
-        a, new_cache = mla_attention(p.attn, hn, cfg, positions,
-                                     kv_cache=kv_cache, cache_pos=cache_pos)
+        a, new_cache = mla_attention(p.attn, hn, cfg,
+                                     positions, kv_cache=kv_cache,
+                                     cache_pos=cache_pos)
     else:
         a, new_cache = attention(p.attn, hn, cfg, positions, window=window,
                                  mrope_positions=mrope_positions,
                                  kv_cache=kv_cache, cache_pos=cache_pos)
     h = h + a
-    return h + _feed_forward(p, rms_norm(p.norm2, h, cfg.norm_eps),
-                             cfg), new_cache
+    hn = rms_norm(p.norm2, h, cfg.norm_eps)
+    h = _residual_shard(h, cfg)
+    return h + _feed_forward(p, hn, cfg), new_cache
+
+
+def _residual_shard(h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The reference's residual-stream constraint between blocks:
+    sequence-sharded over `model` with ``cfg.seq_parallel`` (when the
+    sequence divides the axis), else replicated over it.  Through
+    ``sharding.maybe_shard``: a DTensor is redistributed; the per-rank
+    program's plain tensors keep their layout (replicated over
+    `model`)."""
+    nm = sharding.mesh_axis_size("model")
+    if cfg.seq_parallel and h.dim() == 3 and nm > 1 \
+            and h.shape[1] % nm == 0:
+        return sharding.maybe_shard(h, "data", "model", None)
+    return sharding.maybe_shard(h, "data", None, None)
 
 
 def _feed_forward(p: DecoderLayer, hn: torch.Tensor, cfg: ArchConfig
@@ -322,13 +374,21 @@ def _ssm_layer(p: SSMLayer, h: torch.Tensor, cfg: ArchConfig,
 
 def _lora_apply(shared: DecoderLayer, lora: LoRA) -> SimpleNamespace:
     """The shared block's weights with one group's LoRA deltas, built
-    anew on every call as in ``repro/models/lm.py:_lora_apply``."""
+    anew on every call as in ``repro/models/lm.py:_lora_apply``.  Under a
+    `model` axis, this rank's columns of wq and w_in plus the deltas'
+    same columns (the replicated LoRA factors cut by columns), marked as
+    this rank's shards (``sharding.as_shard``)."""
     a, m = shared.attn, shared.mlp
+
+    def plus(w, fa, fb):
+        return sharding.as_shard(
+            sharding.local(w, 1)
+            + sharding.replicated(fa) @ sharding.local(fb, 1), 1)
     return SimpleNamespace(
         norm1=shared.norm1, norm2=shared.norm2,
-        attn=SimpleNamespace(wq=a.wq + lora.q_a @ lora.q_b, wk=a.wk,
+        attn=SimpleNamespace(wq=plus(a.wq, lora.q_a, lora.q_b), wk=a.wk,
                              wv=a.wv, wo=a.wo),
-        mlp=SimpleNamespace(w_in=m.w_in + lora.in_a @ lora.in_b,
+        mlp=SimpleNamespace(w_in=plus(m.w_in, lora.in_a, lora.in_b),
                             w_out=m.w_out, w_gate=m.w_gate))
 
 
@@ -347,7 +407,8 @@ def _embed_inputs(cfg: ArchConfig, model: LM, batch: Dict) -> torch.Tensor:
     """Token embeddings (B, S, d); for the vlm, `vision_embed` (B, Nv, d),
     cast to the model dtype, written over positions 0 .. Nv-1 (as the
     reference's dynamic_update_slice, which refuses Nv > S)."""
-    h = embed(model.embed, _as_tokens(batch["tokens"], model.device))
+    h = embed(sharding.full(model.embed),
+              _as_tokens(batch["tokens"], model.device))
     if cfg.family == "vlm" and batch.get("vision_embed") is not None:
         ve = _as_tensor(batch["vision_embed"], h.device)
         if ve.dim() != 3 or ve.shape[0] != h.shape[0] or \
@@ -391,6 +452,7 @@ def forward_hidden(cfg: ArchConfig, model: LM, batch: Dict
                    ) -> torch.Tensor:
     """Full-sequence forward -> final-norm hidden states (B, S, d)."""
     h = _embed_inputs(cfg, model, batch)
+    h = sharding.maybe_shard(h, ("pod", "data"), None, None)
     B, S, _ = h.shape
     positions = torch.arange(S, device=h.device)[None].expand(B, S)
     if cfg.family == "hybrid":
@@ -433,7 +495,9 @@ def forward_hidden(cfg: ArchConfig, model: LM, batch: Dict
 
 def forward(cfg: ArchConfig, model: LM, batch: Dict) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, V)."""
-    return lm_logits(model.head, forward_hidden(cfg, model, batch))
+    logits = lm_logits(sharding.full(model.head),
+                       forward_hidden(cfg, model, batch))
+    return sharding.maybe_shard(logits, ("pod", "data"), None, "model")
 
 
 def prefill(cfg: ArchConfig, model: LM, batch: Dict) -> torch.Tensor:
@@ -450,7 +514,7 @@ def prefill(cfg: ArchConfig, model: LM, batch: Dict) -> torch.Tensor:
 def _head_matrix(cfg: ArchConfig, model: LM) -> torch.Tensor:
     """The LM head as (d, V): `lm_head`, or the tied embedding's
     transpose (a view)."""
-    head = model.head
+    head = sharding.full(model.head)
     return head if head.shape[0] == cfg.d_model else head.T
 
 
@@ -458,14 +522,42 @@ def loss_fn(cfg: ArchConfig, model: LM, batch: Dict) -> torch.Tensor:
     """Next-token cross-entropy of the full-sequence forward (float32
     0-d), the counterpart of ``repro/models/lm.py:loss_fn``: the chunked
     ``fused_ce`` when ``cfg.fused_ce_loss``, else ``cross_entropy`` of
-    the logits.  deepseek-v3's multi-token-prediction loss is not built
-    (ROADMAP item 11c; ``train.check_trainable`` refuses such a config)."""
+    the logits; plus ``0.3 * _mtp_loss`` when the config and the model
+    have the multi-token-prediction block."""
     labels = _as_tokens(batch["labels"], model.device)
     if cfg.fused_ce_loss:
         h = forward_hidden(cfg, model, batch)
-        return fused_ce(h[:, :-1], _head_matrix(cfg, model), labels[:, 1:],
+        loss = fused_ce(h[:, :-1], _head_matrix(cfg, model), labels[:, 1:],
                         cfg.ce_chunk)
-    return cross_entropy(forward(cfg, model, batch)[:, :-1], labels[:, 1:])
+    else:
+        loss = cross_entropy(forward(cfg, model, batch)[:, :-1],
+                             labels[:, 1:])
+    if cfg.mtp and model.mtp is not None:
+        loss = loss + 0.3 * _mtp_loss(cfg, model, batch)
+    return loss
+
+
+def _mtp_loss(cfg: ArchConfig, model: LM, batch: Dict) -> torch.Tensor:
+    """deepseek-v3's multi-token prediction: one extra decoder layer
+    predicts token t+2 from [h_t ; emb(tok_{t+1})] (the embeddings of
+    the token and of the next one, the last position wrapping round as
+    the reference's roll), through the shared LM head."""
+    tokens = _as_tokens(batch["tokens"], model.device)
+    labels = _as_tokens(batch["labels"], model.device)
+    B, S = tokens.shape
+    table = sharding.full(model.embed)
+    h = embed(table, tokens)
+    nxt = embed(table, torch.roll(tokens, -1, dims=1))
+    mtp = model.mtp
+    hh = torch.cat([h, nxt], dim=-1) @ sharding.full(mtp.proj)
+    positions = torch.arange(S, device=hh.device)[None].expand(B, S)
+    hh, _ = _maybe_remat(_decoder_layer, cfg)(mtp.layer, hh, cfg, positions)
+    hh = rms_norm(mtp.norm, hh, cfg.norm_eps)
+    if cfg.fused_ce_loss:
+        return fused_ce(hh[:, :-2], _head_matrix(cfg, model), labels[:, 2:],
+                        cfg.ce_chunk)
+    lg = lm_logits(sharding.full(model.head), hh)
+    return cross_entropy(lg[:, :-2], labels[:, 2:])
 
 
 # ==========================================================================
@@ -476,7 +568,10 @@ def loss_fn(cfg: ArchConfig, model: LM, batch: Dict) -> torch.Tensor:
 def _bidir_attention(p: Attention, x: torch.Tensor, cfg: ArchConfig
                      ) -> torch.Tensor:
     """The encoder's self-attention: no rotation, not causal (K2 at
-    S = Sk), kv expanded to the padded query heads."""
+    S = Sk), kv expanded to the padded query heads; on this rank's heads
+    under a `model` axis."""
+    if sharding.model_parallel():
+        return _attention_tp(p, x, cfg, None, 0, None, causal=False)
     B, S, _ = x.shape
     H, Hkv, hd, Hp = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
         cfg.padded_heads
@@ -500,7 +595,10 @@ def _cross_attention(p: Attention, x: torch.Tensor,
     each (B, Hkv, Se, hd) (``cross_kv``), not causal: K2 at Sq = S against
     Sk = Se keys.  They are expanded to the padded query heads in every
     call, as the reference does (here along the head axis of their
-    layout, which gives K2 contiguous operands)."""
+    layout, which gives K2 contiguous operands).  Under a `model` axis,
+    this rank's query heads against the kv heads they read."""
+    if sharding.model_parallel():
+        return _attention_tp(p, x, cfg, None, 0, None, causal=False, kv=kv)
     B, S, _ = x.shape
     H, Hkv, hd, Hp = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
         cfg.padded_heads
@@ -524,8 +622,8 @@ def _encdec_layer(p: EncDecLayer, h: torch.Tensor, cfg: ArchConfig,
                              cfg, positions, kv_cache=kv_cache,
                              cache_pos=cache_pos)
     h = h + a
-    h = h + _cross_attention(p.xattn, rms_norm(p.norm3, h, cfg.norm_eps),
-                             xkv, cfg)
+    h = h + _cross_attention(p.xattn,
+                             rms_norm(p.norm3, h, cfg.norm_eps), xkv, cfg)
     return h + _feed_forward(p, rms_norm(p.norm2, h, cfg.norm_eps),
                              cfg), new_cache
 
@@ -533,7 +631,8 @@ def _encdec_layer(p: EncDecLayer, h: torch.Tensor, cfg: ArchConfig,
 def _enc_layer(p: DecoderLayer, x: torch.Tensor, cfg: ArchConfig
                ) -> torch.Tensor:
     """An encoder layer: bidirectional self-attention, then the MLP."""
-    x = x + _bidir_attention(p.attn, rms_norm(p.norm1, x, cfg.norm_eps), cfg)
+    x = x + _bidir_attention(p.attn,
+                             rms_norm(p.norm1, x, cfg.norm_eps), cfg)
     return x + _feed_forward(p, rms_norm(p.norm2, x, cfg.norm_eps), cfg)
 
 
@@ -559,8 +658,9 @@ def cross_kv(cfg: ArchConfig, model: LM, enc: torch.Tensor) -> Dict:
     B, Se, _ = enc.shape
     Hkv, hd = cfg.n_kv_heads, cfg.head_dim
 
-    def heads(w):
-        return (enc @ w).reshape(B, Se, Hkv, hd).transpose(1, 2)
+    def heads(w):       # from this rank's columns under a `model` axis
+        return sharding.columns_gathered(enc, w).reshape(
+            B, Se, Hkv, hd).transpose(1, 2)
     return {"k": torch.stack([heads(l.xattn.wk) for l in model.dec_layers]),
             "v": torch.stack([heads(l.xattn.wv) for l in model.dec_layers])}
 
@@ -584,11 +684,55 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None
       * hybrid: {"ssm": SSMState} stacked over (G, R) and the shared
         block's {"shared"} over (G,);
       * enc_dec: the decoder's {"self"} over (L,) and "cross": None (the
-        cross K/V travel in decode_step's `aux`)."""
+        cross K/V travel in decode_step's `aux`).
+    Under a mesh `batch` is the global batch, and each rank holds its
+    part of every cache by ``registry.cache_specs`` at the active mesh's
+    sizes: its batch / n_data rows; over `model`, its kv heads where
+    they divide the axis, else its max_len / n_model positions (decode
+    then runs ``attention._decode_seq_sharded``); its SSD heads and its
+    part of the conv channels; the MLA latent whole.  Raises where a
+    cache does not split so (a gemma3 ring splits only by kv heads)."""
     check_supported(cfg)
     device = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
+    nd, nm = sharding.mesh_axis_size("data"), \
+        sharding.mesh_axis_size("model")
+    if nd * nm == 1:
+        return _cache_tree(cfg, batch, max_len, dtype, device)
+    from .registry import cache_specs
+    full = _cache_tree(cfg, batch, max_len, dtype, "meta")
+    sizes = {"data": nd, "model": nm, "pod": 1}
+    specs = cache_specs(cfg, full, "decode_32k", n_model=nm,
+                        axis_sizes=sizes)
 
+    def local(path, leaf):
+        spec = _lookup_spec(specs, path)
+        names = [n for s in spec for n in (s if isinstance(s, tuple)
+                                           else (s,)) if n]
+        ring = path[0] in ("local", "tail")
+        kv = path[-1] in ("k", "v")
+        if ("data" not in names) or (kv and "model" not in names) or (
+                ring and spec[-2] is not None):
+            raise ValueError(
+                f"{cfg.name}: the cache {'/'.join(map(str, path))} "
+                f"{tuple(leaf.shape)} does not split over a {nd} x {nm} "
+                f"mesh (spec {spec})")
+        shape = [dim // (sizes[s] if s else 1)
+                 for dim, s in zip(leaf.shape, spec)]
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return sharding.map_with_path(local, full)
+
+
+def _lookup_spec(specs, path):
+    for k in path:
+        specs = getattr(specs, k) if hasattr(specs, "_fields") else specs[k]
+    return specs
+
+
+def _cache_tree(cfg: ArchConfig, batch: int, max_len: int,
+                dtype: torch.dtype, device) -> Dict:
+    """``init_cache``'s tree in full, on `device` (the meta device for
+    its shapes)."""
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
@@ -657,7 +801,7 @@ def decode_step(cfg: ArchConfig, model: LM, cache: Dict, token, pos: int,
     pos = int(pos)
     token = _as_tokens(token, model.device)
     B = token.shape[0]
-    h = embed(model.embed, token[:, None])
+    h = embed(sharding.full(model.embed), token[:, None])
     if cfg.family == "vlm" and aux is not None and "vision_embed" in aux:
         ve = aux["vision_embed"]                    # (B, Nv, d)
         if pos < ve.shape[1]:
@@ -703,4 +847,4 @@ def decode_step(cfg: ArchConfig, model: LM, cache: Dict, token, pos: int,
             h, _ = _decoder_layer(layer, h, cfg, positions,
                                   kv_cache=layer_cache, cache_pos=pos)
     h = rms_norm(model.final_norm, h, cfg.norm_eps)
-    return lm_logits(model.head, h)[:, 0], cache
+    return lm_logits(sharding.full(model.head), h)[:, 0], cache

@@ -1,12 +1,11 @@
 """Mixture-of-Experts feed-forward, capacity-bounded.
 
-Counterpart of ``repro/models/moe.py`` on one device: ``init_moe``,
-``_router_probs``, the sort dispatch ``_dispatch_sort`` (the JAX
-package's default, ``ArchConfig.moe_dispatch = "sort"``), ``moe_dense``
-and ``moe``, which here always takes the dense path.  The one-hot
-dispatch, which no configuration selects, and the shard_map all-to-all
-dispatch (``moe_a2a``), which needs a mesh, are not ported (see
-``ROADMAP.md``).
+Counterpart of ``repro/models/moe.py``: ``init_moe``, ``_router_probs``,
+the sort dispatch ``_dispatch_sort`` (the JAX package's default,
+``ArchConfig.moe_dispatch = "sort"``), ``moe_dense``, the expert-parallel
+``moe_a2a`` and ``moe``, which chooses between them as the reference's
+``impl="auto"`` does.  The one-hot dispatch, which no configuration
+selects, is not ported (see ``ROADMAP.md``).
 
 Semantics, as in the JAX package: the float32 router picks the top k
 experts of each token and softmaxes their logits into gates; each expert
@@ -26,8 +25,9 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops
+from . import sharding
 from .config import ArchConfig
-from .layers import dense_init, in_recompute, param
+from .layers import dense_init, in_recompute, mlp, param
 
 
 class Experts(nn.Module):
@@ -81,7 +81,11 @@ Combine = Callable[[torch.Tensor], torch.Tensor]
 def _router_probs(p: MoE, x2d: torch.Tensor, cfg: ArchConfig
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k gates (T, k) float32 and expert ids (T, k), best first."""
-    logits = x2d.float() @ p.router                           # (T, E)
+    return _top_k(x2d.float() @ p.router, cfg)                # (T, E)
+
+
+def _top_k(logits: torch.Tensor, cfg: ArchConfig
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     gates, idx = torch.topk(logits, cfg.top_k, dim=-1)
     return torch.softmax(gates, dim=-1), idx
 
@@ -170,8 +174,121 @@ def moe_dense(p: MoE, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return y.reshape(B, S, d)
 
 
-def moe(p: MoE, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """The MoE feed-forward of one device: the dense dispatch (the JAX
-    package's ``moe`` takes it too wherever no `model` mesh axis is
-    larger than 1)."""
-    return moe_dense(p, x, cfg)
+def moe_a2a(p: MoE, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Expert parallelism over the `model` axis, the reference's
+    ``moe_a2a``: each rank takes its slice of the sequence (S / n
+    tokens of each of its rows), routes and dispatches those tokens
+    itself, with the capacity of its own token count, sends each
+    expert's (cap, d) buffer to the rank that owns the expert
+    (``all_to_all``), runs its E / n experts on the buffers of every
+    rank, sends the outputs back and combines them; the sequence slices
+    are gathered again.  So where tokens drop, the result differs from
+    ``moe_dense``'s, as the reference's does.  The shared experts, if
+    any, run on every token as the tensor-parallel MLP.  Requires
+    E % n == 0 and S % n == 0."""
+    E, n = cfg.n_experts, sharding.mesh_axis_size("model")
+    if E % n or x.shape[1] % n:
+        raise ValueError(f"moe_a2a needs E={E} and S={x.shape[1]} to split "
+                         f"over a model axis of {n}")
+    e_loc = E // n
+    d = x.shape[-1]
+    xl = sharding.scatter_to(x, 1)                 # (B, S / n, d)
+    Bl, Sl = xl.shape[:2]
+    T = Bl * Sl
+    x2d = xl.reshape(T, d)
+    # the router is replicated, but each rank routes its own tokens: its
+    # gradient is summed over `model`
+    gates, idx = _top_k(x2d.float() @ sharding.replicated(p.router), cfg)
+    cap = capacity(cfg, T)
+    xe, combine, keep = _dispatch_sort(x2d, gates, idx, E, cap)
+    if not in_recompute():
+        p.dropped += keep.numel() - keep.sum()
+    # each rank keeps its experts' buffers from every rank:
+    # (n, e_loc, cap, d) -> (e_loc, n * cap, d)
+    xe = sharding.all_to_all(xe.reshape(n, e_loc, cap, d))
+    xe = xe.transpose(0, 1).reshape(e_loc, n * cap, d)
+    we = p.experts
+    h = torch.bmm(xe, sharding.local(we.w_in, 0))
+    if cfg.gated_mlp:
+        g = torch.bmm(xe, sharding.local(we.w_gate, 0))
+        h = ops.apply_activation(g, cfg.act) * h
+    else:
+        h = ops.apply_activation(h, cfg.act)
+    ye = torch.bmm(h, sharding.local(we.w_out, 0))
+    ye = ye.reshape(e_loc, n, cap, d).transpose(0, 1)
+    ye = sharding.all_to_all(ye).reshape(E, cap, d)
+    y = combine(ye).to(x.dtype).reshape(Bl, Sl, d)
+    y = sharding.gather_from(y, 1)
+    if p.shared is not None:
+        y = y + mlp(p.shared, x, act=cfg.act, gated=True)
+    return y
+
+
+def moe(p: MoE, x: torch.Tensor, cfg: ArchConfig, impl: str = "auto"
+        ) -> torch.Tensor:
+    """auto: ``moe_a2a`` whenever a `model` axis larger than 1 is active
+    and the expert count and the sequence split over it; the dense
+    dispatch otherwise, as the reference.  Under a mesh the dense
+    dispatch sees what the reference's sees, the global batch
+    (``_moe_dense_data``), with the experts in full over `model`
+    (``sharding.gathered``: only where the model axis does not split
+    them or the sequence)."""
+    if impl not in ("auto", "a2a", "dense"):
+        raise ValueError(f"impl must be auto, a2a or dense; got {impl!r}")
+    n = sharding.mesh_axis_size("model")
+    if impl != "dense" and n > 1 and cfg.n_experts % n == 0 \
+            and x.shape[1] % n == 0:
+        return moe_a2a(p, x, cfg)
+    if impl == "a2a":
+        raise ValueError(f"moe_a2a needs a model axis that divides "
+                         f"E={cfg.n_experts} and S={x.shape[1]}")
+    if sharding.mesh_axis_size("data") == 1:
+        return moe_dense(sharding.gathered(p), x, cfg)
+    return _moe_dense_data(sharding.gathered(p), x, cfg)
+
+
+def _moe_dense_data(p: MoE, x: torch.Tensor, cfg: ArchConfig
+                    ) -> torch.Tensor:
+    """The dense dispatch over a `data` axis of nd > 1, on the global
+    batch as the reference's: every rank gathers the rows of every rank
+    (``sharding.gather_rows``), routes them and fills the (E, cap, d)
+    buffers at the global batch's capacity; then each runs only its
+    E / nd experts (all of them where nd does not divide E) and the
+    outputs are gathered over `data`, so each rank combines its own
+    rows.  x (B, S, d), this rank's rows -> (B, S, d).  The experts'
+    weights stay replicated over `data`: each rank's gradient holds its
+    experts' share of every rank's loss, and the data-parallel sum of
+    the gradients adds the shares up."""
+    if cfg.moe_dispatch != "sort":
+        return moe_dense(p, x, cfg)         # raises, naming the dispatch
+    nd, rd = sharding.mesh_axis_size("data"), sharding.axis_rank("data")
+    B, S, d = x.shape
+    E = cfg.n_experts
+    xg = sharding.gather_rows(x, 0)
+    T = xg.shape[0] * S
+    x2d = xg.reshape(T, d)
+    gates, idx = _router_probs(p, x2d, cfg)
+    xe, combine, keep = _dispatch_sort(x2d, gates, idx, E, capacity(cfg, T))
+    if not in_recompute():
+        p.dropped += keep.numel() - keep.sum()
+    split = E % nd == 0
+    mine = slice(rd * (E // nd), (rd + 1) * (E // nd)) if split \
+        else slice(None)
+    we = p.experts
+    xe = xe[mine]
+    h = torch.bmm(xe, we.w_in[mine])
+    if cfg.gated_mlp:
+        h = ops.apply_activation(torch.bmm(xe, we.w_gate[mine]),
+                                 cfg.act) * h
+    else:
+        h = ops.apply_activation(h, cfg.act)
+    ye = torch.bmm(h, we.w_out[mine])
+    if split:
+        ye = sharding.gather_rows(ye, 0)
+    y = combine(ye).to(x.dtype).reshape(nd * B, S, d).narrow(0, rd * B, B)
+    if p.shared is not None:
+        sh = p.shared
+        x2l = x.reshape(B * S, d)
+        hs = ops.apply_activation(x2l @ sh.w_gate, cfg.act) * (x2l @ sh.w_in)
+        y = y + (hs @ sh.w_out).reshape(B, S, d)
+    return y

@@ -263,6 +263,38 @@ def session(capacity: int = 131072, plan_steps: bool = True):
 # Cross-process merge (worker-process tracers -> one document)
 # --------------------------------------------------------------------------
 
+# --------------------------------------------------------------------------
+# Progress: long host work (a plan's lowering, its steps) reports that it
+# moves to whoever listens on its thread: a serving worker's heartbeat
+# --------------------------------------------------------------------------
+
+_PROGRESS = threading.local()
+
+
+def progress_listener():
+    """The callable listening for this thread's progress, or None."""
+    return getattr(_PROGRESS, "fn", None)
+
+
+def progress() -> None:
+    """Report progress on this thread (a no-op with no listener)."""
+    fn = getattr(_PROGRESS, "fn", None)
+    if fn is not None:
+        fn()
+
+
+@contextmanager
+def on_progress(fn):
+    """Call `fn` for every progress report of this thread inside the
+    context (nestable: the previous listener comes back)."""
+    prev = getattr(_PROGRESS, "fn", None)
+    _PROGRESS.fn = fn
+    try:
+        yield
+    finally:
+        _PROGRESS.fn = prev
+
+
 def merge_chrome_traces(parent_doc: dict, parent_epoch: float,
                         children) -> dict:
     """Merge worker processes' trace documents into the parent's.

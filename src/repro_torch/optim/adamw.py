@@ -18,7 +18,7 @@ per float32 temporary).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, NamedTuple, Sequence, Tuple, Union
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -62,15 +62,18 @@ def global_norm(tree: Sequence[torch.Tensor]) -> torch.Tensor:
 @torch.no_grad()
 def apply_updates(cfg: AdamWConfig, params: Sequence[torch.Tensor],
                   grads: Sequence[torch.Tensor], state: AdamWState,
-                  lr_scale: Union[torch.Tensor, float] = 1.0
+                  lr_scale: Union[torch.Tensor, float] = 1.0,
+                  gnorm: Optional[torch.Tensor] = None
                   ) -> Tuple[Sequence[torch.Tensor], AdamWState]:
     """One AdamW step, the reference's arithmetic: the clip factor from
     the global norm of `grads`, bias correction at the incremented step,
     the update in float32 and each result rounded to its own dtype.
     Updates `params` and the moments in place; returns (params, the new
-    state), whose ``step`` is a new tensor."""
+    state), whose ``step`` is a new tensor.  `gnorm`, when given, is the
+    global norm of the gradients (under a mesh: of the full gradients,
+    which `grads`, this rank's shards, do not show)."""
     step = state.step + 1
-    gn = global_norm(grads)
+    gn = global_norm(grads) if gnorm is None else gnorm
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0) \
         if cfg.grad_clip else 1.0
     stepf = step.to(torch.float32)

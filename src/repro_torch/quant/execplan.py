@@ -53,6 +53,7 @@ from repro_torch.core.execplan import (PlanConsts, PlanStep, attend,
 from repro_torch.core.ir import Graph
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ir_activation
+from repro_torch.obs import trace as _trace
 
 from .ptq import _NEG_SENTINEL, QuantizedModel
 from .qparams import dequantize_t, device_scalar, quantize_t
@@ -153,6 +154,7 @@ def lower_quant_steps(qm: QuantizedModel, g: Graph, tiling, program,
     steps: List[PlanStep] = []
 
     for op in g.topo_ops():
+        _trace.progress()
         a = op.attrs
         k = op.kind
         oid = ids[op.outputs[0]]

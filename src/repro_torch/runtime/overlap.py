@@ -1,17 +1,72 @@
-"""Microbatched gradient accumulation, the counterpart of
-``split_microbatches`` and ``accumulate_grads`` of
-``repro/runtime/overlap.py``.  The reference scans the microbatches
-inside one jit so that GSPMD overlaps each one's gradient reduce-scatter
-with the next one's backward; on one card there is no collective to
-hide, so here they run one after another.  ``overlap_flags`` (XLA flags)
-and ``bucket_tree`` (bucketed all-reduce) belong to the distribution
-work, ROADMAP item 12.
+"""Compute/communication overlap, the counterpart of
+``repro/runtime/overlap.py``.
+
+  * **Microbatched gradient accumulation** (``split_microbatches``,
+    ``accumulate_grads``).  The reference scans the microbatches inside
+    one jit so that GSPMD overlaps each one's gradient reduce-scatter
+    with the next one's backward; here they run one after another.
+  * **Bucketed gradient sync** (``bucket_tree``): leaves grouped into
+    buckets of about ``bucket_bytes``, so that the data-parallel
+    all-reduce of the training step (``models.train``) sends a few large
+    messages instead of one per leaf.
+  * ``overlap_flags``: the XLA flags the reference's launcher would set
+    for latency-hiding collectives on a TPU.  They have no torch
+    counterpart; the function returns the reference's dict for the
+    record, and nothing in the port reads it.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import torch
+
+
+def overlap_flags() -> Dict[str, str]:
+    """The reference's XLA flags for async collectives and its
+    latency-hiding scheduler, unchanged (no torch counterpart)."""
+    return {
+        "xla_tpu_enable_async_collective_fusion": "true",
+        "xla_tpu_enable_async_collective_fusion_fuse_all_gather": "true",
+        "xla_tpu_overlap_compute_collective_tc": "true",
+        "xla_enable_async_all_gather": "true",
+        "xla_enable_async_collective_permute": "true",
+    }
+
+
+def _tree_leaves(tree: Any) -> List[Any]:
+    """Leaves in the reference's flatten order: dict keys sorted, lists
+    and tuples in order; None is no leaf."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def _nbytes(leaf) -> int:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.numel() * leaf.element_size()
+    return int(leaf.size) * leaf.dtype.itemsize
+
+
+def bucket_tree(tree: Any, bucket_bytes: int = 4 << 20
+                ) -> List[List[Tuple[int, Any]]]:
+    """Greedy size-bucketing of the leaves (index, leaf) of `tree` (a
+    nested dict, a list of tensors, numpy arrays or tensors): a bucket
+    closes before the leaf that would take it past `bucket_bytes`."""
+    buckets: List[List[Tuple[int, Any]]] = []
+    cur: List[Tuple[int, Any]] = []
+    size = 0
+    for i, leaf in enumerate(_tree_leaves(tree)):
+        b = _nbytes(leaf)
+        if cur and size + b > bucket_bytes:
+            buckets.append(cur)
+            cur, size = [], 0
+        cur.append((i, leaf))
+        size += b
+    if cur:
+        buckets.append(cur)
+    return buckets
 
 
 def split_microbatches(batch: Dict, n_micro: int) -> Dict:

@@ -15,16 +15,21 @@ Counterpart of ``repro/runtime/serving.py``, the robustness layer around
   claims.  Bounded per-model queues with a deadline-driven auto-flush:
   a batch dispatches when it fills, when its oldest entry has lingered
   ``linger_ms``, or when its earliest deadline minus the model's recent
-  batch time comes due.
+  batch time comes due; until the model has served MIN_EST_SAMPLES
+  batches there is no batch time to lean on, and a ticket with a
+  deadline dispatches at once.
 * **fault detection + re-dispatch** — workers heartbeat a
   :class:`~repro_torch.runtime.fault.FaultMonitor`; a supervisor
   recycles workers whose beats stop (a hung kernel), re-dispatches their
   in-flight batch to a healthy worker and issues speculative backups for
   stragglers.  Tickets are idempotent — the first fulfillment wins.
-  Workers do not beat while they run a batch, so a pool on CUDA builds
-  the kernels before its first worker starts (``_build.build_all``):
-  a batch then never waits for nvcc, and the default heartbeat timeout
-  stays truthful.
+  While a worker runs a batch it beats from the batch's own progress
+  (``obs.trace.progress``: each plan step, each op of a lowering), at
+  most every quarter of the heartbeat timeout: a batch slower than the
+  timeout is not taken for a hung one as long as it moves, and a kernel
+  that hangs stops the beats.  A pool on CUDA builds the kernels before
+  its first worker starts (``_build.build_all``), so no batch waits for
+  nvcc.
 * **:class:`CircuitBreaker`** + :class:`LatencyHistogram` — the
   per-model trip/half-open/recover state machine and the p50/p99
   surface ``Session.stats()`` reports.
@@ -427,6 +432,8 @@ class ServerPool:
     MIN_EST_SAMPLES = 4
     #: recompute the memoized p99 after this many new samples
     EST_REFRESH = 16
+    #: recycles kept in ``recycle_log``
+    RECYCLE_LOG = 64
     #: worker fault domain ("thread" here; "process" in
     #: :class:`repro_torch.runtime.procpool.ProcPool`)
     mode = "thread"
@@ -481,6 +488,10 @@ class ServerPool:
         self._seq = 0
         self._enq_seq = 0        # submission order within a deadline class
         self._requeue_seq = 0    # negative: re-dispatched work goes first
+        #: the last RECYCLE_LOG recycles: the worker, its replacement and
+        #: what it was doing (the in-flight batch's model, size and age,
+        #: the age of its last beat)
+        self.recycle_log: List[Dict[str, object]] = []
         self.counters = {"dispatched_batches": 0, "dispatched_requests": 0,
                          "shed": 0, "deadline_misses": 0,
                          "priority_evictions": 0,
@@ -608,7 +619,10 @@ class ServerPool:
                         and self._evict_locked(name)):
                     self._shed_locked(name, ticket, len(q))
             self._push_locked(name, feed, ticket)
-            self._cv.notify()
+            # every waiter: each idle worker recomputes its next due time
+            # (one notify could wake a drain() waiter and leave the
+            # workers asleep past a deadline this entry brought forward)
+            self._cv.notify_all()
 
     def _shed_locked(self, name: str, ticket: Ticket, depth: int):
         self.counters["shed"] += 1
@@ -667,8 +681,12 @@ class ServerPool:
             due = min(e[4] for e in q) + self.linger_s
             head_dl = q[0][0]
             if math.isfinite(head_dl):
-                est = self._dispatch_est_ms(name) / 1e3
-                due = min(due, head_dl - est)
+                if self._batch_ms.labels(model=name).count \
+                        < self.MIN_EST_SAMPLES:
+                    due = now      # no batch time known: dispatch at once
+                else:
+                    due = min(due, head_dl
+                              - self._dispatch_est_ms(name) / 1e3)
             if len(q) >= self.max_batch:
                 due = now
             if due <= now:
@@ -777,7 +795,8 @@ class ServerPool:
             self.monitor.beat(wid, w.seq)
             t0 = time.monotonic()
             try:
-                self._execute(name, entries, wid)
+                with _trace.on_progress(self._progress_beat(wid, w.seq)):
+                    self._execute(name, entries, wid)
             except BaseException as e:     # backstop: executor must not
                 for _, ticket in entries:  # raise, but never lose tickets
                     ticket._fail(e if isinstance(e, Exception)
@@ -795,6 +814,20 @@ class ServerPool:
                 w.requests += len(entries)
                 self.monitor.beat(wid, w.seq, step_time_s=dt)
                 self._cv.notify_all()
+
+    def _progress_beat(self, wid: int, seq: int) -> Callable[[], None]:
+        """The worker's beat for its batch's progress reports, at most
+        every quarter of the heartbeat timeout."""
+        every = self.heartbeat_timeout_s / 4
+        last = [time.monotonic()]
+        monitor = self.monitor
+
+        def beat() -> None:
+            now = time.monotonic()
+            if now - last[0] >= every:
+                last[0] = now
+                monitor.beat(wid, seq)
+        return beat
 
     # -- supervision: detect, re-dispatch, recycle --------------------------
     def _extra_dead_locked(self) -> List[int]:
@@ -855,11 +888,19 @@ class ServerPool:
             self._requeue_locked(inf.name, inf.entries)
             self.counters["redispatched_batches"] += 1
             self.dispatcher.backups_issued.append((inf.seq, wid, new_wid))
+        hb = self.monitor.beats.get(wid)
+        now = time.monotonic()
+        entry = {"worker": wid, "replacement": new_wid,
+                 "redispatched": inf is not None,
+                 "model": inf.name if inf is not None else None,
+                 "n": len(inf.entries) if inf is not None else 0,
+                 "batch_age_s": (now - inf.started) if inf is not None
+                 else None,
+                 "beat_age_s": (now - hb.last_beat) if hb else None}
+        self.recycle_log = (self.recycle_log + [entry])[-self.RECYCLE_LOG:]
         self.monitor.retire(wid)
         self.counters["recycled_workers"] += 1
-        _trace.instant("worker_recycled", "fault",
-                       args={"worker": wid, "replacement": new_wid,
-                             "redispatched": inf is not None})
+        _trace.instant("worker_recycled", "fault", args=entry)
         self._on_recycle_locked(wid)
         self._spawn_locked(new_wid)
         self._cv.notify_all()

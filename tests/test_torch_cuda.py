@@ -1684,3 +1684,148 @@ def _equal_trees(a, b):
             _equal_trees(a[k], b[k])
     else:
         assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# distribution on the card: two ranks share the one card over gloo
+# --------------------------------------------------------------------------
+
+
+DIST_CARD_ARCHS = ("granite-moe-1b-a400m", "mamba2-370m", "deepseek-v3-671b",
+                   "gemma3-27b")
+
+
+def _dist_card_rank(rank, world, store, out_dir):
+    """One rank (a spawned process on cuda:0) of the card's distribution
+    checks: moe_a2a on the card against the CPU, the sequence-sharded
+    decode against one rank's, and two steps of reduced granite-moe's
+    sharded train step on the card against the CPU."""
+    import os
+    import pickle
+    import traceback
+
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    res = {}
+    try:
+        from repro_torch.data.pipeline import DataConfig, batch_for_step
+        from repro_torch.launch.mesh import make_mesh, use_mesh
+        from repro_torch.models import attention, lm, sharding, train
+        from repro_torch.models.convert import (train_state_from_numpy,
+                                                train_state_to_host)
+        from repro_torch.models.moe import MoE, init_moe, moe_a2a
+        from repro_torch.models.registry import get_arch
+        mesh = make_mesh(1, world, device="cuda")
+        gen = torch.Generator().manual_seed(0)
+        cfg = get_arch("granite-moe-1b-a400m").reduced(dtype="float32")
+        p = init_moe(gen, MoE(cfg, torch.float32, "cpu"))
+        x = torch.randn(2, 8, cfg.d_model, generator=gen)
+        with use_mesh(mesh), torch.no_grad():
+            out = {}
+            for d in ("cuda", "cpu"):
+                q = p.to(d)
+                for w in (q.experts.w_in, q.experts.w_gate, q.experts.w_out):
+                    sharding.shard_tensor(w, ("model", None, None))
+                out[d] = moe_a2a(q, x.to(d), cfg).cpu()
+                p = init_moe(torch.Generator().manual_seed(0),
+                             MoE(cfg, torch.float32, "cpu"))
+            res["moe"] = float((out["cuda"] - out["cpu"]).abs().max())
+            # decode: granite-20b reduced in bf16, one kv head
+            c2 = get_arch("granite-20b").reduced()
+            layer = lm.DecoderLayer(c2, torch.bfloat16, "cuda")
+            lm._init_decoder_layer(torch.Generator(device="cuda")
+                                   .manual_seed(1), layer)
+            B, S = 2, 16
+            g2 = torch.Generator(device="cuda").manual_seed(2)
+            ck, cv = (torch.randn(B, 1, S, c2.head_dim, generator=g2,
+                                  device="cuda").bfloat16()
+                      for _ in range(2))
+            xs = [torch.randn(B, 1, c2.d_model, generator=g2,
+                              device="cuda").bfloat16() for _ in range(2)]
+            res["seq"] = attention._use_seq_sharded_decode(c2, B, S)
+            half = slice(rank * S // 2, (rank + 1) * S // 2)
+            kl, vl = ck[:, :, half].clone(), cv[:, :, half].clone()
+            from repro_torch.kernels import flash_decode
+            flash_decode.lse_launches = 0
+            got = [lm._decoder_layer(layer, xx, c2,
+                                     torch.full((B, 1), pos, device="cuda"),
+                                     kv_cache=(kl, vl), cache_pos=pos)[0]
+                   for xx, pos in zip(xs, (7, 8))]
+            res["lse_launches"] = flash_decode.lse_launches
+        with torch.no_grad():
+            want = [lm._decoder_layer(layer, xx, c2,
+                                      torch.full((B, 1), pos, device="cuda"),
+                                      kv_cache=(ck, cv), cache_pos=pos)[0]
+                    for xx, pos in zip(xs, (7, 8))]
+        res["decode"] = max(float((g.float() - w.float()).abs().max()
+                                  / w.float().abs().max())
+                            for g, w in zip(got, want))
+        # two sharded train steps on the card against the CPU, then
+        # three decode steps on the caches init_cache lays out on the mesh
+        # (kv heads, SSD heads and conv channels split, the MLA latent
+        # whole)
+        for arch in DIST_CARD_ARCHS:
+            c = get_arch(arch).reduced(dtype="float32")
+            host = train_state_to_host(c, train.init_train_state(c, 0,
+                                                                 "cpu"))
+            step = train.make_train_step(c)
+            dcfg = DataConfig(c.vocab, 16, 4)
+            ms, lg = {}, {}
+            toks = torch.randint(0, c.vocab, (4, 3),
+                                 generator=torch.Generator().manual_seed(3))
+            with use_mesh(mesh):
+                for d in ("cuda", "cpu"):
+                    state = train_state_from_numpy(c, host, d)
+                    ms[d] = []
+                    for i in range(2):
+                        state, m = step(state, batch_for_step(dcfg, i))
+                        ms[d].append(float(m["loss"]))
+                    with torch.no_grad():
+                        cache = lm.init_cache(c, 4, 3, device=d)
+                        lg[d] = [lm.decode_step(c, state.params, cache,
+                                                toks[:, t], t)[0].cpu()
+                                 for t in range(3)]
+            res[("train", arch)] = ms
+            res[("decode", arch)] = max(
+                float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(lg["cuda"], lg["cpu"]))
+    except BaseException:
+        res["error"] = traceback.format_exc()
+    finally:
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+        dist.destroy_process_group()
+
+
+def test_distribution_on_the_card_matches_the_cpu(dev, tmp_path):
+    """Two gloo ranks on the one card, mesh (1, 2): moe_a2a with the
+    experts split (card vs CPU within 1e-4), granite-20b's decode against
+    a cache split by positions (within 2e-2 of one rank's, K3 with the
+    lse twice on each rank), and for reduced granite-moe, mamba2,
+    deepseek-v3 and gemma3 in float32 (each layer on this rank's heads or
+    experts: K2, K2b, K3, K4, K4b on the shards) two sharded train steps
+    (losses card vs CPU within 2e-4 relative, equal on both ranks) and
+    three decode steps (logits card vs CPU within 1e-4 of their max)."""
+    import pickle
+
+    import torch.multiprocessing as mp
+    mp.spawn(_dist_card_rank, args=(2, str(tmp_path / "store"),
+                                    str(tmp_path)), nprocs=2)
+    res = []
+    for r in range(2):
+        with open(tmp_path / f"rank{r}.pkl", "rb") as f:
+            res.append(pickle.load(f))
+    for r, x in enumerate(res):
+        assert "error" not in x, x.get("error")
+        assert x["moe"] < 1e-4, (r, x["moe"])
+        assert x["seq"] and x["lse_launches"] == 2
+        assert x["decode"] < 2e-2, (r, x["decode"])
+        for arch in DIST_CARD_ARCHS:
+            got = x[("train", arch)]
+            for a, c in zip(got["cuda"], got["cpu"]):
+                assert abs(a - c) <= 2e-4 * abs(c), (r, arch, got)
+            assert x[("decode", arch)] < 1e-4, (r, arch, x[("decode", arch)])
+    for arch in DIST_CARD_ARCHS:
+        assert res[0][("train", arch)] == res[1][("train", arch)]

@@ -506,6 +506,67 @@ def test_pool_deadline_auto_flush_is_latency_bounded():
 
 
 @pytest.mark.chaos
+def test_deadline_dispatches_at_once_until_the_batch_time_is_known():
+    """Until the model has served ``MIN_EST_SAMPLES`` pool batches the
+    pool knows no batch time to subtract from a deadline, and a deadline
+    submission dispatches at once: with a 1 s deadline its queue wait is
+    the wake-up (the old reservation of ``DEFAULT_EST_MS`` held it ~995
+    ms); once the batch time is known, the auto-flush holds the batch
+    until the deadline minus its p99 again, and no later: its queue wait
+    stays under the 1 s deadline.  The linger (5 s) never decides."""
+    sess = _session(workers=1, linger_ms=5000.0)
+    x = _feed(sess)
+    sess.run("m0", x)                       # lower + arena before timing
+    pool = sess._pool
+    t = sess.submit("m0", x, deadline_ms=1000.0)
+    t.result(timeout=10)
+    wait = sess.registry.snapshot()["repro_queue_wait_ms"]["model=m0"]
+    assert wait["count"] == 1 and wait["max_ms"] < 500.0, wait
+    while pool._batch_ms.labels(model="m0").count < pool.MIN_EST_SAMPLES:
+        sess.submit("m0", x, deadline_ms=1000.0).result(timeout=10)
+    est = pool._dispatch_est_ms("m0")
+    t0 = time.monotonic()
+    sess.submit("m0", x, deadline_ms=1000.0).result(timeout=10)
+    waited = time.monotonic() - t0
+    last = sess.registry.snapshot()["repro_queue_wait_ms"]["model=m0"]
+    assert est < 500.0 and waited > 0.4, (est, waited)
+    assert last["max_ms"] < 1000.0, (est, waited, last)   # the deadline
+    sess.close()
+
+
+@pytest.mark.chaos
+def test_slow_batch_that_progresses_is_not_recycled():
+    """A batch several heartbeat timeouts long whose plan steps keep
+    moving (each step of a slow stub model sleeps) beats from its
+    progress: no worker is recycled and the tickets are served.  A
+    stall before the batch, with no progress, still recycles
+    (``test_pool_recycles_stalled_worker_zero_ticket_loss``)."""
+    sess = _session(workers=2, heartbeat_timeout_s=0.3, linger_ms=1.0)
+    model = sess["m0"]
+    steps = model.lower()[0]
+
+    def slow(run):
+        def step(bufs, n):
+            time.sleep(1.2 / len(steps))
+            return run(bufs, n)
+        return step
+
+    for st in steps:
+        st.run = slow(st.run)
+    x = _feed(sess)
+    t0 = time.monotonic()
+    ts = [sess.submit("m0", _feed(sess, seed=i)) for i in range(6)]
+    outs = [t.result(timeout=30) for t in ts]
+    assert time.monotonic() - t0 > 1.2       # slower than 4 timeouts
+    assert all(o is not None for o in outs)
+    st = sess.stats()["pool"]
+    assert st["recycled_workers"] == 0, sess._pool.recycle_log
+    assert st["redispatched_batches"] == 0
+    _check_output(sess, "m0", sess.run("m0", x), x)
+    sess.close()
+
+
+@pytest.mark.chaos
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_every_ticket_terminates_under_random_faults(seed):
     rng = np.random.default_rng(seed)

@@ -116,6 +116,8 @@ def _run_both(arch, opts_kw, steps=3, seq_len=32, batch=4):
     ("granite-moe-1b-a400m", {}),
     ("granite-moe-1b-a400m", {"n_micro": 2, "compress_grads": True}),
     ("whisper-tiny", {}),
+    # deepseek-v3: MLA, the MoE stack and the multi-token-prediction loss
+    ("deepseek-v3-671b", {}),
 ])
 def test_train_step_matches_reference(arch, opts_kw):
     _hold_against_reference(arch, opts_kw)
@@ -262,14 +264,25 @@ def _hold_against_reference(arch, opts_kw, loose_moments=()):
 
 
 def test_train_step_raises_for_families_left_to_the_second_half():
-    """deepseek-v3's multi-token-prediction loss is left to item 11c: a
-    config with ``mtp`` raises (its MoE family trains without it)."""
+    """No family is left: deepseek-v3 with its multi-token-prediction
+    block trains (item 11c; the state holds the block, carried across
+    both ways), and only a family the port does not know raises."""
+    from dataclasses import replace
     cfg = get_arch("deepseek-v3-671b").reduced()
     assert cfg.mtp
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        ttrain.make_train_step(cfg)
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        ttrain.init_train_state(cfg, 0, "cpu")
+    ttrain.make_train_step(cfg)
+    state = ttrain.init_train_state(cfg, 0, "cpu")
+    assert state.params.mtp is not None
+    host = train_state_to_numpy(cfg, state)
+    assert set(host.params["mtp"]) == {"proj", "layer", "norm"}
+    back = train_state_from_numpy(cfg, host, "cpu")
+    for a, b in zip(state.params.parameters(), back.params.parameters()):
+        assert torch.equal(a, b)
+    odd = replace(cfg, family="diffusion")
+    with pytest.raises(NotImplementedError, match="diffusion"):
+        ttrain.make_train_step(odd)
+    with pytest.raises(NotImplementedError, match="diffusion"):
+        ttrain.init_train_state(odd, 0, "cpu")
 
 
 def test_whisper_encoder_gets_the_reference_gradients():
@@ -407,7 +420,10 @@ def test_train_loop_loss_decreases():
 
 
 def test_train_loop_refuses_a_mesh_and_needs_a_device(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 12"):
+    """A mesh of more than one rank needs a process group of its size
+    (``tests/test_torch_dist.py`` trains on one); without a GPU and
+    without an explicit device the loop raises."""
+    with pytest.raises(RuntimeError, match="process group of 2 ranks"):
         train_loop("minitron-4b", steps=1, n_data=2, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

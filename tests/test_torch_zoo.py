@@ -170,8 +170,9 @@ def test_generate_matches_jax_greedy(pair):
 
 
 def test_params_from_numpy_carries_every_leaf(pair):
-    """Each parameter equals its leaf of the JAX tree; the tree's only
-    leaves no parameter takes are deepseek-v3's `mtp` block."""
+    """Each parameter equals its leaf of the JAX tree, and every leaf is
+    taken: deepseek-v3's `mtp` block too, which builds the model's MTP
+    block."""
     cfg_j, cfg_t, params, model = pair
     tree = jax.tree_util.tree_map(np.asarray, params)
     n_params = 0
@@ -179,9 +180,14 @@ def test_params_from_numpy_carries_every_leaf(pair):
         n_params += 1
         assert torch.isfinite(p).all(), name
     stacked = sum(int(np.prod(a.shape[:_lead(path)]))
-                  for path, a in _leaf_paths(tree) if path[0] != "mtp")
+                  for path, a in _leaf_paths(tree))
     assert n_params == stacked
-    assert ("mtp" in tree) == bool(cfg_t.mtp)
+    assert ("mtp" in tree) == bool(cfg_t.mtp) == (model.mtp is not None)
+    if cfg_t.mtp:
+        np.testing.assert_array_equal(model.mtp.proj.numpy(),
+                                      tree["mtp"]["proj"])
+        np.testing.assert_array_equal(model.mtp.layer.attn.w_uq.numpy(),
+                                      tree["mtp"]["layer"]["attn"]["w_uq"])
     if cfg_t.local_global_ratio:
         g = model.groups[0]
         np.testing.assert_array_equal(
