@@ -198,7 +198,26 @@ each of which ends the run with a nonzero exit and no result on failure:
     its log-sum-exp at each step.  DTensor's own collectives
     (``full_tensor``, ``redistribute``) on CUDA tensors over gloo crash a
     rank on this machine, so the main path runs c10d collectives only
-    and no DTensor reaches the card.
+    and no DTensor reaches the card.  Also reduced deepseek-v3 with FSDP
+    (``fsdp=True``: parameters split over `data` too) on a (data 2,
+    model 1) mesh, card vs CPU as above, each rank on its rows.
+
+21. the dry run against the card: (a) ``python -m
+    repro_torch.launch.dryrun --arch A [--multi-pod]`` for every arch at
+    16 x 16 and at 2 x 16 x 16, one process each on the host's CPU, as
+    many at a time as the script has cores, started after phase 20 so
+    that no timed phase shares the host with them (meta tensors, a fake
+    process group of 256 / 512 ranks; no card): every arch x cell must
+    be traced, and each table is printed
+    (``analysis.roofline.format_table``) with each cell's TFLOP, HBM,
+    wire and peak bytes a rank, bound and ``trace_s``; (b) phase 18's
+    training step (minitron-4b, 8 x 128) and one decode step of phase
+    3's path (batch 4, cache 116) dry-run on a 1 x 1 mesh and held to
+    the card: the calls of each kernel equal the launch counters (K2 64
+    / K2b 32 a step, K3 32), the state's bytes equal the card's after
+    ``init_train_state``, the roofline bound (H100 constants) is at or
+    below the step's measured busy ms; the predicted peak is printed
+    beside ``max_memory_allocated``.
 
 For the two SSM paths the prefill-vs-replay agreement is held in
 float32 at full width (TF32 off) and reported in bf16, beside how far
@@ -259,12 +278,15 @@ T0 = time.monotonic()
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_S = 3.35e12       # H100 SXM device memory
-PEAK_FLOPS = {"bfloat16": 989e12,   # dense tensor-core rate
-              "int8": 1979e12,      # dense tensor-core rate (K1's bound)
-              "tf32": 495e12,       # dense tensor-core rate (3xTF32 issues
-                                    # three products for each one)
-              "float32": 67e12}     # outside the tensor cores
+# the H100's rates and each kernel's work: the package's one set of
+# formulas, which the dry run's cost counter also uses (a checkout
+# without the package fails in main)
+if (SRC / "repro_torch").is_dir():
+    sys.path.insert(0, str(SRC))
+    from repro_torch.analysis.roofline import HBM_BYTES_S, bound  # noqa
+    from repro_torch.kernels import work  # noqa: E402
+    from repro_torch.kernels.work import (  # noqa: E402
+        nbytes, ssd_bwd_flops, ssd_flops)
 
 SEED = 0
 TOL = {"float32": (2e-3, 1e-3), "bfloat16": (2e-2, 2e-2)}
@@ -672,20 +694,6 @@ def timings(torch, kernel, plain, library=None) -> dict:
                 else call_ms(torch, library))
 
 
-def bound(nbytes: int, flops, dtype: Optional[str] = None):
-    """The larger of the time to move `nbytes` and to do `flops`
-    operations at `dtype`'s rate; without `dtype`, `flops` is {dtype:
-    operations} for work done at several rates."""
-    work = {dtype: flops} if dtype else flops
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = sum(f / PEAK_FLOPS[d] for d, f in work.items()) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
-
-
 # The kernels whose every instance must carry tensor-core instructions of
 # the given kinds: (library, mangled-name part, mnemonics, what it is).
 TENSOR_CORE_KERNELS = (
@@ -769,21 +777,6 @@ def ssd_inputs(torch, randn, B, S, H, P, N, dtype, pad=0):
     for t in (x, dt, Bm, Cm):
         t[:, S - pad:] = 0
     return x, dt, A, Bm, Cm
-
-
-def ssd_flops(B, S, H, P, N, L) -> int:
-    """Operations of one ssd_chunk call: per (b, chunk, head) the products
-    C.B over s <= t, scores @ x over s <= t, and (w x)^T @ B."""
-    tri = L * (L + 1) // 2
-    return B * (S // L) * H * (tri * 2 * N + tri * 2 * P + 2 * L * P * N)
-
-
-def causal_pairs(S: int, window: Optional[int]) -> int:
-    """(query, key) pairs a causal attention over S positions scores, each
-    query seeing at most `window` keys (itself included)."""
-    if window is None or window >= S:
-        return S * (S + 1) // 2
-    return window * (window + 1) // 2 + (S - window) * window
 
 
 PROBE_EVERY = 256
@@ -927,10 +920,8 @@ def k2_row(torch, F, ops, randn, a: AttnShape) -> dict:
         def library():
             return F.scaled_dot_product_attention(q, k, v, attn_mask=band,
                                                   enable_gqa=True)
-    pairs = a.B * a.H * (causal_pairs(a.S, a.window) if a.causal
-                         else a.S * Sk)
-    b_ms, b_by = bound(nbytes(q, k, v, got), 2 * pairs * (a.D + a.Dv),
-                       dname)
+    b_ms, b_by = bound(nbytes(q, k, v, got), work.flash_attention_flops(
+        a.B, a.H, a.S, Sk, a.D, a.Dv, a.causal, a.window), dname)
     win = "" if a.window is None else f", window {a.window}"
     return dict(
         name="flash_attention", path=a.tag, route="cuda",
@@ -1126,10 +1117,10 @@ def k2b_row(torch, F, ops, randn, a: AttnShape) -> dict:
     both_call = call_ms(torch, lib_fwd_bwd)
     t.update(library_ms=both_ms - fwd_ms,
              library_call_ms=both_call - fwd_call)
-    pairs = a.B * a.H * (causal_pairs(a.S, a.window) if a.causal
-                         else a.S * Sk)
     b_ms, b_by = bound(nbytes(q, k, v, o, lse, do, *got),
-                       int(2.5 * 2 * pairs * (a.D + a.Dv)), name)
+                       work.flash_attention_bwd_flops(
+                           a.B, a.H, a.S, Sk, a.D, a.Dv, a.causal,
+                           a.window), name)
     win = "" if a.window is None else f", window {a.window}"
     return dict(
         name="flash_attention_bwd", path=a.tag, route="cuda",
@@ -1232,7 +1223,8 @@ def k3_row(torch, F, ops, randn, a: AttnShape) -> dict:
           f"last valid key and the one after): max|err| {e:.3g}")
     outs = got if a.lse else (got,)
     b_ms, b_by = bound(nbytes(q, k, v, kv_len, *outs),
-                       2 * a.B * a.H * a.S * (a.D + a.Dv), "bfloat16")
+                       work.flash_decode_flops(a.B, a.H, a.S, a.D, a.Dv),
+                       "bfloat16")
     return dict(
         name="flash_decode", path=a.tag, route="cuda",
         source="src/repro_torch/csrc/flash_decode.cu",
@@ -1266,24 +1258,6 @@ def k4_row(torch, randn, tag, B, S, H, P, N, L, pad, expect) -> dict:
         expect=expect, max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
         **timings(torch, lambda: ssd_scan.ssd_chunk(*args, L),
                   lambda: ref.ssd_chunk_ref(*args, L)))
-
-
-def ssd_bwd_flops(B, S, H, P, N, L) -> dict:
-    """Operations the function of K4b needs with bf16 x, Bm and Cm, by the
-    rate the card has for their operands: per (b, chunk), C B^T over s <=
-    t (both bf16) and the products of dCB summed over the heads with B and
-    C (dC and dB's second term); per head, dG = dy x^T and G^T dy over
-    s <= t, Q = B dcontrib^T and x^T dcontrib.  Every product but C B^T
-    has a float32 operand and counts as TF32 work at float32 accuracy:
-    three TF32 products where both operands are float32 (G^T dy), two
-    where the other operand is bf16 and so exact in TF32 (dC, dB's second
-    term, dG, Q, x^T dcontrib)."""
-    tri = L * (L + 1) // 2
-    nbc = B * (S // L)
-    return {"bfloat16": nbc * tri * 2 * N,
-            "tf32": nbc * (2 * 2 * tri * 2 * N
-                           + H * (2 * 2 * tri * P + 3 * 2 * tri * P
-                                  + 2 * 2 * 2 * L * P * N))}
 
 
 SSD_BWD_GRADS = ("dx", "ddt", "dA", "dBm", "dCm")
@@ -1646,7 +1620,7 @@ def k1_plan_row(torch, ops, rows, randint, gen, shp: K1Shape, B: int):
               f"({shp.act})")
     lib_fn, lib = int_mm(torch, x.view(M, shp.K), w)
     b_ms, b_by = bound(nbytes(x, w, bias, sc, out),
-                       2 * M * shp.N * shp.K, "int8")
+                       work.matmul_flops(M, shp.N, shp.K, torch.int8))
     rows[("neutron_matmul", f"{shp.path}: {shp.what}")] = dict(
         name="neutron_matmul", path=shp.path, route="cuda",
         source="src/repro_torch/csrc/neutron_matmul.cu",
@@ -1691,11 +1665,10 @@ def k1_f32_row(torch, ops, rows, randn, shp: K1Shape, B: int):
              f"tiled 3xTF32, tile N {fp.tile_n}, {fp.splits} splits")
     x2, w_kn = x.view(M, shp.K), wt.t()
     # the skinny route's products are FMAs; the tiled route's are three
-    # TF32 products on the tensor cores for each one
-    flops = 2 * M * shp.N * shp.K
-    b_ms, b_by = (bound(nbytes(x, wt, bias, out), flops, "float32")
-                  if skinny else
-                  bound(nbytes(x, wt, bias, out), 3 * flops, "tf32"))
+    # TF32 products on the tensor cores for each one (work.matmul_flops
+    # takes the route from the rows, as float_plan does)
+    b_ms, b_by = bound(nbytes(x, wt, bias, out),
+                       work.matmul_flops(M, shp.N, shp.K, torch.float32))
     rows[("neutron_matmul", f"{shp.path}: {shp.what}")] = dict(
         name="neutron_matmul", path=shp.path, route="cuda",
         source="src/repro_torch/csrc/neutron_matmul.cu",
@@ -3991,6 +3964,10 @@ DIST_SSM_STEPS = 2
 # attention and moe_a2a; MLA, the MoE stack and the mtp block; the SSD
 # block
 DIST_REDUCED = (DIST_TRAIN_ARCH, "deepseek-v3-671b", DIST_SSM_ARCH)
+# FSDP (cfg.fsdp: parameters split over `data` too) on a (data 2,
+# model 1) mesh, reduced deepseek-v3 card vs CPU like the configs above
+DIST_FSDP_ARCH = "deepseek-v3-671b"
+DIST_FSDP = f"{DIST_FSDP_ARCH} fsdp"
 DIST_TIMEOUT_S = 420
 #: the ranks' device (the CPU only in a rehearsal of the phase's code)
 DIST_DEVICE = "cuda"
@@ -4118,28 +4095,36 @@ def _dist_train_full(torch, mesh, arch, steps, layers=None) -> dict:
     return out
 
 
-def _dist_card_vs_cpu(torch, mesh, arch) -> dict:
-    """Phase 20.2 on this rank: reduced `arch` in float32 over the same
-    mesh, 3 steps on the card and 3 on the CPU (gloo carries both) from
-    the same state; every rank's metrics and its gathered parameters."""
+def _dist_card_vs_cpu(torch, mesh, arch, **overrides) -> dict:
+    """Phase 20.2 on this rank: reduced `arch` in float32 (with
+    `overrides`) over `mesh`, 3 steps on the card and 3 on the CPU (gloo
+    carries both) from the same state, each data rank on its rows; every
+    rank's metrics, its gathered parameters and how many of its
+    parameters FSDP splits over `data`."""
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import sharding
     from repro_torch.models.convert import (train_state_from_numpy,
                                             train_state_to_host)
     from repro_torch.models.registry import get_arch
     from repro_torch.models.train import init_train_state, make_train_step
-    cfg = get_arch(arch).reduced(dtype="float32")
+    cfg = get_arch(arch).reduced(dtype="float32", **overrides)
     host = train_state_to_host(cfg, init_train_state(cfg, SEED, "cpu"))
     dcfg = DataConfig(cfg.vocab, 32, 4, seed=SEED)
     out = {}
     with use_mesh(mesh):
         step = make_train_step(cfg)
+        nd, rd = sharding.mesh_axis_size("data"), sharding.axis_rank("data")
+        rows = slice(rd * 4 // nd, (rd + 1) * 4 // nd)
         for d in (DIST_DEVICE, "cpu"):
             state = train_state_from_numpy(cfg, host, d)
+            out["data_sharded"] = sum(sharding.is_data_sharded(p)
+                                      for p in state.params.parameters())
             ms = []
             for i in range(3):
-                state, m = no_tf32(torch, lambda: step(
-                    state, train_batch(cfg, dcfg, i)))
+                b = {k: v[rows] for k, v in train_batch(cfg, dcfg,
+                                                        i).items()}
+                state, m = no_tf32(torch, lambda: step(state, b))
                 ms.append({k: float(v) for k, v in m.items()})
             params = train_state_to_host(cfg, state).params
             out["card" if d == DIST_DEVICE else "cpu"] = (ms, params)
@@ -4239,6 +4224,9 @@ def _dist_rank(rank, world, store, out_dir):
                                       DIST_SSM_STEPS, DIST_SSM_LAYERS)
         res["card_vs_cpu"] = {a: _dist_card_vs_cpu(torch, mesh, a)
                               for a in DIST_REDUCED}
+        res["card_vs_cpu"][DIST_FSDP] = _dist_card_vs_cpu(
+            torch, make_mesh(world, 1, device=DIST_DEVICE), DIST_FSDP_ARCH,
+            fsdp=True)
         res["decode"] = _dist_decode(torch, mesh)
     except BaseException:
         res["error"] = traceback.format_exc()
@@ -4331,7 +4319,11 @@ def phase_dist(torch, rows) -> dict:
               f"{t['k4b']}, losses {t['losses']}")
     # 20.2: card against CPU, every rank, each reduced config
     cvc = {}
-    for arch in DIST_REDUCED:
+    for arch in DIST_REDUCED + (DIST_FSDP,):
+        mesh_shape = (n, 1) if arch == DIST_FSDP else (1, n)
+        if arch == DIST_FSDP and not all(
+                x["card_vs_cpu"][arch]["data_sharded"] for x in res):
+            fail(f"phase 20: {arch}: no parameter is split over `data`")
         worst, p_worst, atol = 0.0, 0.0, 0.0
         for r, x in enumerate(res):
             (mc, pc), (mh, ph) = (x["card_vs_cpu"][arch]["card"],
@@ -4351,8 +4343,8 @@ def phase_dist(torch, rows) -> dict:
                     fail(f"phase 20 rank {r}: {arch} card vs CPU "
                          f"parameter {k}")
                 p_worst = max(p_worst, float(dd.max()))
-        print(f"  card vs CPU, reduced {arch} float32 on the (1, {n}) mesh, "
-              f"3 steps: metrics max rel {worst:.3g} (limit 2e-4), "
+        print(f"  card vs CPU, reduced {arch} float32 on the {mesh_shape} "
+              f"mesh, 3 steps: metrics max rel {worst:.3g} (limit 2e-4), "
               f"parameters max|d| {p_worst:.3g} (limit {atol:.3g} + 2e-4 "
               f"rel)")
         cvc[arch] = dict(metrics_max_rel=worst, params_max_abs=p_worst,
@@ -4395,6 +4387,229 @@ def phase_dist(torch, rows) -> dict:
                              k3_lse_launches=x["k3"]["lse"]) for x in dec])
 
 
+# --------------------------------------------------------------------------
+# phase 21: the dry run against the card
+# --------------------------------------------------------------------------
+
+# phase 21 (b)'s cells: phase 18's training step and one decode step of
+# phase 3's path, both minitron-4b at full width on a 1 x 1 mesh
+DRY_TRAIN = "phase18_train"
+DRY_DECODE = "phase3_decode"
+DRY_TIMEOUT_S = 400                 # from the tables' start
+
+
+class DryTables:
+    """Phase 21 (a)'s dry runs of the whole production table, single pod
+    and two pods: one ``repro_torch.launch.dryrun --arch A [--multi-pod]``
+    process for each arch and mesh on the host's CPU (meta tensors, a
+    fake process group of 256 / 512 ranks; no card), at most one for
+    each core the script may use but one at a time, run from a thread
+    so that phase 21 (b) goes on beside them on the core left.  They
+    start after phase 20, the last phase that times anything, so no
+    timing shares the host with them.  Each mesh writes its artifacts
+    to a directory of its own; ``stop`` kills what still runs and
+    removes the directories."""
+
+    def __init__(self):
+        from repro_torch.models.registry import ARCH_IDS, get_arch
+        self.dirs = {mp: tempfile.mkdtemp(prefix="chip-smoke-dryrun-")
+                     for mp in (False, True)}
+        # the deepest archs first, so the longest traces start early
+        archs = sorted(ARCH_IDS, key=lambda a: -get_arch(a).n_layers)
+        self.jobs = [(a, mp) for a in archs for mp in (False, True)]
+        self.results = {}              # (arch, multi_pod) -> (rc, log)
+        self.procs = {}
+        self.lock = threading.Lock()
+        self.stopped = False
+        # a core is left to phase 21 (b), which runs beside them
+        self.width = max(1, len(os.sched_getaffinity(0)) - 1)
+        self.t0 = time.monotonic()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
+                   OMP_NUM_THREADS="1")
+        todo = list(self.jobs)
+        while todo or self.procs:
+            with self.lock:
+                if self.stopped:
+                    return
+                while todo and len(self.procs) < self.width:
+                    arch, mp = todo.pop(0)
+                    log = tempfile.TemporaryFile(mode="w+")
+                    cmd = [sys.executable, "-W", "ignore", "-m",
+                           "repro_torch.launch.dryrun", "--arch", arch,
+                           "--out", self.dirs[mp]] + ["--multi-pod"] * mp
+                    self.procs[(arch, mp)] = (subprocess.Popen(
+                        cmd, stdout=log, stderr=subprocess.STDOUT,
+                        cwd=ROOT, env=env), log)
+                for key, (proc, log) in list(self.procs.items()):
+                    if proc.poll() is not None:
+                        log.seek(0)
+                        self.results[key] = (proc.returncode, log.read())
+                        log.close()
+                        del self.procs[key]
+            time.sleep(0.2)
+
+    def wait(self, timeout: float) -> bool:
+        self.thread.join(timeout)
+        return not self.thread.is_alive()
+
+    def stop(self) -> None:
+        with self.lock:
+            self.stopped = True
+            for proc, log in self.procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+            self.procs.clear()
+        for d in self.dirs.values():
+            shutil.rmtree(d, ignore_errors=True)
+
+
+def _dry_table(torch, tables: DryTables) -> dict:
+    """Phase 21 (a): wait for the dry runs, each of which must end with
+    exit 0 and an artifact for every cell of its arch; print each mesh's
+    roofline table and each cell's numbers."""
+    from repro_torch.analysis.roofline import Roofline, format_table
+    from repro_torch.models.registry import ARCH_IDS, cells, get_arch
+    if not tables.wait(max(1.0, DRY_TIMEOUT_S
+                           - (time.monotonic() - tables.t0))):
+        tables.stop()
+        fail(f"phase 21: the dry runs did not end within {DRY_TIMEOUT_S} s "
+             f"of their start")
+    wall = time.monotonic() - tables.t0
+    for (arch, mp), (rc, text) in sorted(tables.results.items()):
+        if rc != 0:
+            fail(f"phase 21: the dry run of {arch} "
+                 f"({'2x16x16' if mp else '16x16'}) exited {rc}:\n"
+                 f"{text[-3000:]}")
+    want = [(a, c) for a in ARCH_IDS for c in cells(get_arch(a))]
+    out = {}
+    print(f"  {len(tables.jobs)} dry-run processes, at most {tables.width} "
+          f"at a time, ended {wall:.1f} s after their start")
+    for multi_pod in (False, True):
+        mesh = "2x16x16" if multi_pod else "16x16"
+        d = tables.dirs[multi_pod]
+        arts = []
+        for a, c in want:
+            path = os.path.join(d, f"{a}_{c}_{mesh}.json")
+            if not os.path.exists(path):
+                fail(f"phase 21: the {mesh} dry run wrote no artifact for "
+                     f"{a} x {c}")
+            with open(path) as f:
+                arts.append(json.load(f))
+        roofs = [Roofline(**{k: v for k, v in art["roofline"].items()})
+                 for art in arts]
+        print(f"  {mesh} ({len(arts)} cells):")
+        for line in format_table(roofs).splitlines():
+            print(f"    {line}")
+        cells_out = []
+        for art in arts:
+            r = art["roofline"]
+            cells_out.append(dict(
+                arch=art["arch"], shape=art["shape"],
+                tflops=r["flops_per_chip"] / 1e12,
+                hbm_gb=r["bytes_per_chip"] / 1e9,
+                wire_gb=r["wire_bytes_per_chip"] / 1e9,
+                peak_gb=art["per_chip_bytes"] / 1e9,
+                bound_ms=art["bound_s"] * 1e3, bottleneck=r["bottleneck"],
+                roofline_pct=r["peak_fraction"] * 100,
+                trace_s=art["trace_s"], kernels=art["kernel_calls"]))
+            print(f"    {json.dumps(cells_out[-1])}")
+        slow = max(arts, key=lambda x: x["trace_s"])
+        print(f"  {mesh}: slowest trace {slow['arch']} x {slow['shape']} "
+              f"{slow['trace_s']:.1f} s; all "
+              f"{sum(x['trace_s'] for x in arts):.1f} s")
+        out[mesh] = cells_out
+    out["wall_s"] = wall
+    return out
+
+
+def phase_dry(torch, tables: DryTables, train_out: dict) -> dict:
+    """Phase 21: (a) the production tables; (b) the dry run of phase 18's
+    exact training step and of one decode step of phase 3's path, on a
+    1 x 1 mesh, held against what the card measured."""
+    import gc
+
+    from repro_torch.analysis.cost import storage_bytes
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.mesh import single_device_mesh
+    from repro_torch.models import registry
+    from repro_torch.models.train import init_train_state
+    registry.SHAPES[DRY_TRAIN] = registry.ShapeSpec(
+        DRY_TRAIN, TRAIN_SEQ, TRAIN_BATCH, "train")
+    registry.SHAPES[DRY_DECODE] = registry.ShapeSpec(
+        DRY_DECODE, MINITRON.prompt_len + MINITRON.gen, MINITRON.batch,
+        "decode")
+    cfg = registry.get_arch(TRAIN_PATHS[0].arch)
+    mesh = single_device_mesh(device="cpu")
+    tr = trace_cell(cfg, DRY_TRAIN, mesh, "1x1", 1)
+    dec = trace_cell(cfg, DRY_DECODE, mesh, "1x1", 1)
+    full = train_out["full"]
+    # kernel calls against the card's launch counters
+    per_step = full["launches_per_step"]
+    want = {"flash_attention": per_step["K2"],
+            "flash_attention_bwd": per_step["K2b"]}
+    if tr["kernel_calls"] != want:
+        fail(f"phase 21: the dry run's training step calls "
+             f"{tr['kernel_calls']}; the card launched {want} a step")
+    k3 = MINITRON.serve[1] // (MINITRON.prompt_len + MINITRON.gen)
+    if dec["kernel_calls"] != {"flash_decode": k3}:
+        fail(f"phase 21: the dry run's decode step calls "
+             f"{dec['kernel_calls']}; phase 3 launched K3 {k3} a step")
+    # the state's bytes against the card's after init_train_state
+    state = init_train_state(cfg, SEED, "cuda")
+    card_bytes = storage_bytes(state)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    meta_bytes = tr["memory_analysis"]["state_size_in_bytes"]
+    if meta_bytes != card_bytes:
+        fail(f"phase 21: the dry run's parameters and moments hold "
+             f"{meta_bytes} bytes; the card's {card_bytes}")
+    # the roofline's bound against the measured busy time
+    bound_ms = tr["bound_s"] * 1e3
+    busy_ms = full["busy_ms_profiled_step"]
+    if not bound_ms <= busy_ms:
+        fail(f"phase 21: the roofline bound {bound_ms:.3f} ms is above the "
+             f"step's measured busy {busy_ms:.3f} ms: the count is wrong")
+    peak, measured = tr["per_chip_bytes"], full["peak_memory_bytes"]
+    r = tr["roofline"]
+    print(f"  phase 18's step (minitron-4b, {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"1 x 1): kernel calls {tr['kernel_calls']} = the card's "
+          f"launches; parameters and moments {meta_bytes} bytes = the "
+          f"card's; bound {bound_ms:.3f} ms ({r['bottleneck']}: compute "
+          f"{r['t_compute'] * 1e3:.3f}, memory {r['t_memory'] * 1e3:.3f} "
+          f"ms; {r['flops_per_chip'] / 1e12:.3f} TFLOP, "
+          f"{r['bytes_per_chip'] / 1e9:.2f} GB) <= busy {busy_ms:.3f} ms "
+          f"(bound / busy {bound_ms / busy_ms:.3f}); predicted peak "
+          f"{peak / 2**30:.2f} GiB vs max_memory_allocated "
+          f"{measured / 2**30:.2f} GiB (ratio {peak / measured:.3f}); "
+          f"trace {tr['trace_s']:.2f} s")
+    dr = dec["roofline"]
+    print(f"  phase 3's decode step (batch {MINITRON.batch}, cache "
+          f"{MINITRON.prompt_len + MINITRON.gen}): kernel calls "
+          f"{dec['kernel_calls']} = K3 {k3} a step; bound "
+          f"{dec['bound_s'] * 1e3:.3f} ms ({dr['bottleneck']}); trace "
+          f"{dec['trace_s']:.2f} s")
+    out = {"tables": _dry_table(torch, tables)}
+    out["train_step"] = dict(
+        kernel_calls=tr["kernel_calls"], state_bytes=meta_bytes,
+        bound_ms=bound_ms, busy_ms=busy_ms,
+        bound_over_busy=bound_ms / busy_ms,
+        predicted_peak_bytes=peak, measured_peak_bytes=measured,
+        peak_ratio=peak / measured, t_compute_ms=r["t_compute"] * 1e3,
+        t_memory_ms=r["t_memory"] * 1e3, tflop=r["flops_per_chip"] / 1e12,
+        hbm_gb=r["bytes_per_chip"] / 1e9, trace_s=tr["trace_s"])
+    out["decode_step"] = dict(kernel_calls=dec["kernel_calls"],
+                              bound_ms=dec["bound_s"] * 1e3,
+                              trace_s=dec["trace_s"])
+    return out
+
+
 def _flat_tensors(tree, prefix=""):
     out = []
     for k in sorted(tree):
@@ -4416,7 +4631,6 @@ def main() -> None:
     sys.path.insert(0, str(SRC))
     import torch.nn.functional as F
     from repro_torch.kernels import _build, ops
-
     gpu = gpu_line()
     print(f"== phase 1: {gpu}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
@@ -4478,7 +4692,7 @@ def main() -> None:
           f"{TRAIN_STEPS} steps; card vs CPU, restart and loss decrease at "
           f"reduced configs")
     t = time.monotonic()
-    out = phase_train(torch, rows)
+    train_out = out = phase_train(torch, rows)
     print(f"  training: {json.dumps(out)}")
     print(f"  phase 18 wall time {time.monotonic() - t:.1f} s")
     print(f"== phase 19: training on the card: "
@@ -4499,6 +4713,18 @@ def main() -> None:
     out = phase_dist(torch, rows)
     print(f"  distribution: {json.dumps(out)}")
     print(f"  phase 20 wall time {time.monotonic() - t:.1f} s")
+    print("== phase 21: the dry run against the card: every arch x cell "
+          "traced on the meta device at 16 x 16 and 2 x 16 x 16 (on the "
+          "host's CPU); phase 18's step and one of phase 3's decode steps "
+          "dry-run on a 1 x 1 mesh")
+    t = time.monotonic()
+    tables = DryTables()                # phase 21 (a), on the host's CPU
+    try:
+        out = phase_dry(torch, tables, train_out)
+    finally:
+        tables.stop()
+    print(f"  dry run: {json.dumps(out)}")
+    print(f"  phase 21 wall time {time.monotonic() - t:.1f} s")
 
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",

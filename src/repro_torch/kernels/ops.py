@@ -10,7 +10,10 @@ implementations with the same semantics:
   * the plain PyTorch version (``ref.py``), taken for CPU tensors.
 
 ``impl="auto"`` dispatches by device: a CUDA tensor gets the kernel or an
-exception (there is no fallback), a CPU tensor gets the plain version.
+exception (there is no fallback), a CPU tensor gets the plain version,
+and a meta tensor the kernel's meta version (``meta.py``: outputs of the
+kernel's shapes, its work reported to the dry run's cost counter; the
+plain version never runs on meta).
 ``impl="ref"`` returns the plain version on either device; only the tests
 and ``chip_smoke.py`` ask for it, to get the value a kernel is held
 against.
@@ -49,6 +52,7 @@ from repro_torch import is_dtensor
 from . import flash_attention as _fa
 from . import flash_attention_bwd as _fab
 from . import flash_decode as _fd
+from . import meta as _meta
 from . import neutron_matmul as _nm
 from . import ref as _ref
 from . import ssd_scan as _ssd
@@ -61,6 +65,12 @@ def _plain(impl: str, t: torch.Tensor) -> bool:
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}; got {impl!r}")
     return impl == "ref" or t.device.type == "cpu"
+
+
+def _kernel(t: torch.Tensor, wrapper):
+    """The kernel's wrapper module, or its meta version for a meta
+    tensor."""
+    return _meta if t.device.type == "meta" else wrapper
 
 
 def _no_backward(impl: str, kernel: str, *tensors) -> None:
@@ -111,9 +121,9 @@ def neutron_matmul(x, w, bias=None, scale=None, act: str = "none",
         return _ref.neutron_matmul_ref(x, w, bias=bias, scale=scale,
                                        act=act, out_dtype=out_dtype,
                                        out_scale=out_scale)
-    return _nm.neutron_matmul(x, w, bias=bias, scale=scale, act=act,
-                              out_dtype=out_dtype, out_scale=out_scale,
-                              **block_kw)
+    return _kernel(x, _nm).neutron_matmul(
+        x, w, bias=bias, scale=scale, act=act, out_dtype=out_dtype,
+        out_scale=out_scale, **block_kw)
 
 
 def neutron_matmul_plan(x, w, bias, sc, act: str, out_scale: float,
@@ -127,8 +137,9 @@ def neutron_matmul_plan(x, w, bias, sc, act: str, out_scale: float,
     if plain:
         return out.copy_(_ref.neutron_matmul_plan_ref(
             x, w, bias, sc, act, out_scale, out_zp, qmin, qmax))
-    return _nm.neutron_matmul_plan(x, w, bias, sc, act, out_scale, out_zp,
-                                   qmin, qmax, out)
+    return _kernel(x, _nm).neutron_matmul_plan(x, w, bias, sc, act,
+                                               out_scale, out_zp, qmin,
+                                               qmax, out)
 
 
 def neutron_matmul_nk(x, wt, bias, act: str, out, impl: str = "auto"):
@@ -140,7 +151,7 @@ def neutron_matmul_nk(x, wt, bias, act: str, out, impl: str = "auto"):
     _no_backward(impl, "neutron_matmul_nk (K1)", x, wt, bias, out)
     if plain:
         return out.copy_(_ref.neutron_matmul_nk_ref(x, wt, bias, act))
-    return _nm.neutron_matmul_nk(x, wt, bias, act, out)
+    return _kernel(x, _nm).neutron_matmul_nk(x, wt, bias, act, out)
 
 
 # --------------------------------------------------------------------------
@@ -174,9 +185,9 @@ def flash_attention(q, k, v, causal: bool = True,
                                         window=window, sm_scale=sm_scale,
                                         block_k=block_kw.get("block_k", 512),
                                         q_offset=q_offset)
-    return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                               sm_scale=sm_scale, q_offset=q_offset,
-                               **block_kw)
+    return _kernel(q, _fa).flash_attention(q, k, v, causal=causal,
+                                           window=window, sm_scale=sm_scale,
+                                           q_offset=q_offset, **block_kw)
 
 
 # --------------------------------------------------------------------------
@@ -195,8 +206,9 @@ def flash_decode(q, k, v, kv_len=None, sm_scale: Optional[float] = None,
         return _ref.flash_decode_ref(q, k, v, kv_len=kv_len,
                                      sm_scale=sm_scale,
                                      return_lse=return_lse)
-    return _fd.flash_decode(q, k, v, kv_len=kv_len, sm_scale=sm_scale,
-                            return_lse=return_lse, **block_kw)
+    return _kernel(q, _fd).flash_decode(q, k, v, kv_len=kv_len,
+                                        sm_scale=sm_scale,
+                                        return_lse=return_lse, **block_kw)
 
 
 # --------------------------------------------------------------------------
@@ -214,7 +226,7 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 64, init_state=None,
     version by autograd."""
     _local_only("ssd_scan (K4)", x, dt, A, Bm, Cm, init_state)
     plain = _plain(impl, x)
-    chunk_fn = _ref.ssd_chunk_ref if plain else _ssd.ssd_chunk
+    chunk_fn = _ref.ssd_chunk_ref if plain else _kernel(x, _ssd).ssd_chunk
     if impl == "auto" and torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, dt, A, Bm, Cm, init_state)):
@@ -253,9 +265,9 @@ class FlashAttentionFn(torch.autograd.Function):
                 q, k, v, causal=causal, window=window, sm_scale=sm_scale,
                 block_k=block_k)
         else:
-            o, lse = _fa.flash_attention(q, k, v, causal=causal,
-                                         window=window, sm_scale=sm_scale,
-                                         return_lse=True)
+            o, lse = _kernel(q, _fa).flash_attention(
+                q, k, v, causal=causal, window=window, sm_scale=sm_scale,
+                return_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (causal, window, sm_scale, block_k, plain)
         return o
@@ -269,7 +281,7 @@ class FlashAttentionFn(torch.autograd.Function):
                 q, k, v, o, lse, do, causal=causal, window=window,
                 sm_scale=sm_scale, block_k=block_k)
         else:
-            dq, dk, dv = _fab.flash_attention_bwd(
+            dq, dk, dv = _kernel(q, _fab).flash_attention_bwd(
                 q, k, v, o, lse, do, causal=causal, window=window,
                 sm_scale=sm_scale)
         return dq, dk, dv, None, None, None, None, None
@@ -292,7 +304,7 @@ class SSDChunkFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, chunk, plain):
-        fn = _ref.ssd_chunk_ref if plain else _ssd.ssd_chunk
+        fn = _ref.ssd_chunk_ref if plain else _kernel(x, _ssd).ssd_chunk
         y, contrib, total, seg = fn(x, dt, A, Bm, Cm, chunk)
         ctx.save_for_backward(x, dt, A, Bm, Cm, seg)
         ctx.args = (chunk, plain)
@@ -302,7 +314,8 @@ class SSDChunkFn(torch.autograd.Function):
     def backward(ctx, dy, dcontrib, dtotal, dseg):
         x, dt, A, Bm, Cm, seg = ctx.saved_tensors
         chunk, plain = ctx.args
-        fn = _ref.ssd_chunk_bwd_ref if plain else _ssdb.ssd_chunk_bwd
+        fn = (_ref.ssd_chunk_bwd_ref if plain
+              else _kernel(x, _ssdb).ssd_chunk_bwd)
         grads = fn(x, dt, A, Bm, Cm, seg, dy, dcontrib, dtotal, dseg, chunk)
         return (*(g.to(t.dtype) for g, t in zip(grads, (x, dt, A, Bm, Cm))),
                 None, None)

@@ -23,13 +23,20 @@ the kv heads divide the axis the cache holds this rank's kv heads and K3
 runs on them and on the query heads that read them
 (``_decode_local_heads``, also for gemma3's rings); otherwise the cache
 holds this rank's range of positions, and decode runs K3 on it with its
-log-sum-exp and merges the ranks' partials (``_decode_seq_sharded``,
-chosen by ``_use_seq_sharded_decode``).  MLA runs on this rank's H / n
-heads: its latent and its cache are replicated, and w_uq / w_uk / w_uv
-give this rank's heads only.
+log-sum-exp and merges the ranks' partials (``_decode_seq_sharded``
+over `model`, chosen by ``_use_seq_sharded_decode``).  MLA runs on this
+rank's H / n heads: its latent and its cache are replicated, and w_uq /
+w_uk / w_uv give this rank's heads only.
+
+A cache whose positions are split over `data` (``lm.init_cache`` with
+a long-context batch, ``registry.seq_over_data``, on a data axis above
+1) is a ``SeqOverData``, whose type copies keep: it holds this rank's
+range of positions and every row, and each decode mode runs
+``_decode_seq_sharded`` over `data` on it, as over `model`.
 """
 from __future__ import annotations
 
+import copy
 import math
 from typing import Optional, Tuple
 
@@ -149,10 +156,10 @@ def attention(p: Attention, x: torch.Tensor, cfg: ArchConfig,
     # ---- decode: S == 1 (cache stays at the nominal Hkv heads) ----
     ck, cv = kv_cache                              # (B, Hkv, Smax, hd)
     qd = q[:, 0, :H]                               # drop padded heads
-    if _use_seq_sharded_decode(cfg, B * sharding.mesh_axis_size("data"),
-                               ck.shape[2] * sharding.mesh_axis_size(
-                                   "model")):
-        o = _decode_seq_sharded(qd, k[:, 0], v[:, 0], ck, cv, cache_pos)
+    axis = _seq_axis(cfg, ck, B)
+    if axis is not None:
+        o = _decode_seq_sharded(qd, k[:, 0], v[:, 0], ck, cv, cache_pos,
+                                cache_pos + 1, axis)
         return _out_proj(p, o, cfg), (ck, cv)
     # The JAX package rebuilds the cache with dynamic_update_slice; here
     # the new entry is written into the cache in place.
@@ -216,10 +223,14 @@ def _decode_local_heads(p: Attention, x: torch.Tensor, cfg: ArchConfig,
     v = _split_heads(xs @ sharding.local(p.wv, 1), Hkv // n)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    ck[:, :, slot] = k[:, 0].to(ck.dtype)
-    cv[:, :, slot] = v[:, 0].to(cv.dtype)
-    lens = torch.full((B,), kv_len, dtype=torch.int32, device=x.device)
-    o = ops.flash_decode(q[:, 0], ck, cv, kv_len=lens)      # (B, Hl, hd)
+    if seq_over_data(ck):
+        o = _decode_seq_sharded(q[:, 0], k[:, 0], v[:, 0], ck, cv, slot,
+                                kv_len, "data")
+    else:
+        ck[:, :, slot] = k[:, 0].to(ck.dtype)
+        cv[:, :, slot] = v[:, 0].to(cv.dtype)
+        lens = torch.full((B,), kv_len, dtype=torch.int32, device=x.device)
+        o = ops.flash_decode(q[:, 0], ck, cv, kv_len=lens)  # (B, Hl, hd)
     if Hp == H:
         o = o.reshape(B, Hl * hd) @ sharding.local(p.wo, 0)
         return sharding.reduce_from(o)[:, None, :]
@@ -279,11 +290,13 @@ def _attention_tp(p: Attention, x: torch.Tensor, cfg: ArchConfig,
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
     if not kv_local:
-        idx = _kv_index(H, Hkv, Hp, "cpu")[r * Hl:(r + 1) * Hl]
-        uniq, counts = torch.unique_consecutive(idx, return_counts=True)
-        if bool((counts == counts[0]).all()):
-            idx = uniq          # whole groups: K2 reads them grouped
-        idx = idx.to(x.device)
+        group = max(H // max(Hkv, 1), 1)      # as _kv_index, on the host
+        heads = [min(h // group, Hkv - 1)
+                 for h in range(r * Hl, (r + 1) * Hl)]
+        uniq = sorted(set(heads))
+        if all(heads.count(u) == heads.count(uniq[0]) for u in uniq):
+            heads = uniq        # whole groups: K2 reads them grouped
+        idx = torch.tensor(heads, dtype=torch.long, device=x.device)
         k = sharding.copy_to(k).index_select(2, idx)
         v = sharding.copy_to(v).index_select(2, idx)
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -316,31 +329,115 @@ def _use_seq_sharded_decode(cfg: ArchConfig, B: int, S: int) -> bool:
                 and S % nm == 0 and B % max(nd, 1) == 0 and B >= nd)
 
 
+class SeqOverData(torch.Tensor):
+    """A kv or latent decode cache whose positions split over `data`
+    (``lm.init_cache``'s long-context layout): every row on every rank,
+    this rank's range of positions.  The type is the layout: indexing,
+    views, stacks, copies and moves (``clone``, ``to``, ``cpu``),
+    ``copy.deepcopy`` and ``torch.save`` keep it, so a copied cache
+    decodes as the one it copies; an op that computes from the cache
+    returns a plain tensor."""
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        with torch._C.DisableTorchFunctionSubclass():
+            out = func(*args, **(kwargs or {}))
+        return _as_layout(out, cls) if func in _KEEP_LAYOUT else out
+
+    def __deepcopy__(self, memo):
+        return copy.deepcopy(self.as_subclass(torch.Tensor),
+                             memo).as_subclass(SeqOverData)
+
+
+#: the functions whose tensors hold the cache's own positions
+_KEEP_LAYOUT = frozenset((
+    torch.Tensor.__getitem__, torch.Tensor.select, torch.Tensor.unbind,
+    torch.unbind, torch.Tensor.view, torch.Tensor.reshape,
+    torch.Tensor.contiguous, torch.Tensor.detach, torch.Tensor.clone,
+    torch.Tensor.float, torch.Tensor.bfloat16, torch.Tensor.half,
+    torch.clone, torch.Tensor.to, torch.Tensor.cpu, torch.Tensor.cuda,
+    torch.stack, torch.zeros_like, torch.empty_like))
+
+
+def _as_layout(out, cls):
+    if isinstance(out, torch.Tensor):
+        return out if isinstance(out, cls) else out.as_subclass(cls)
+    if isinstance(out, (tuple, list)):
+        return type(out)(_as_layout(o, cls) for o in out)
+    return out
+
+
+def seq_over_data(c: torch.Tensor) -> bool:
+    """Whether decode cache `c` (a layer's, or a stack) holds this rank's
+    range of positions over `data`: a ``SeqOverData``, which decodes
+    only under a data axis."""
+    if not isinstance(c, SeqOverData):
+        return False
+    if sharding.mesh_axis_size("data") == 1:
+        raise ValueError("a cache whose positions split over `data` "
+                         "decodes under a mesh with that data axis")
+    return True
+
+
+def _seq_axis(cfg: ArchConfig, c: torch.Tensor, B: int) -> Optional[str]:
+    """The mesh axis whose ranks hold ranges of the positions of decode
+    cache `c` (B rows here), or None: `data` for a ``SeqOverData``,
+    `model` where ``_use_seq_sharded_decode`` says so."""
+    if seq_over_data(c):
+        return "data"
+    if _use_seq_sharded_decode(cfg, B * sharding.mesh_axis_size("data"),
+                               c.shape[-2] * sharding.mesh_axis_size(
+                                   "model")):
+        return "model"
+    return None
+
+
+def _seq_part(c: torch.Tensor, axis: str, slot: int, kv_len: int):
+    """For a cache whose positions (dim -2) split over `axis`: (this
+    rank's index of global position `slot`, or None where another rank
+    holds it; how many of the first `kv_len` global positions this rank
+    holds)."""
+    S_loc, n = c.shape[-2], sharding.mesh_axis_size(axis)
+    if not 0 <= slot < S_loc * n:
+        raise IndexError(f"position {slot} is past a cache of {n} x "
+                         f"{S_loc} positions over `{axis}`")
+    start = sharding.axis_rank(axis) * S_loc
+    own = slot - start if start <= slot < start + S_loc else None
+    return own, min(max(kv_len - start, 0), S_loc)
+
+
+def _merge_partials(o: torch.Tensor, lse: torch.Tensor, axis: str
+                    ) -> torch.Tensor:
+    """K3's partial (o, lse) of every rank of `axis` merged exactly
+    (``ops.combine_decode_shards``): the same on every rank."""
+    group = sharding.axis_group(axis)
+    return ops.combine_decode_shards(
+        sharding.all_gather_dim(o[None], 0, group),
+        sharding.all_gather_dim(lse[None], 0, group))
+
+
 def _decode_seq_sharded(q3: torch.Tensor, k_new: torch.Tensor,
                         v_new: torch.Tensor, ck: torch.Tensor,
-                        cv: torch.Tensor, pos: int) -> torch.Tensor:
-    """Decode against a KV cache whose SEQUENCE axis is split over
-    `model`: this rank holds positions [i S_loc, (i + 1) S_loc).  It
-    writes the new key and value only when it owns `pos`, runs K3 with
-    its log-sum-exp over its valid positions (none: its lse is -1e30 and
-    it weighs nothing), all-gathers the outputs and lses over the axis
-    and merges them exactly (``ops.combine_decode_shards``).
+                        cv: torch.Tensor, slot: int, kv_len: int,
+                        axis: str) -> torch.Tensor:
+    """Decode against a KV cache whose positions split over mesh axis
+    `axis` (``_seq_axis``): this rank holds positions [i S_loc,
+    (i + 1) S_loc).  It writes the new key and value only when it owns
+    `slot`, runs K3 with its log-sum-exp over its part of the first
+    `kv_len` positions (none: its lse is -1e30 and it weighs nothing),
+    all-gathers the outputs and lses over the axis and merges them
+    exactly (``_merge_partials``).
 
     q3 (B, H, hd); k_new/v_new (B, Hkv, hd); ck/cv (B, Hkv, S_loc, hd),
     written in place.  Returns (B, H, hd), the same on every rank."""
-    i = sharding.axis_rank("model")
-    S_loc = ck.shape[2]
-    start = i * S_loc
-    if start <= pos < start + S_loc:
-        ck[:, :, pos - start] = k_new.to(ck.dtype)
-        cv[:, :, pos - start] = v_new.to(cv.dtype)
-    kv_len = torch.full((q3.shape[0],), min(max(pos + 1 - start, 0), S_loc),
-                        dtype=torch.int32, device=q3.device)
-    o, lse = ops.flash_decode(q3, ck, cv, kv_len=kv_len, return_lse=True)
-    group = sharding.axis_group("model")
-    outs = sharding.all_gather_dim(o[None], 0, group)
-    lses = sharding.all_gather_dim(lse[None], 0, group)
-    return ops.combine_decode_shards(outs, lses)
+    own, n = _seq_part(ck, axis, slot, kv_len)
+    if own is not None:
+        ck[:, :, own] = k_new.to(ck.dtype)
+        cv[:, :, own] = v_new.to(cv.dtype)
+    lens = torch.full((q3.shape[0],), n, dtype=torch.int32,
+                      device=q3.device)
+    o, lse = ops.flash_decode(q3, ck, cv, kv_len=lens, return_lse=True)
+    return _merge_partials(o, lse, axis)
 
 
 # --------------------------------------------------------------------------
@@ -372,6 +469,10 @@ def decode_windowed(p: Attention, x: torch.Tensor, cfg: ArchConfig,
     v = _split_heads(x @ p.wv, Hkv)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
+    if seq_over_data(ck):
+        o = _decode_seq_sharded(q[:, 0, :H], k[:, 0], v[:, 0], ck, cv, slot,
+                                min(cache_pos + 1, window), "data")
+        return _out_proj(p, o, cfg), (ck, cv)
     ck[:, :, slot] = k[:, 0].to(ck.dtype)
     cv[:, :, slot] = v[:, 0].to(cv.dtype)
     kv_len = torch.full((B,), min(cache_pos + 1, window), dtype=torch.int32,
@@ -441,7 +542,14 @@ def mla_attention(p: MLA, x: torch.Tensor, cfg: ArchConfig,
     k_rope = apply_rope(ckv[:, :, None, kvr:], positions,
                         cfg.rope_theta)[:, :, 0]
     packed = torch.cat([latent, k_rope], dim=-1)
-    if kv_cache is not None:
+    over_data = kv_cache is not None and seq_over_data(kv_cache)
+    n_valid = None if kv_cache is None else cache_pos + 1
+    if over_data:
+        own, n_valid = _seq_part(kv_cache, "data", cache_pos, cache_pos + 1)
+        if own is not None:
+            kv_cache[:, own] = packed[:, 0].to(kv_cache.dtype)
+        packed = kv_cache
+    elif kv_cache is not None:
         kv_cache[:, cache_pos] = packed[:, 0].to(kv_cache.dtype)
         packed = kv_cache
     S_kv = packed.shape[1]
@@ -461,9 +569,11 @@ def mla_attention(p: MLA, x: torch.Tensor, cfg: ArchConfig,
                                 sm_scale=sm, block_k=cfg.attn_block_k)
         o = o.transpose(1, 2).reshape(B, S, H * dv)
         return sharding.reduce_from(o @ sharding.local(p.wo, 0)), None
-    kv_len = torch.full((B,), cache_pos + 1, dtype=torch.int32,
-                        device=x.device)
+    kv_len = torch.full((B,), n_valid, dtype=torch.int32, device=x.device)
     o = ops.flash_decode(q_all[:, 0], k_all.transpose(1, 2),
-                         v_all.transpose(1, 2), kv_len=kv_len, sm_scale=sm)
+                         v_all.transpose(1, 2), kv_len=kv_len, sm_scale=sm,
+                         return_lse=over_data)
+    if over_data:
+        o = _merge_partials(*o, "data")
     o = sharding.reduce_from(o.reshape(B, H * dv) @ sharding.local(p.wo, 0))
     return o[:, None, :], kv_cache

@@ -134,7 +134,8 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
     # which of t/h/w drives each frequency
     sec_id = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.tensor(list(sections), device=x.device))      # (half,)
+        torch.tensor(list(sections), device=x.device),
+        output_size=half)                                   # (half,)
     ang = positions3.float()[..., None] * freqs             # (3, B, S, half)
     idx = sec_id.expand(1, *ang.shape[1:])
     ang = ang.gather(0, idx)[0]                             # (B, S, half)

@@ -52,9 +52,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
-from .attention import (MLA, Attention, _attention_tp, _expand_kv,
-                        _kv_index, _mask_padded, attention, decode_windowed,
-                        init_attention, init_mla, mla_attention)
+from .attention import (MLA, Attention, SeqOverData, _attention_tp,
+                        _expand_kv, _kv_index, _mask_padded, attention,
+                        decode_windowed, init_attention, init_mla,
+                        mla_attention)
 from . import sharding
 from .config import ArchConfig
 from .layers import (MLP, cross_entropy, dense_init, dtype_of, embed,
@@ -252,9 +253,13 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
     `seed` (the same distributions as the JAX package, other numbers);
     norms start at zero as there.  With `mtp` a config's
     multi-token-prediction block is built too, drawn after every other
-    weight (so the others do not depend on it)."""
+    weight (so the others do not depend on it).  On the meta device
+    (the dry run) the model is built and nothing is drawn: there are no
+    values to draw."""
     device = resolve_device(device)
     model = LM(cfg, device, mtp=mtp)
+    if device.type == "meta":
+        return model
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     embed_init(gen, model.embed)
@@ -318,7 +323,9 @@ def _decoder_layer(p: DecoderLayer, h: torch.Tensor, cfg: ArchConfig,
                    kv_cache=None, cache_pos=None):
     """Pre-norm attention then pre-norm MLP or MoE.  `window` and
     `mrope_positions` reach the GQA attention (window None: the arch
-    default; 0: full)."""
+    default; 0: full).  Every layer function takes its weights gathered
+    over `data` where FSDP splits them (``sharding.fsdp_gathered``)."""
+    p = sharding.fsdp_gathered(p)
     hn = rms_norm(p.norm1, h, cfg.norm_eps)
     if isinstance(p.attn, MLA):
         a, new_cache = mla_attention(p.attn, hn, cfg,
@@ -359,6 +366,7 @@ def _local_decode(p: DecoderLayer, h: torch.Tensor, cfg: ArchConfig,
                   kv_cache, pos: int) -> torch.Tensor:
     """One decode step of a gemma3 local layer against its ring cache
     (``local_body`` of ``repro/models/lm.py:_gemma_decode``)."""
+    p = sharding.fsdp_gathered(p)
     a, _ = decode_windowed(p.attn, rms_norm(p.norm1, h, cfg.norm_eps), cfg,
                            kv_cache, pos, cfg.sliding_window)
     h = h + a
@@ -367,6 +375,7 @@ def _local_decode(p: DecoderLayer, h: torch.Tensor, cfg: ArchConfig,
 
 def _ssm_layer(p: SSMLayer, h: torch.Tensor, cfg: ArchConfig,
                state: Optional[SSMState] = None):
+    p = sharding.fsdp_gathered(p)
     y, new_state = ssm_block(p.ssm, rms_norm(p.norm, h, cfg.norm_eps), cfg,
                              state=state)
     return h + y, new_state
@@ -377,7 +386,9 @@ def _lora_apply(shared: DecoderLayer, lora: LoRA) -> SimpleNamespace:
     anew on every call as in ``repro/models/lm.py:_lora_apply``.  Under a
     `model` axis, this rank's columns of wq and w_in plus the deltas'
     same columns (the replicated LoRA factors cut by columns), marked as
-    this rank's shards (``sharding.as_shard``)."""
+    this rank's shards (``sharding.as_shard``).  `shared` is gathered over
+    `data` first where FSDP splits it."""
+    shared = sharding.fsdp_gathered(shared)
     a, m = shared.attn, shared.mlp
 
     def plus(w, fa, fb):
@@ -434,12 +445,15 @@ def _maybe_remat(fn, cfg: ArchConfig):
     scanned layer, ``repro/models/lm.py:254``): the layer keeps only its
     input, and its forward, K2 and K4 included, runs again in the
     backward, inside ``layers.recomputing()``.  Serving (no grad) runs
-    `fn` as it is."""
+    `fn` as it is.  The layers draw no random numbers, so no RNG state is
+    stashed for the recomputation (which would make a host tensor in a
+    step on the meta device)."""
     if not (cfg.remat and torch.is_grad_enabled()):
         return fn
 
     def remat(*args, **kwargs):
         return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False,
                           context_fn=_remat_contexts, **kwargs)
     return remat
 
@@ -618,6 +632,7 @@ def _encdec_layer(p: EncDecLayer, h: torch.Tensor, cfg: ArchConfig,
     """A decoder layer: causal self-attention, then norm3 and the
     cross-attention to this layer's encoder keys and values `xkv`, then
     the MLP."""
+    p = sharding.fsdp_gathered(p)
     a, new_cache = attention(p.attn, rms_norm(p.norm1, h, cfg.norm_eps),
                              cfg, positions, kv_cache=kv_cache,
                              cache_pos=cache_pos)
@@ -631,6 +646,7 @@ def _encdec_layer(p: EncDecLayer, h: torch.Tensor, cfg: ArchConfig,
 def _enc_layer(p: DecoderLayer, x: torch.Tensor, cfg: ArchConfig
                ) -> torch.Tensor:
     """An encoder layer: bidirectional self-attention, then the MLP."""
+    p = sharding.fsdp_gathered(p)
     x = x + _bidir_attention(p.attn,
                              rms_norm(p.norm1, x, cfg.norm_eps), cfg)
     return x + _feed_forward(p, rms_norm(p.norm2, x, cfg.norm_eps), cfg)
@@ -659,6 +675,7 @@ def cross_kv(cfg: ArchConfig, model: LM, enc: torch.Tensor) -> Dict:
     Hkv, hd = cfg.n_kv_heads, cfg.head_dim
 
     def heads(w):       # from this rank's columns under a `model` axis
+        w = sharding.unshard_data(w)
         return sharding.columns_gathered(enc, w).reshape(
             B, Se, Hkv, hd).transpose(1, 2)
     return {"k": torch.stack([heads(l.xattn.wk) for l in model.dec_layers]),
@@ -689,9 +706,17 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None
     part of every cache by ``registry.cache_specs`` at the active mesh's
     sizes: its batch / n_data rows; over `model`, its kv heads where
     they divide the axis, else its max_len / n_model positions (decode
-    then runs ``attention._decode_seq_sharded``); its SSD heads and its
-    part of the conv channels; the MLA latent whole.  Raises where a
-    cache does not split so (a gemma3 ring splits only by kv heads)."""
+    then runs ``attention._decode_seq_sharded`` over `model`); its SSD
+    heads and its part of the conv channels; the MLA latent whole.  A
+    long-context batch (``registry.seq_over_data``) on a data axis above
+    1 keeps every row on every rank and splits the positions of each kv
+    and latent cache over `data` instead, as the reference's layout does
+    (``cache_specs``'s seq_shard; its SSM states stay whole over `data`,
+    where the reference splits their rows if they divide): such a cache
+    is an ``attention.SeqOverData``, and decode merges the data ranks'
+    partial attentions (``attention._decode_seq_sharded`` over `data`).
+    Raises where a cache does not split so (a gemma3 ring does not split
+    over `model` by position)."""
     check_supported(cfg)
     device = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
@@ -699,27 +724,37 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None
         sharding.mesh_axis_size("model")
     if nd * nm == 1:
         return _cache_tree(cfg, batch, max_len, dtype, device)
-    from .registry import cache_specs
+    from .registry import cache_specs, seq_over_data
     full = _cache_tree(cfg, batch, max_len, dtype, "meta")
     sizes = {"data": nd, "model": nm, "pod": 1}
-    specs = cache_specs(cfg, full, "decode_32k", n_model=nm,
-                        axis_sizes=sizes)
+    seq_shard = seq_over_data(batch) and nd > 1
+    specs = cache_specs(cfg, full, "long_500k" if seq_shard
+                        else "decode_32k", n_model=nm, axis_sizes=sizes)
 
     def local(path, leaf):
         spec = _lookup_spec(specs, path)
-        names = [n for s in spec for n in (s if isinstance(s, tuple)
-                                           else (s,)) if n]
         ring = path[0] in ("local", "tail")
         kv = path[-1] in ("k", "v")
-        if ("data" not in names) or (kv and "model" not in names) or (
-                ring and spec[-2] is not None):
+        if seq_shard and not (kv or path[0].startswith("latent")):
+            # every rank holds every row: an SSM state is not split over
+            # `data` (the reference's splits its batch where it divides)
+            spec = tuple(None if s == "data" else s for s in spec)
+        names = [n for s in spec for n in (s if isinstance(s, tuple)
+                                           else (s,)) if n]
+        if (not seq_shard and ("data" not in names or (
+                kv and "model" not in names))) or (
+                ring and spec[-2] == "model"):
             raise ValueError(
                 f"{cfg.name}: the cache {'/'.join(map(str, path))} "
                 f"{tuple(leaf.shape)} does not split over a {nd} x {nm} "
                 f"mesh (spec {spec})")
         shape = [dim // (sizes[s] if s else 1)
                  for dim, s in zip(leaf.shape, spec)]
-        return torch.zeros(shape, dtype=dtype, device=device)
+        t = torch.zeros(shape, dtype=dtype, device=device)
+        if seq_shard and (kv or path[0].startswith("latent")) \
+                and spec[-2] == "data":
+            t = t.as_subclass(SeqOverData)
+        return t
     return sharding.map_with_path(local, full)
 
 

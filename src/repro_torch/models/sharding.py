@@ -20,7 +20,20 @@ tensor parallelism over the ``model`` axis and data parallelism over the
     (``copy_to``, ``reduce_from``, ``gather_from``, ``scatter_to``,
     ``all_to_all``) and the parameter views the layers take (``local``,
     ``full``, ``gathered``), after ``shard_params`` has cut each
-    parameter to this rank's shard.
+    parameter to this rank's shard;
+  * FSDP over ``data`` (``cfg.fsdp``): a parameter whose spec names
+    ``data`` keeps only this rank's slice along that dimension too, and
+    each layer takes its weights gathered over ``data`` at its use
+    (``fsdp_gathered``, ``unshard_data``), in the forward and again in
+    remat's recomputation; the gather's backward sums the gradient over
+    the data ranks in rank order and keeps this rank's slice, so the
+    data-parallel mean of the step only divides it
+    (``train.data_parallel_mean``).  The layers compute on the gathered
+    weights exactly what they compute without FSDP.
+
+Every collective reports its output and group size to the active cost
+counter (``analysis.cost``: the dry run), one ``is None`` test when
+there is none.
 
 The reference lets GSPMD partition one program.  The port runs one
 program per rank on plain local tensors (no DTensor reaches a kernel):
@@ -53,6 +66,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import is_dtensor
+from repro_torch.analysis import cost as _cost
 
 #: a spec: one entry per dimension, each a mesh axis name, a tuple of
 #: names (the dimension split over their product, major first) or None
@@ -370,6 +384,9 @@ def _gather0(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous()
     out = x.new_empty((n * x.shape[0], *x.shape[1:]))
     dist.all_gather_into_tensor(out, x, group=group)
+    c = _cost.active()
+    if c is not None:
+        c.collective("all-gather", out, n)
     return out
 
 
@@ -402,10 +419,14 @@ def sum_in_rank_order(x: torch.Tensor, group,
 
 def max_over(x: torch.Tensor, group) -> torch.Tensor:
     """The elementwise max of `x` over the ranks of `group`."""
-    if dist.get_world_size(group) == 1:
+    n = dist.get_world_size(group)
+    if n == 1:
         return x
     x = x.clone()
     dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    c = _cost.active()
+    if c is not None:
+        c.collective("all-reduce", x, n)
     return x
 
 
@@ -493,10 +514,31 @@ class _GatherRows(torch.autograd.Function):
         return _local_slice(s, ctx.dim, ctx.group).contiguous(), None, None
 
 
+class _GatherParam(torch.autograd.Function):
+    """A parameter's slice gathered over `data` (FSDP) for a layer's use:
+    all-gather along `dim` forward; the backward sums the gradient over
+    the data ranks in rank order in float32 and keeps this rank's slice,
+    as ``train.data_parallel_mean`` sums a replicated parameter's."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        s = sum_in_rank_order(g.contiguous(), ctx.group,
+                              acc_dtype=torch.float32)
+        return _local_slice(s, ctx.dim, ctx.group).contiguous(), None, None
+
+
 def _a2a(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=group)
+    c = _cost.active()
+    if c is not None:
+        c.collective("all-to-all", out, dist.get_world_size(group))
     return out
 
 
@@ -600,7 +642,9 @@ def replicated(w: torch.Tensor) -> torch.Tensor:
 
 
 def full(w: torch.Tensor) -> torch.Tensor:
-    """`w` in full: a shard is all-gathered (the line format)."""
+    """`w` in full: a shard is all-gathered (the line format), over
+    `data` first where FSDP splits it (``unshard_data``)."""
+    w = unshard_data(w)
     sd = shard_dim(w)
     if sd is None or not model_parallel():
         return w
@@ -647,12 +691,57 @@ def gathered(mod: torch.nn.Module) -> torch.nn.Module:
     if not model_parallel() or not any(
             shard_dim(p) is not None for p in mod.parameters()):
         return mod
+    return _with_params(mod, full)
+
+
+def _with_params(mod: torch.nn.Module, fn) -> torch.nn.Module:
+    """A shallow copy of the module tree `mod` whose every parameter p is
+    ``fn(p)``."""
     new = copy.copy(mod)
-    new._parameters = {k: (None if v is None else full(v))
+    new._parameters = {k: (None if v is None else fn(v))
                        for k, v in mod._parameters.items()}
-    new._modules = {k: (None if m is None else gathered(m))
+    new._modules = {k: (None if m is None else _with_params(m, fn))
                     for k, m in mod._modules.items()}
     return new
+
+
+def data_dim(w: torch.Tensor) -> Optional[int]:
+    """The dimension of parameter `w` split over `data` (FSDP,
+    ``shard_tensor``), or None: replicated over `data`, a plain tensor,
+    or no data axis above 1."""
+    d = getattr(w, "_dp_dim", None)
+    if d is None or mesh_axis_size("data") == 1:
+        return None
+    return d
+
+
+def is_data_sharded(p: torch.Tensor) -> bool:
+    return data_dim(p) is not None
+
+
+def unshard_data(w: torch.Tensor) -> torch.Tensor:
+    """Parameter `w` gathered over `data` where FSDP splits it
+    (``_GatherParam``: the backward sums its gradient over the data
+    ranks), still split over `model` as `w` is; `w` itself otherwise."""
+    d = data_dim(w)
+    if d is None:
+        return w
+    g = _GatherParam.apply(w, d, axis_group("data"))
+    g._tp_dim = shard_dim(w)
+    return g
+
+
+def fsdp_gathered(mod):
+    """`mod` with every parameter split over `data` gathered
+    (``unshard_data``): a shallow copy of the module tree, made where a
+    layer starts, so that a layer holds its whole weights only while it
+    runs (and again in remat's recomputation).  `mod` itself when no
+    parameter of it is split over `data`, or when it is not a module (a
+    namespace of weights already gathered)."""
+    if not isinstance(mod, torch.nn.Module) or not any(
+            data_dim(p) is not None for p in mod.parameters()):
+        return mod
+    return _with_params(mod, unshard_data)
 
 
 def param_specs(cfg, model) -> Dict[int, Spec]:
@@ -693,10 +782,10 @@ def _lookup(tree, path):
 def shard_params(cfg, model) -> torch.nn.Module:
     """Cut every parameter of `model` (an ``lm.LM`` holding the full
     weights, the same on every rank) to this rank's shard over the
-    active mesh's `model` axis, by ``param_specs``; each keeps its spec
-    as ``_spec`` and its split dimension as ``_tp_dim`` (None:
-    replicated).  Raises for a spec that splits a parameter over `data`
-    (fsdp) on a mesh whose data axis is larger than 1."""
+    active mesh's `model` axis and, where the spec names it (FSDP),
+    its `data` axis, by ``param_specs``; each keeps its spec as
+    ``_spec`` and its split dimensions as ``_tp_dim`` and ``_dp_dim``
+    (None: replicated)."""
     specs = param_specs(cfg, model)
     for p in model.parameters():
         shard_tensor(p, specs[id(p)])
@@ -706,22 +795,23 @@ def shard_params(cfg, model) -> torch.nn.Module:
 @torch.no_grad()
 def shard_tensor(p: torch.nn.Parameter, spec: Spec) -> torch.nn.Parameter:
     """Cut parameter `p` (in full) to this rank's shard by `spec`, in
-    place, and record ``_spec`` and ``_tp_dim`` on it (see
-    ``shard_params``)."""
-    n, r = mesh_axis_size("model"), axis_rank("model")
+    place, and record ``_spec``, ``_tp_dim`` and ``_dp_dim`` on it (see
+    ``shard_params``).  Raises where an axis does not divide the
+    dimension it splits."""
     p._spec = tuple(spec)
-    p._tp_dim = None
+    p._tp_dim = p._dp_dim = None
     for d, s in enumerate(spec):
         names = s if isinstance(s, tuple) else (s,)
-        if "data" in names and mesh_axis_size("data") > 1:
-            raise NotImplementedError(
-                f"the spec {spec} splits a parameter over `data` "
-                f"(cfg.fsdp); the port shards parameters over `model` "
-                f"only")
-        if "model" in names and n > 1:
+        for axis, attr in (("model", "_tp_dim"), ("data", "_dp_dim")):
+            n = mesh_axis_size(axis)
+            if axis not in names or n == 1:
+                continue
+            if p.shape[d] % n:
+                raise ValueError(f"dim {d} of {tuple(p.shape)} does not "
+                                 f"split over a {axis} axis of {n}")
             size = p.shape[d] // n
-            p.data = p.data.narrow(d, r * size, size).clone()
-            p._tp_dim = d
+            p.data = p.data.narrow(d, axis_rank(axis) * size, size).clone()
+            setattr(p, attr, d)
     return p
 
 
@@ -733,13 +823,16 @@ def full_tensor(p: torch.Tensor, t: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
     """Parameter `p` in full, or `t`, a tensor laid out as `p` (its
     moment, its gradient), with no autograd: the all-gather of the
-    shards over ``model``.  A collective: every rank of the axis calls
-    it."""
+    shards over ``model``, then over ``data`` where FSDP splits it.  A
+    collective: every rank of the axes calls it."""
     t = (p if t is None else t).detach()
     sd = shard_dim(p)
-    if sd is None or not model_parallel():
-        return t
-    return all_gather_dim(t, sd, axis_group("model"))
+    if sd is not None and model_parallel():
+        t = all_gather_dim(t, sd, axis_group("model"))
+    dd = data_dim(p)
+    if dd is not None:
+        t = all_gather_dim(t, dd, axis_group("data"))
+    return t
 
 
 def full_shape(p: torch.Tensor) -> Tuple[int, ...]:
@@ -748,17 +841,20 @@ def full_shape(p: torch.Tensor) -> Tuple[int, ...]:
     sd = shard_dim(p)
     if sd is not None and model_parallel():
         shape[sd] *= mesh_axis_size("model")
+    dd = data_dim(p)
+    if dd is not None:
+        shape[dd] *= mesh_axis_size("data")
     return tuple(shape)
 
 
 def shard_like(p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """This rank's shard of the full tensor `t`, laid out as `p`."""
-    sd = shard_dim(p)
-    if sd is None or not model_parallel():
-        return t
-    n, r = mesh_axis_size("model"), axis_rank("model")
-    size = t.shape[sd] // n
-    return t.narrow(sd, r * size, size).clone()
+    for d, axis in ((shard_dim(p), "model"), (data_dim(p), "data")):
+        n = mesh_axis_size(axis)
+        if d is not None and n > 1:
+            size = t.shape[d] // n
+            t = t.narrow(d, axis_rank(axis) * size, size).clone()
+    return t
 
 
 def sharded_sum_squares(tensors: Sequence[torch.Tensor],
@@ -766,18 +862,24 @@ def sharded_sum_squares(tensors: Sequence[torch.Tensor],
     """The float32 sum of squares of every element of the full tensors
     that `tensors` are this rank's parts of (laid out as `params`): the
     replicated ones counted once, the shards' sums added over ``model``
-    in rank order."""
-    rep, shd = None, None
+    and, for those FSDP splits, over ``data``, in rank order."""
+    parts: Dict[Tuple[bool, bool], torch.Tensor] = {}
     for t, p in zip(tensors, params):
         s = torch.sum(torch.square(t.float()))
-        if is_sharded(p):
-            shd = s if shd is None else shd + s
-        else:
-            rep = s if rep is None else rep + s
-    total = rep
-    if shd is not None:
-        shd = sum_in_rank_order(shd.reshape(1),
-                                axis_group("model")).reshape(())
-        total = shd if total is None else total + shd
+        key = (is_sharded(p), is_data_sharded(p))
+        parts[key] = s if key not in parts else parts[key] + s
+    total = None
+    for (by_model, by_data), s in sorted(parts.items()):
+        for split, axis in ((by_model, "model"), (by_data, "data")):
+            if split:
+                s = sum_in_rank_order(s.reshape(1),
+                                      axis_group(axis)).reshape(())
+        total = s if total is None else total + s
     return total
+
+
+def params_split(params: Sequence[torch.Tensor]) -> bool:
+    """Whether any of `params` is split over an axis (``model``, or
+    ``data`` by FSDP): its norm then needs ``sharded_sum_squares``."""
+    return model_parallel() or any(is_data_sharded(p) for p in params)
 

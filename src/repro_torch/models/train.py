@@ -104,16 +104,19 @@ def make_train_step(cfg: ArchConfig,
         loss, grads = accumulate_grads(
             lambda b: lm.loss_fn(cfg, model, b), params, batch,
             opts.n_micro)
-        loss, grads = data_parallel_mean(loss, grads, "data")
+        loss, grads = data_parallel_mean(loss, grads, "data", params)
         pods = sharding.mesh_axis_size("pod") > 1
         err = state.error_fb
         if opts.compress_grads and err is not None:
             mp = sharding.model_parallel()
+            fsdp = any(sharding.is_data_sharded(p) for p in params)
             grads, err = optim.compress_grads(
                 grads, err, groups=reference_groups(cfg, model),
                 sharded=[sharding.is_sharded(p) for p in params],
                 group=sharding.axis_group("model") if mp else None,
-                pod_group=sharding.axis_group("pod") if pods else None)
+                pod_group=sharding.axis_group("pod") if pods else None,
+                data_sharded=[sharding.is_data_sharded(p) for p in params],
+                data_group=sharding.axis_group("data") if fsdp else None)
             loss, _ = data_parallel_mean(loss, [], "pod")
         elif pods:
             loss, grads = data_parallel_mean(loss, grads, "pod")
@@ -122,7 +125,7 @@ def make_train_step(cfg: ArchConfig,
                                            opts.warmup, opts.total_steps)
         else:
             lr_scale = optim.constant(state.opt.step)
-        if sharding.model_parallel():
+        if sharding.params_split(params):
             gnorm = torch.sqrt(sharding.sharded_sum_squares(grads, params))
         else:
             gnorm = optim.global_norm(grads)
@@ -136,13 +139,17 @@ def make_train_step(cfg: ArchConfig,
 
 
 def data_parallel_mean(loss: torch.Tensor, grads: List[torch.Tensor],
-                       axis: str) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+                       axis: str, params: Optional[List[torch.Tensor]] = None
+                       ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """The mean over the ranks of mesh axis `axis` of the loss and of each
     gradient, summed in rank order in float32: the gradients bucket by
     bucket (``bucket_tree``, ~4 MB each), each bucket one flat message.
     Every rank's batch holds the same number of tokens, so the mean of
-    the ranks' means is the global mean.  Unchanged where the axis is 1
-    or absent."""
+    the ranks' means is the global mean.  The gradient of a parameter
+    FSDP splits over `data` (`params`, ``sharding.is_data_sharded``) is
+    already summed over the data ranks (``sharding.unshard_data``'s
+    backward) and is only divided.  Unchanged where the axis is 1 or
+    absent."""
     n = sharding.mesh_axis_size(axis)
     if n == 1:
         return loss, grads
@@ -150,7 +157,15 @@ def data_parallel_mean(loss: torch.Tensor, grads: List[torch.Tensor],
     loss = sharding.sum_in_rank_order(loss.detach().float().reshape(1),
                                       group).reshape(()) / n
     out = list(grads)
-    for bucket in bucket_tree(list(grads)):
+    summed = set()
+    if axis == "data" and params is not None:
+        summed = {i for i, p in enumerate(params)
+                  if sharding.is_data_sharded(p)}
+        for i in summed:
+            out[i] = (grads[i].float() / n).to(grads[i].dtype)
+    kept = [i for i in range(len(grads)) if i not in summed]
+    for bucket in bucket_tree([grads[i] for i in kept]):
+        bucket = [(kept[j], g) for j, g in bucket]
         flat = torch.cat([g.float().reshape(-1) for _, g in bucket])
         flat = sharding.sum_in_rank_order(flat, group) / n
         at = 0

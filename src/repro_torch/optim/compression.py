@@ -66,14 +66,17 @@ def compress_grads(grads: Sequence[torch.Tensor],
                    error: Sequence[torch.Tensor],
                    groups: Optional[Sequence[Sequence[int]]] = None,
                    sharded: Optional[Sequence[bool]] = None,
-                   group=None, pod_group=None
+                   group=None, pod_group=None,
+                   data_sharded: Optional[Sequence[bool]] = None,
+                   data_group=None
                    ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """(decompressed grads as synced, in each grad's dtype; the new error
     feedback).  `groups` lists the indices of the tensors that share a
     scale; None gives every tensor its own.  `sharded[i]`: gradient i is
     this rank's shard of a leaf split over the ranks of `group`, whose
-    max then enters the scale.  With `pod_group` the compressed values
-    are summed across its ranks (``cross_pod_mean``) and the mean is
+    max then enters the scale; `data_sharded[i]` likewise over
+    `data_group` (FSDP).  With `pod_group` the compressed values are
+    summed across its ranks (``cross_pod_mean``) and the mean is
     returned."""
     if groups is None:
         groups = [[i] for i in range(len(grads))]
@@ -83,6 +86,8 @@ def compress_grads(grads: Sequence[torch.Tensor],
         max_groups = []
         if sharded is not None and sharded[idx[0]]:
             max_groups.append(group)
+        if data_sharded is not None and data_sharded[idx[0]]:
+            max_groups.append(data_group)
         if pod_group is not None:
             max_groups.append(pod_group)
         qs, scale, resids = compress_group(

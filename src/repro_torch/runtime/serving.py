@@ -15,9 +15,10 @@ Counterpart of ``repro/runtime/serving.py``, the robustness layer around
   claims.  Bounded per-model queues with a deadline-driven auto-flush:
   a batch dispatches when it fills, when its oldest entry has lingered
   ``linger_ms``, or when its earliest deadline minus the model's recent
-  batch time comes due; until the model has served MIN_EST_SAMPLES
-  batches there is no batch time to lean on, and a ticket with a
-  deadline dispatches at once.
+  batch time and the pool's own wake-up lateness (an idle worker's
+  timed wait returning late) comes due; until the model has served
+  MIN_EST_SAMPLES batches there is no batch time to lean on, and a
+  ticket with a deadline dispatches at once.
 * **fault detection + re-dispatch** — workers heartbeat a
   :class:`~repro_torch.runtime.fault.FaultMonitor`; a supervisor
   recycles workers whose beats stop (a hung kernel), re-dispatches their
@@ -27,9 +28,10 @@ Counterpart of ``repro/runtime/serving.py``, the robustness layer around
   (``obs.trace.progress``: each plan step, each op of a lowering), at
   most every quarter of the heartbeat timeout: a batch slower than the
   timeout is not taken for a hung one as long as it moves, and a kernel
-  that hangs stops the beats.  A pool on CUDA builds the kernels before
-  its first worker starts (``_build.build_all``), so no batch waits for
-  nvcc.
+  that hangs stops the beats.  A beat is allowed the pool's own
+  measured wake-up lateness past the timeout, the host's scheduling
+  delay.  A pool on CUDA builds the kernels before its first worker
+  starts (``_build.build_all``), so no batch waits for nvcc.
 * **:class:`CircuitBreaker`** + :class:`LatencyHistogram` — the
   per-model trip/half-open/recover state machine and the p50/p99
   surface ``Session.stats()`` reports.
@@ -430,6 +432,10 @@ class ServerPool:
     DEFAULT_EST_MS = 5.0
     #: batches a model must have served before its histogram is trusted
     MIN_EST_SAMPLES = 4
+    #: the least wake-up slack (ms) a deadline reserves and a heartbeat is
+    #: allowed: an idle worker's timed wait returns late on a loaded
+    #: machine, by more than a fast model's batch time
+    WAKE_FLOOR_MS = 20.0
     #: recompute the memoized p99 after this many new samples
     EST_REFRESH = 16
     #: recycles kept in ``recycle_log``
@@ -474,8 +480,17 @@ class ServerPool:
             "batch service time per model (pool workers)", ("model",))
         #: name -> (hist count at compute time, p99) memo — _claim_locked
         #: runs under the pool lock on every worker wake, so the bucket
-        #: scan is amortized over EST_REFRESH new samples
-        self._est_memo: Dict[str, Tuple[int, float]] = {}
+        #: scan is amortized over EST_REFRESH new samples (key None: the
+        #: wake-up slack's)
+        self._est_memo: Dict[Optional[str], Tuple[int, float]] = {}
+        #: how far past the due time an idle worker's wait was timed to
+        #: (linger or deadline) it wakes and claims: the host's scheduling
+        #: delay, which a deadline reserves on top of the batch time and a
+        #: heartbeat is allowed (``_wake_slack_ms``)
+        self._wake_late_ms = self.registry.histogram(
+            "repro_pool_wake_late_ms",
+            "an idle worker's claim time past the due time its wait was "
+            "timed to")
 
         self._cv = threading.Condition()
         #: name -> EDF min-heap of (deadline_key, seq, feed, ticket, enq)
@@ -523,15 +538,29 @@ class ServerPool:
         deadline-driven auto-flush subtracts from a ticket's deadline.
         Memoized by sample count (the claim loop calls this constantly
         under the pool lock)."""
-        h = self._batch_ms.labels(model=name)
+        return self._percentile_memo(name, self._batch_ms.labels(model=name),
+                                     p, self.DEFAULT_EST_MS)
+
+    def _wake_slack_ms(self) -> float:
+        """The host's scheduling delay that a deadline reserves and a
+        heartbeat is allowed: the p99 of ``repro_pool_wake_late_ms``,
+        never less than ``WAKE_FLOOR_MS``; memoized as the batch time."""
+        return max(self.WAKE_FLOOR_MS, self._percentile_memo(
+            None, self._wake_late_ms.labels(), 99.0, self.WAKE_FLOOR_MS))
+
+    def _percentile_memo(self, key: Optional[str], h, p: float,
+                         default: float) -> float:
+        """Percentile `p` of histogram `h` once it has MIN_EST_SAMPLES
+        samples (else `default`), recomputed after EST_REFRESH new
+        ones."""
         count = h.count
         if count < self.MIN_EST_SAMPLES:
-            return self.DEFAULT_EST_MS
-        memo = self._est_memo.get(name)
+            return default
+        memo = self._est_memo.get(key)
         if memo is not None and count - memo[0] < self.EST_REFRESH:
             return memo[1]
         est = h.percentile(p)
-        self._est_memo[name] = (count, est)
+        self._est_memo[key] = (count, est)
         return est
 
     # -- admission ----------------------------------------------------------
@@ -669,9 +698,10 @@ class ServerPool:
         """Pick the most urgent dispatchable model batch, or the time
         until one becomes due.  A batch is due when it is full, when its
         oldest entry has lingered ``linger_ms``, or when its earliest
-        deadline minus the model's recent batch time arrives.  Among
-        due models the highest priority class wins, breaking ties by
-        urgency; entries pop in EDF order."""
+        deadline minus the model's recent batch time and the host's
+        wake-up slack (``_wake_slack_ms``) arrives.  Among due models
+        the highest priority class wins, breaking ties by urgency;
+        entries pop in EDF order."""
         best, next_due = None, math.inf
         for name, q in self._queues.items():
             if not q:
@@ -686,7 +716,8 @@ class ServerPool:
                     due = now      # no batch time known: dispatch at once
                 else:
                     due = min(due, head_dl
-                              - self._dispatch_est_ms(name) / 1e3)
+                              - (self._dispatch_est_ms(name)
+                                 + self._wake_slack_ms()) / 1e3)
             if len(q) >= self.max_batch:
                 due = now
             if due <= now:
@@ -752,6 +783,7 @@ class ServerPool:
 
     def _serve(self, wid: int) -> None:
         beat_every = max(0.01, self.heartbeat_timeout_s / 4)
+        timed_to = math.inf     # the due time this idle worker waits for
         while True:
             with self._cv:
                 w = self._workers.get(wid)
@@ -769,8 +801,13 @@ class ServerPool:
                     self._idle_beat(wid, w.seq)
                     wait = beat_every if next_due is math.inf else \
                         min(beat_every, max(0.0, next_due - now))
+                    timed_to = next_due if next_due - now <= beat_every \
+                        else math.inf
                     self._cv.wait(wait)
                     continue
+                if now >= timed_to:     # woke late for the due batch
+                    self._wake_late_ms.observe((now - timed_to) * 1e3)
+                timed_to = math.inf
                 name, entries = claim
                 self._seq += 1
                 w.seq = self._seq
@@ -842,7 +879,13 @@ class ServerPool:
             with self._cv:
                 if not self._running:
                     return
-                dead = {wid for wid in self.monitor.dead_hosts()
+                # a beat the host's scheduling delayed has not stopped:
+                # a worker is allowed the pool's wake-up slack past the
+                # timeout (a progressing batch beats every step, whose
+                # beat the same delay makes late)
+                slack_s = self._wake_slack_ms() / 1e3
+                dead = {wid for wid in self.monitor.dead_hosts(
+                            time.monotonic() - slack_s)
                         if wid in self._workers
                         and not self._workers[wid].abandoned}
                 dead.update(wid for wid in self._extra_dead_locked()

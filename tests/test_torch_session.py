@@ -513,7 +513,10 @@ def test_deadline_dispatches_at_once_until_the_batch_time_is_known():
     the wake-up (the old reservation of ``DEFAULT_EST_MS`` held it ~995
     ms); once the batch time is known, the auto-flush holds the batch
     until the deadline minus its p99 again, and no later: its queue wait
-    stays under the 1 s deadline.  The linger (5 s) never decides."""
+    stays under the 1 s deadline.  The linger (5 s) never decides.  The
+    reservation holds the pool's wake-up lateness as well as the batch
+    time, so a late wake-up on a loaded machine serves the ticket
+    rather than expiring it."""
     sess = _session(workers=1, linger_ms=5000.0)
     x = _feed(sess)
     sess.run("m0", x)                       # lower + arena before timing
@@ -526,11 +529,51 @@ def test_deadline_dispatches_at_once_until_the_batch_time_is_known():
         sess.submit("m0", x, deadline_ms=1000.0).result(timeout=10)
     est = pool._dispatch_est_ms("m0")
     t0 = time.monotonic()
-    sess.submit("m0", x, deadline_ms=1000.0).result(timeout=10)
+    held = sess.submit("m0", x, deadline_ms=1000.0)
+    out = held.result(timeout=10)
     waited = time.monotonic() - t0
     last = sess.registry.snapshot()["repro_queue_wait_ms"]["model=m0"]
+    assert held.error is None and out is not None          # served
+    assert pool.counters["deadline_misses"] == 0, pool.counters
+    assert pool._wake_slack_ms() >= pool.WAKE_FLOOR_MS
     assert est < 500.0 and waited > 0.4, (est, waited)
     assert last["max_ms"] < 1000.0, (est, waited, last)   # the deadline
+    sess.close()
+
+
+@pytest.mark.chaos
+def test_wake_lateness_leaves_out_a_batch_that_waited_for_a_busy_worker():
+    """``repro_pool_wake_late_ms`` holds how late an idle worker wakes for
+    the due time its wait was timed to: the host's scheduling delay,
+    which deadlines reserve and heartbeats are allowed.  A batch that
+    comes due while the only worker runs a slow batch (0.6 s) waits for
+    the worker, which is queueing: no sample holds that wait."""
+    sess = _session(workers=1, linger_ms=1.0)
+    x = _feed(sess)
+    sess.run("m0", x)                       # lower + arena before timing
+    steps = sess["m0"].lower()[0]
+
+    def slow(run):
+        def step(bufs, n):
+            time.sleep(0.6 / len(steps))
+            return run(bufs, n)
+        return step
+
+    for st in steps:
+        st.run = slow(st.run)
+    pool = sess._pool
+    first = sess.submit("m0", x)
+    while pool.counters["dispatched_batches"] < 1:
+        time.sleep(0.005)
+    t0 = time.monotonic()
+    second = sess.submit("m0", _feed(sess, seed=1))
+    assert first.result(timeout=30) is not None
+    assert second.result(timeout=30) is not None
+    waited_ms = (time.monotonic() - t0) * 1e3
+    late = pool._wake_late_ms.labels()
+    assert pool.counters["dispatched_batches"] == 2, pool.counters
+    assert waited_ms > 600.0 and late.max < 300.0, (waited_ms, late.count,
+                                                    late.max)
     sess.close()
 
 
