@@ -176,7 +176,12 @@ each of which ends the run with a nonzero exit and no result on failure:
     against the CPU (phase 18's bounds), and its loss falling over 8
     steps at a constant learning rate.  Then deepseek-v3 reduced in
     float32 with its multi-token-prediction block, 3 steps on the card
-    against the CPU, K2 and K2b at its MLA shape counted by shape.
+    against the CPU, K2 and K2b at its MLA shape counted by shape.  Then
+    one granite-moe-1b-a400m step at full width with the one-hot dispatch
+    (``moe_dispatch="onehot"``) beside one with the sort dispatch, from
+    the same state and batch: its first MoE layer's outputs within 2e-2
+    of each other on the same input and its drops equal; the steps' loss
+    and grad norm within 2e-2, both steps' wall and busy ms.
 
 20. distribution on the card: two ranks, one process each, share the
     H100 over a gloo process group (NCCL takes one rank a device), on a
@@ -187,10 +192,20 @@ each of which ends the run with a nonzero exit and no result on failure:
     which must be the same bits on both ranks.  Then mamba2-370m at full
     width, its depth cut to 4 layers, 2 steps likewise: each rank runs
     the SSD block on 16 of its 32 heads, K4 and K4b at that shard's
-    shape (phase 2 times them there).  Then reduced granite-moe,
+    shape (phase 2 times them there).  Then minitron-4b at full width,
+    its depth cut to 4 layers, 3 steps with ``seq_parallel`` off and 3
+    with it on: each rank holds 128000 of the 256000 rows of the
+    embedding and columns of the head (the vocabulary split over
+    `model`: lookup, logits and ``VocabParallelCE`` on the rank's
+    slice) and 16 of the 32 padded query heads; per rank the step walls,
+    peak memory, K2 / K2b at the shard's shape, the same loss bits on
+    both ranks.  Then reduced granite-moe,
     deepseek-v3 (MLA on each rank's heads, its mtp block) and mamba2 in
     float32 over the same mesh, 3 steps on the card against the same
-    two ranks on the CPU (phase 18's bounds).  Then one granite-20b
+    two ranks on the CPU (phase 18's bounds), and reduced minitron-4b
+    likewise, with ``seq_parallel`` off and on (and remat), the two
+    settings' losses and grad norms within 2e-4 of each other on the
+    card.  Then one granite-20b
     decoder layer at full width (MQA: the cache of 128 positions split
     over the ranks), batch 4, decoded at positions 63 and 64 (one in
     each rank's half) against the same layer's decode on one rank
@@ -210,7 +225,10 @@ each of which ends the run with a nonzero exit and no result on failure:
     process group of 256 / 512 ranks; no card): every arch x cell must
     be traced, and each table is printed
     (``analysis.roofline.format_table``) with each cell's TFLOP, HBM,
-    wire and peak bytes a rank, bound and ``trace_s``; (b) phase 18's
+    wire and peak bytes a rank, bound and ``trace_s``; and ``train_4k``
+    at 16 x 16 with ``seq_parallel`` on (``run_cell``'s overrides) for
+    every arch built from decoder layers, beside the same cell off;
+    (b) phase 18's
     training step (minitron-4b, 8 x 128) and one decode step of phase
     3's path (batch 4, cache 116) dry-run on a 1 x 1 mesh and held to
     the card: the calls of each kernel equal the launch counters (K2 64
@@ -3922,6 +3940,105 @@ def _train_mtp(torch, rows) -> dict:
     return out
 
 
+def _profiled_step(torch, step, state, batch):
+    """One train step under torch.profiler: (state, metrics, wall ms from
+    the call to the loss's read, device busy ms of its kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.monotonic()
+        state, m = step(state, batch)
+        float(m["loss"])
+        wall = (time.monotonic() - t) * 1e3
+        torch.cuda.synchronize()
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return state, m, wall, busy
+
+
+def _train_moe_onehot(torch) -> dict:
+    """Phase 19.5: MOE_ONEHOT_ARCH at full width (bf16) with the sort
+    dispatch and with the one-hot dispatch (``moe_dispatch="onehot"``:
+    the (T, E, cap) einsums).  First its first MoE layer on the same
+    input (the normed embeddings of TRAIN_BATCH x TRAIN_SEQ tokens): the
+    outputs within the bf16 limit (2e-2 of max|out|) and the dropped
+    assignments equal, and some dropped.  Then one train step (remat)
+    with each, from the same initial state and batch after a warm-up
+    step of its own config on another state: loss and grad norm within
+    2e-2 of each other, each step's wall and busy ms (torch.profiler)
+    and its drops summed over the layers (printed, not held: past the
+    first layer the bf16 sums of the two combines differ in rounding,
+    which can move a router's near tie)."""
+    import dataclasses
+    import gc
+
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import lm
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.moe import moe
+    from repro_torch.models.registry import get_arch
+    from repro_torch.models.train import (TrainOptions, init_train_state,
+                                          make_train_step)
+    base = get_arch(MOE_ONEHOT_ARCH)
+    opts = TrainOptions(total_steps=TRAIN_STEPS)
+    dcfg = DataConfig(base.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+    model = lm.init_params(base, SEED, "cuda")
+    layer = model.layers[0]
+    tokens = torch.from_numpy(train_batch(base, dcfg, 0)["tokens"]).cuda()
+    layer_out = {}
+    with torch.no_grad():
+        x = rms_norm(layer.norm2, lm._embed_tokens(model, tokens.long()),
+                     base.norm_eps)
+        for how in ("sort", "onehot"):
+            layer.moe.dropped.zero_()
+            y = moe(layer.moe, x, dataclasses.replace(base, moe_dispatch=how))
+            layer_out[how] = (y.float(), int(layer.moe.dropped))
+    (ys, ds), (yo, do) = layer_out["sort"], layer_out["onehot"]
+    layer_rel = float((ys - yo).abs().max() / ys.abs().max())
+    if not (layer_rel < 2e-2 and ds == do and ds > 0):
+        fail(f"phase 19: {MOE_ONEHOT_ARCH}'s first MoE layer: one-hot vs "
+             f"sort max|d|/max|out| {layer_rel:.3g} (limit 2e-2), dropped "
+             f"{do} vs {ds}")
+    del model, layer, layer_out, x, ys, yo
+    out = {"layer": dict(rel=layer_rel, dropped=ds)}
+    for how in ("sort", "onehot"):
+        cfg = dataclasses.replace(base, moe_dispatch=how)
+        step = make_train_step(cfg, opts=opts)
+        warm = init_train_state(cfg, SEED + 1, "cuda", opts=opts)
+        step(warm, train_batch(cfg, dcfg, 1))
+        del warm
+        state = init_train_state(cfg, SEED, "cuda", opts=opts)
+        for m in moe_layers(state.params):
+            m.dropped.zero_()
+        state, met, wall, busy = _profiled_step(
+            torch, step, state, train_batch(cfg, dcfg, 0))
+        out[how] = dict(loss=float(met["loss"]),
+                        grad_norm=float(met["grad_norm"]),
+                        dropped=int(sum(int(m.dropped) for m in
+                                        moe_layers(state.params))),
+                        wall_ms=wall, busy_ms=busy)
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = out["sort"], out["onehot"]
+    rel = {k: abs(a[k] - b[k]) / abs(a[k]) for k in ("loss", "grad_norm")}
+    if not all(math.isfinite(x[k]) for x in (a, b)
+               for k in ("loss", "grad_norm")) or max(rel.values()) > 2e-2:
+        fail(f"phase 19: {MOE_ONEHOT_ARCH}'s one-hot step {b} is not within "
+             f"2e-2 of the sort step {a}")
+    print(f"  {MOE_ONEHOT_ARCH} full width, first MoE layer: one-hot vs "
+          f"sort max|d|/max|out| {layer_rel:.3g} (limit 2e-2), dropped {ds} "
+          f"both; one step each: sort loss {a['loss']:.5f} / grad norm "
+          f"{a['grad_norm']:.4f}, wall {a['wall_ms']:.1f} ms, busy "
+          f"{a['busy_ms']:.1f} ms, dropped {a['dropped']}; one-hot loss "
+          f"{b['loss']:.5f} / grad norm {b['grad_norm']:.4f}, wall "
+          f"{b['wall_ms']:.1f} ms, busy {b['busy_ms']:.1f} ms, dropped "
+          f"{b['dropped']}; rel {rel['loss']:.3g} / {rel['grad_norm']:.3g} "
+          f"(limit 2e-2)")
+    return dict(out, rel=rel)
+
+
 def phase_train19(torch, rows) -> dict:
     out = {}
     for tp in TRAIN_PATHS[1:]:
@@ -3931,6 +4048,7 @@ def phase_train19(torch, rows) -> dict:
             card_vs_cpu=_train_card_vs_cpu(torch, tp.arch, 19),
             loss_falls=_train19_loss_falls(torch, tp.arch))
     out[MTP_ARCH] = dict(card_vs_cpu=_train_mtp(torch, rows))
+    out[MOE_ONEHOT_ARCH]["onehot"] = _train_moe_onehot(torch)
     return out
 
 
@@ -3943,6 +4061,8 @@ def phase_train19(torch, rows) -> dict:
 # and trained in float32 on batches of 4 x 32, as _train_card_vs_cpu's
 MTP_ARCH = "deepseek-v3-671b"
 MTP_TAG = f"f32 train {MTP_ARCH} reduced"
+# phase 19.5: this MoE config at full width, one step with each dispatch
+MOE_ONEHOT_ARCH = "granite-moe-1b-a400m"
 # phase 20: DIST_WORLD ranks share the one H100, one process each, over a
 # gloo process group (NCCL takes one rank a device); the mesh is
 # (data 1, model DIST_WORLD)
@@ -3960,15 +4080,24 @@ DIST_DECODE_POS = (DIST_DECODE_CACHE // 2 - 1, DIST_DECODE_CACHE // 2)
 DIST_SSM_ARCH = "mamba2-370m"
 DIST_SSM_LAYERS = 4
 DIST_SSM_STEPS = 2
+# the vocabulary split over `model`: minitron-4b at full width (its
+# vocabulary of 256000 split 128000 a rank), its depth cut to
+# DIST_VOCAB_LAYERS, DIST_VOCAB_STEPS steps with seq_parallel off and on
+DIST_VOCAB_ARCH = "minitron-4b"
+DIST_VOCAB_LAYERS = 4
+DIST_VOCAB_STEPS = 3
+# the same config reduced with seq_parallel on (and remat), card vs CPU
+DIST_SP = f"{DIST_VOCAB_ARCH} seq_parallel"
 # phase 20.2 holds these reduced configs on the mesh, card against CPU:
 # attention and moe_a2a; MLA, the MoE stack and the mtp block; the SSD
-# block
-DIST_REDUCED = (DIST_TRAIN_ARCH, "deepseek-v3-671b", DIST_SSM_ARCH)
+# block; the vocabulary split over `model`
+DIST_REDUCED = (DIST_TRAIN_ARCH, "deepseek-v3-671b", DIST_SSM_ARCH,
+                DIST_VOCAB_ARCH)
 # FSDP (cfg.fsdp: parameters split over `data` too) on a (data 2,
 # model 1) mesh, reduced deepseek-v3 card vs CPU like the configs above
 DIST_FSDP_ARCH = "deepseek-v3-671b"
 DIST_FSDP = f"{DIST_FSDP_ARCH} fsdp"
-DIST_TIMEOUT_S = 420
+DIST_TIMEOUT_S = 480
 #: the ranks' device (the CPU only in a rehearsal of the phase's code)
 DIST_DEVICE = "cuda"
 
@@ -3997,7 +4126,24 @@ def dist_attention_shapes():
     layers = (m.n_layers + 1) * 3
     mtp = AttnShape(MTP_TAG, 4, m.n_heads, m.n_heads, 32, m.d_nope + m.d_rope,
                     m.d_v, None, layers)
-    return [(train, 2 * per), (decode, 0), (mtp, layers)]
+    return [(train, 2 * per), (decode, 0), (mtp, layers),
+            dist_vocab_shape()]
+
+
+def dist_vocab_shape():
+    """(AttnShape, K2 launches) of phase 20's minitron-4b shard: one
+    rank's 16 of the 32 padded query heads, each against the kv head it
+    reads (gathered and indexed: the 8 kv heads do not split with the
+    padded groups), remat (K2 twice a layer a step, K2b once), both
+    settings of seq_parallel, launches summed over the ranks."""
+    from repro_torch.models.registry import get_arch
+    n = DIST_WORLD
+    cfg = get_arch(DIST_VOCAB_ARCH)
+    per = DIST_VOCAB_LAYERS * DIST_VOCAB_STEPS * n * 2
+    hl = cfg.padded_heads // n
+    a = AttnShape(f"dist {DIST_VOCAB_ARCH} rank of {n}", TRAIN_BATCH, hl,
+                  hl, TRAIN_SEQ, cfg.head_dim, cfg.head_dim, None, per)
+    return a, 2 * per
 
 
 def dist_ssd_dims():
@@ -4036,13 +4182,17 @@ def _layer_specs(cfg, layer):
     return out
 
 
-def _dist_train_full(torch, mesh, arch, steps, layers=None) -> dict:
+def _dist_train_full(torch, mesh, arch, steps, layers=None,
+                     **overrides) -> dict:
     """Phase 20.1 on this rank: `arch` at full width (its depth cut to
-    `layers`) over the mesh's `model` axis, `steps` steps of TRAIN_BATCH
-    x TRAIN_SEQ tokens: granite-moe-1b-a400m on this rank's 16 of 32
-    experts through moe_a2a and its 8 of 16 query heads, mamba2-370m on
-    its 16 of 32 SSD heads; wall per step, peak memory, K2 / K2b
-    launches by shape, K4 / K4b launches, losses."""
+    `layers`, `overrides` applied) over the mesh's `model` axis, `steps`
+    steps of TRAIN_BATCH x TRAIN_SEQ tokens: granite-moe-1b-a400m on
+    this rank's 16 of 32 experts through moe_a2a and its 8 of 16 query
+    heads, mamba2-370m on its 16 of 32 SSD heads, minitron-4b on its 16
+    of 32 padded query heads and its 128000 of the 256000 rows of the
+    embedding and columns of the head; wall per step, peak memory, K2 /
+    K2b launches by shape, K4 / K4b launches, losses, the local shapes
+    of the embedding and the head."""
     import dataclasses
     import gc
 
@@ -4057,6 +4207,7 @@ def _dist_train_full(torch, mesh, arch, steps, layers=None) -> dict:
     cfg = get_arch(arch)
     if layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
+    cfg = dataclasses.replace(cfg, **overrides)
     opts = TrainOptions(total_steps=steps)
     with use_mesh(mesh):
         reset_launches()
@@ -4066,8 +4217,12 @@ def _dist_train_full(torch, mesh, arch, steps, layers=None) -> dict:
         if cfg.family == "ssm":
             experts, heads = 0, first.ssm.A_log.shape[0]
         else:
-            experts = first.moe.experts.w_in.shape[0]
+            experts = (first.moe.experts.w_in.shape[0]
+                       if hasattr(first, "moe") else 0)
             heads = first.attn.wq.shape[1] // cfg.head_dim
+        vocab = {n: tuple(p.shape) for n, p in
+                 state.params.named_parameters()
+                 if n in ("embed", "lm_head")}
         local = sum(p.numel() for p in state.params.parameters())
         step = make_train_step(cfg, opts=opts)
         dcfg = DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
@@ -4083,6 +4238,7 @@ def _dist_train_full(torch, mesh, arch, steps, layers=None) -> dict:
         out = dict(losses=losses, grad_norms=norms, wall_ms=walls,
                    peak_bytes=torch.cuda.max_memory_allocated(),
                    local_params=local, experts=experts, heads=heads,
+                   vocab_shapes=vocab,
                    model_rank=sharding.axis_rank("model"),
                    k2=flash_attention.launches,
                    k2b=flash_attention_bwd.launches,
@@ -4222,8 +4378,13 @@ def _dist_rank(rank, world, store, out_dir):
                                         DIST_TRAIN_STEPS)
         res["ssm"] = _dist_train_full(torch, mesh, DIST_SSM_ARCH,
                                       DIST_SSM_STEPS, DIST_SSM_LAYERS)
+        res["vocab"] = [_dist_train_full(
+            torch, mesh, DIST_VOCAB_ARCH, DIST_VOCAB_STEPS, DIST_VOCAB_LAYERS,
+            seq_parallel=sp) for sp in (False, True)]
         res["card_vs_cpu"] = {a: _dist_card_vs_cpu(torch, mesh, a)
                               for a in DIST_REDUCED}
+        res["card_vs_cpu"][DIST_SP] = _dist_card_vs_cpu(
+            torch, mesh, DIST_VOCAB_ARCH, seq_parallel=True, remat=True)
         res["card_vs_cpu"][DIST_FSDP] = _dist_card_vs_cpu(
             torch, make_mesh(world, 1, device=DIST_DEVICE), DIST_FSDP_ARCH,
             fsdp=True)
@@ -4242,6 +4403,8 @@ def phase_dist(torch, rows) -> dict:
     import pickle
 
     import torch.multiprocessing as mp
+
+    from repro_torch.models.registry import get_arch
     n = DIST_WORLD
     d = tempfile.mkdtemp(prefix="chip-smoke-dist-")
     try:
@@ -4266,7 +4429,7 @@ def phase_dist(torch, rows) -> dict:
     for r, x in enumerate(res):
         if "error" in x:
             fail(f"phase 20 rank {r}:\n{x['error']}")
-    (train_shape, _), (decode_shape, _), _ = dist_attention_shapes()
+    (train_shape, _), (decode_shape, _) = dist_attention_shapes()[:2]
     # 20.1: the same loss bits on every rank, each rank its half
     tr = [x["train"] for x in res]
     if len({tuple(t["losses"]) for t in tr}) != 1 or not all(
@@ -4317,9 +4480,50 @@ def phase_dist(torch, rows) -> dict:
               f"{[round(w, 1) for w in t['wall_ms']]}, peak "
               f"{t['peak_bytes'] / 2**30:.2f} GiB, K4 {t['k4']} / K4b "
               f"{t['k4b']}, losses {t['losses']}")
+    # 20.1 for the vocabulary split: every rank holds half the
+    # embedding's rows and the head's columns, the same loss bits on both
+    # ranks in each setting, K2 / K2b at the shard's shape as often as
+    # remat gives
+    voc = [x["vocab"] for x in res]
+    V = get_arch(DIST_VOCAB_ARCH).vocab
+    for i, sp in enumerate((False, True)):
+        runs = [v[i] for v in voc]
+        if len({tuple(t["losses"]) for t in runs}) != 1 or not all(
+                math.isfinite(v) for v in runs[0]["losses"]
+                + runs[0]["grad_norms"]):
+            fail(f"phase 20: {DIST_VOCAB_ARCH} (seq_parallel {sp}): the "
+                 f"ranks' losses differ or are not finite: "
+                 f"{[t['losses'] for t in runs]}")
+        for t in runs:
+            if t["vocab_shapes"]["embed"][0] != V // n or \
+                    t["vocab_shapes"]["lm_head"][1] != V // n:
+                fail(f"phase 20: a {DIST_VOCAB_ARCH} rank holds "
+                     f"{t['vocab_shapes']}, not {V // n} of {V} rows / "
+                     f"columns")
+    vocab_shape, _ = dist_vocab_shape()
+    for name, key in (("flash_attention", "k2_shapes"),
+                      ("flash_attention_bwd", "k2b_shapes")):
+        r = rows[(name, vocab_shape.tag)]
+        got = Counter()
+        for v in voc:
+            for t in v:
+                got.update(t[key])
+        r["launches"] = got.pop(r["key"], 0)
+        if r["launches"] != r["expect"] or any(got.values()):
+            fail(f"phase 20: {DIST_VOCAB_ARCH}: {name} launched "
+                 f"{r['launches']} times at the shard's shape (expected "
+                 f"{r['expect']}), and at others {dict(got)}")
+    for r, v in enumerate(voc):
+        for sp, t in zip((False, True), v):
+            print(f"  {DIST_VOCAB_ARCH} ({DIST_VOCAB_LAYERS} layers, vocab "
+                  f"{V} split {V // n} a rank) rank {r}, seq_parallel {sp}: "
+                  f"{t['local_params'] / 1e9:.3f} B parameters, step wall "
+                  f"ms {[round(w, 1) for w in t['wall_ms']]}, peak "
+                  f"{t['peak_bytes'] / 2**30:.2f} GiB, K2 {t['k2']} / K2b "
+                  f"{t['k2b']}, losses {t['losses']}")
     # 20.2: card against CPU, every rank, each reduced config
     cvc = {}
-    for arch in DIST_REDUCED + (DIST_FSDP,):
+    for arch in DIST_REDUCED + (DIST_SP, DIST_FSDP):
         mesh_shape = (n, 1) if arch == DIST_FSDP else (1, n)
         if arch == DIST_FSDP and not all(
                 x["card_vs_cpu"][arch]["data_sharded"] for x in res):
@@ -4349,6 +4553,22 @@ def phase_dist(torch, rows) -> dict:
               f"rel)")
         cvc[arch] = dict(metrics_max_rel=worst, params_max_abs=p_worst,
                          params_atol=atol)
+    # the reduced config with seq_parallel on against it off, on the card
+    worst = 0.0
+    for r, x in enumerate(res):
+        for a, c in zip(x["card_vs_cpu"][DIST_SP]["card"][0],
+                        x["card_vs_cpu"][DIST_VOCAB_ARCH]["card"][0]):
+            for key in ("loss", "grad_norm"):
+                rel = abs(a[key] - c[key]) / max(abs(c[key]), 1e-30)
+                worst = max(worst, rel)
+                if rel > 2e-4:
+                    fail(f"phase 20 rank {r}: reduced {DIST_VOCAB_ARCH} "
+                         f"with seq_parallel {key} {a[key]} vs {c[key]} "
+                         f"without")
+    print(f"  reduced {DIST_VOCAB_ARCH} float32 on the card, seq_parallel "
+          f"on against off, 3 steps: loss / grad norm max rel {worst:.3g} "
+          f"(limit 2e-4)")
+    cvc["seq_parallel_vs_off_max_rel"] = worst
     # 20.3: the sequence-sharded decode
     dec = [x["decode"] for x in res]
     r = rows[("flash_decode", decode_shape.tag)]
@@ -4373,11 +4593,15 @@ def phase_dist(torch, rows) -> dict:
               f"{x['k3']['launches']}, with the lse {x['k3']['lse']}; "
               f"sharded {x['sharded']}")
     print("  gloo carried this phase's collectives on CUDA tensors: "
-          "all_gather_into_tensor (every gather and rank-order sum) and "
-          "all_to_all_single (moe_a2a); DTensor's own collectives are not "
-          "run on the card (full_tensor crashes a rank there: ROADMAP.md)")
+          "all_gather_into_tensor (every gather; a rank-order sum's second "
+          "half), all_to_all_single (moe_a2a; a rank-order sum's "
+          "reduce-scatter) and all_reduce (max; the split vocabulary's "
+          "exact sums); DTensor's own collectives are not run on the card "
+          "(full_tensor crashes a rank there: ROADMAP.md)")
     return dict(train=[{k: v for k, v in t.items() if "shapes" not in k}
                        for t in tr],
+                vocab=[[{k: v for k, v in t.items() if "shapes" not in k}
+                        for t in v] for v in voc],
                 ssm=[{k: v for k, v in t.items() if "shapes" not in k}
                      for t in sm],
                 card_vs_cpu=cvc,
@@ -4396,6 +4620,17 @@ def phase_dist(torch, rows) -> dict:
 DRY_TRAIN = "phase18_train"
 DRY_DECODE = "phase3_decode"
 DRY_TIMEOUT_S = 400                 # from the tables' start
+# phase 21 (a)'s tag of the train_4k cells run with seq_parallel on
+SEQ_PARALLEL = "seq_parallel"
+
+
+def seq_parallel_archs():
+    """The archs whose stacks hold decoder layers (``lm._decoder_layer``,
+    zamba2's shared block among them), where ``cfg.seq_parallel`` splits
+    the residual stream; mamba2 and whisper have none."""
+    from repro_torch.models.registry import ARCH_IDS, get_arch
+    return [a for a in ARCH_IDS if get_arch(a).family != "ssm"
+            and not get_arch(a).enc_dec]
 
 
 class DryTables:
@@ -4417,6 +4652,11 @@ class DryTables:
         # the deepest archs first, so the longest traces start early
         archs = sorted(ARCH_IDS, key=lambda a: -get_arch(a).n_layers)
         self.jobs = [(a, mp) for a in archs for mp in (False, True)]
+        # and train_4k with seq_parallel on, single pod, for every arch
+        # built from decoder layers (run_cell's overrides)
+        self.jobs += [(a, SEQ_PARALLEL) for a in archs
+                      if a in seq_parallel_archs()]
+        self.dirs[SEQ_PARALLEL] = self.dirs[False]
         self.results = {}              # (arch, multi_pod) -> (rc, log)
         self.procs = {}
         self.lock = threading.Lock()
@@ -4438,9 +4678,17 @@ class DryTables:
                 while todo and len(self.procs) < self.width:
                     arch, mp = todo.pop(0)
                     log = tempfile.TemporaryFile(mode="w+")
-                    cmd = [sys.executable, "-W", "ignore", "-m",
-                           "repro_torch.launch.dryrun", "--arch", arch,
-                           "--out", self.dirs[mp]] + ["--multi-pod"] * mp
+                    if mp == SEQ_PARALLEL:
+                        cmd = [sys.executable, "-W", "ignore", "-c",
+                               "from repro_torch.launch.dryrun import "
+                               "run_cell; run_cell(%r, 'train_4k', "
+                               "out_dir=%r, overrides={'seq_parallel': "
+                               "True}, tag=%r)" % (arch, self.dirs[mp],
+                                                   SEQ_PARALLEL)]
+                    else:
+                        cmd = [sys.executable, "-W", "ignore", "-m",
+                               "repro_torch.launch.dryrun", "--arch", arch,
+                               "--out", self.dirs[mp]] + ["--multi-pod"] * mp
                     self.procs[(arch, mp)] = (subprocess.Popen(
                         cmd, stdout=log, stderr=subprocess.STDOUT,
                         cwd=ROOT, env=env), log)
@@ -4465,7 +4713,7 @@ class DryTables:
                     proc.wait()
                 log.close()
             self.procs.clear()
-        for d in self.dirs.values():
+        for d in set(self.dirs.values()):
             shutil.rmtree(d, ignore_errors=True)
 
 
@@ -4481,10 +4729,11 @@ def _dry_table(torch, tables: DryTables) -> dict:
         fail(f"phase 21: the dry runs did not end within {DRY_TIMEOUT_S} s "
              f"of their start")
     wall = time.monotonic() - tables.t0
-    for (arch, mp), (rc, text) in sorted(tables.results.items()):
+    for (arch, mp), (rc, text) in sorted(tables.results.items(), key=str):
         if rc != 0:
-            fail(f"phase 21: the dry run of {arch} "
-                 f"({'2x16x16' if mp else '16x16'}) exited {rc}:\n"
+            mesh = ("16x16 seq_parallel" if mp == SEQ_PARALLEL
+                    else "2x16x16" if mp else "16x16")
+            fail(f"phase 21: the dry run of {arch} ({mesh}) exited {rc}:\n"
                  f"{text[-3000:]}")
     want = [(a, c) for a in ARCH_IDS for c in cells(get_arch(a))]
     out = {}
@@ -4524,6 +4773,26 @@ def _dry_table(torch, tables: DryTables) -> dict:
               f"{slow['trace_s']:.1f} s; all "
               f"{sum(x['trace_s'] for x in arts):.1f} s")
         out[mesh] = cells_out
+    # train_4k with seq_parallel on, beside the same cell without
+    rows_sp = []
+    for a in seq_parallel_archs():
+        path = os.path.join(tables.dirs[SEQ_PARALLEL],
+                            f"{a}_train_4k_16x16_{SEQ_PARALLEL}.json")
+        if not os.path.exists(path):
+            fail(f"phase 21: no seq_parallel train_4k artifact for {a}")
+        with open(path) as f:
+            art = json.load(f)
+        off = next(c for c in out["16x16"]
+                   if c["arch"] == a and c["shape"] == "train_4k")
+        rows_sp.append(dict(arch=a, peak_gb=art["per_chip_bytes"] / 1e9,
+                            peak_gb_off=off["peak_gb"],
+                            wire_gb=art["roofline"]["wire_bytes_per_chip"]
+                            / 1e9, wire_gb_off=off["wire_gb"],
+                            bound_ms=art["bound_s"] * 1e3,
+                            bound_ms_off=off["bound_ms"],
+                            collectives=art["collective_counts"]))
+        print(f"    seq_parallel train_4k 16x16: {json.dumps(rows_sp[-1])}")
+    out["seq_parallel_train_4k"] = rows_sp
     out["wall_s"] = wall
     return out
 

@@ -23,10 +23,10 @@ the CPU to hook into autograd, which allocates nothing).  Its
     moves through HBM, where no two ops are fused;
   * **wire_bytes**, **collective_bytes**, **collective_count** - every
     collective where the port issues it (``models/sharding.py``:
-    ``_gather0``, which ``all_gather_dim`` and the rank-order sums use;
-    ``max_over``; ``_a2a``), costed by the reference's ring model
-    (``ring_wire``); what the port sends, not what GSPMD would: a
-    rank-order sum built on an all-gather costs that all-gather;
+    ``_gather0``, which ``all_gather_dim`` uses; ``max_over`` and
+    ``sum_of_one``; ``_a2a``; a rank-order sum is an ``_a2a`` and a
+    ``_gather0``), costed by the reference's ring model (``ring_wire``);
+    what the port sends, not what GSPMD would;
 
 and adds
 
@@ -185,6 +185,11 @@ class CostCounter:
         self._size: Dict[int, int] = {}
         self._mode = None
         self._prev = None
+
+    @property
+    def live_bytes(self) -> int:
+        """Bytes of the storages the step allocated that are alive now."""
+        return self._live_bytes
 
     # -- reports ------------------------------------------------------------
     def collective(self, kind: str, out: torch.Tensor, n: int) -> None:

@@ -50,7 +50,7 @@ def profile_decode(cfg: ArchConfig, model: lm.LM, batch: int,
     for t in range(prompt_len):
         logits, cache = lm.decode_step(cfg, model, cache, prompts[:, t], t,
                                        aux=aux)
-    tok = torch.argmax(logits, dim=-1)
+    tok = lm.greedy(cfg, logits)
     pos = prompt_len
 
     synchronize(device)
@@ -58,7 +58,7 @@ def profile_decode(cfg: ArchConfig, model: lm.LM, batch: int,
     for _ in range(steps):
         logits, cache = lm.decode_step(cfg, model, cache, tok, pos,
                                        aux=aux)
-        tok = torch.argmax(logits, dim=-1)
+        tok = lm.greedy(cfg, logits)
         pos += 1
     synchronize(device)
     wall_ms = (time.monotonic() - t0) * 1e3 / steps
@@ -75,7 +75,7 @@ def profile_decode(cfg: ArchConfig, model: lm.LM, batch: int,
         for _ in range(steps):
             logits, cache = lm.decode_step(cfg, model, cache, tok, pos,
                                            aux=aux)
-            tok = torch.argmax(logits, dim=-1)
+            tok = lm.greedy(cfg, logits)
             pos += 1
         synchronize(device)
     by_name = collections.Counter()

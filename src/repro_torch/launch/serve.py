@@ -45,7 +45,9 @@ from repro_torch.models.registry import get_arch
 class Generation:
     tokens: np.ndarray              # (B, gen) int32 greedy tokens
     prompt_logits: torch.Tensor     # (B, V) logits after the last prompt
-    #                                 token (position prompt_len - 1)
+    #                                 token (position prompt_len - 1); a
+    #                                 rank's (B, V / n) where the
+    #                                 vocabulary splits over `model`
     logits_finite: bool             # every step's logits were finite
     prefill_s: float                # prompt replay, wall clock
     decode_s: float                 # greedy decode, wall clock
@@ -63,7 +65,9 @@ def generate(cfg: ArchConfig, model: lm.LM, prompts: np.ndarray, gen: int,
              ) -> Generation:
     """Replay `prompts` (B, P) through decode steps, then decode `gen`
     tokens greedily (the loop of ``repro/launch/serve.py:65-80``); `aux`
-    goes to every step (``lm.decode_step``)."""
+    goes to every step (``lm.decode_step``).  Under a `model` axis that
+    splits the vocabulary each step's token is ``lm.greedy``'s argmax of
+    the whole rows, the same tokens as without the split."""
     batch, prompt_len = prompts.shape
     max_len = max_len or (prompt_len + gen)
     device = model.device
@@ -83,14 +87,14 @@ def generate(cfg: ArchConfig, model: lm.LM, prompts: np.ndarray, gen: int,
     prompt_logits = logits
 
     out = []
-    tok = torch.argmax(logits, dim=-1)
+    tok = lm.greedy(cfg, logits)
     synchronize(device)
     t0 = time.monotonic()
     for t in range(prompt_len, prompt_len + gen):
         out.append(tok.cpu().numpy().astype(np.int32))
         logits, cache = lm.decode_step(cfg, model, cache, tok, t, aux=aux)
         finite &= torch.isfinite(logits).all()
-        tok = torch.argmax(logits, dim=-1)
+        tok = lm.greedy(cfg, logits)
     synchronize(device)
     t_decode = time.monotonic() - t0
     tokens = (np.stack(out, axis=1) if out

@@ -42,9 +42,9 @@ class ArchConfig:
     top_k: int = 0
     moe_d_ff: int = 0                 # per-expert hidden dim
     capacity_factor: float = 1.25
-    moe_dispatch: str = "sort"        # "sort" (O(T·k·d) scatter/gather),
-    #                                 # the only one ported: moe_dense
-    #                                 # raises for "onehot"
+    moe_dispatch: str = "sort"        # "sort" (O(T·k·d) scatter/gather)
+    #                                 # or "onehot" (the O(T·E·cap·d)
+    #                                 # einsums, the reference's baseline)
 
     # MLA (deepseek-v3)
     mla: bool = False

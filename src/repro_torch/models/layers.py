@@ -15,6 +15,7 @@ import threading
 from typing import Iterator, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch.kernels import ops
@@ -194,14 +195,12 @@ def mlp(p: MLP, x: torch.Tensor, act: str = "silu",
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; where `table` is this rank's rows of a vocabulary
+    split over `model` (``sharding.is_sharded``), the lookup of
+    ``sharding.vocab_lookup``."""
+    if sharding.is_sharded(table):
+        return sharding.vocab_lookup(table, tokens)
     return table[tokens]
-
-
-def lm_logits(head: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """head (d, V) or the tied embedding table (V, d)."""
-    if head.shape[0] < head.shape[1]:        # (d, V)
-        return h @ head
-    return h @ head.T
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -289,6 +288,138 @@ def _n_valid(labels: torch.Tensor) -> torch.Tensor:
 
 
 def fused_ce(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
-             chunk_s: int = 512) -> torch.Tensor:
-    """See ``FusedCE``."""
+             chunk_s: int = 512, vocab_parallel: bool = False
+             ) -> torch.Tensor:
+    """See ``FusedCE``; with `vocab_parallel`, `w` is this rank's columns
+    of a head split by vocabulary over `model` (``VocabParallelCE``)."""
+    if vocab_parallel and sharding.model_parallel():
+        return VocabParallelCE.apply(h, w, labels, chunk_s,
+                                     sharding.axis_group("model"))
     return FusedCE.apply(h, w, labels, chunk_s)
+
+
+# --------------------------------------------------------------------------
+# The vocabulary split over `model`: cross-entropy on a rank's slice
+# --------------------------------------------------------------------------
+
+
+def _vocab_lse_gold(logits: torch.Tensor, labels: torch.Tensor, group):
+    """Of float32 `logits` (..., V_l), this rank's columns [r V_l,
+    (r + 1) V_l) of the rows: the rows' log-sum-exp (the max over the
+    group, the sums of exp added in rank order) and the gold logit at
+    `labels` (global ids; from the rank that holds it, ``sum_of_one``),
+    both (...,) and the same bits on every rank; with the labels' local
+    index and whether this rank holds it."""
+    Vl = logits.shape[-1]
+    m = sharding.max_over(logits.amax(-1), group)
+    s = sharding.sum_in_rank_order(
+        torch.exp(logits - m[..., None]).sum(-1), group)
+    lse = m + torch.log(s)
+    local = labels - dist.get_rank(group) * Vl
+    mine = (local >= 0) & (local < Vl)
+    local = local.clamp(0, Vl - 1)
+    gold = logits.gather(-1, local[..., None])[..., 0]
+    gold = sharding.sum_of_one(torch.where(mine, gold, torch.zeros_like(gold)),
+                               group)
+    return lse, gold, local, mine
+
+
+def _vocab_dlogits(logits: torch.Tensor, lse: torch.Tensor,
+                   local: torch.Tensor, mine: torch.Tensor,
+                   weight: torch.Tensor) -> torch.Tensor:
+    """(softmax - onehot(label)) x `weight` (...,) on this rank's columns,
+    in place of `logits`: no communication."""
+    p = torch.exp(logits.sub_(lse[..., None]))
+    p.scatter_add_(-1, local[..., None], -mine[..., None].float())
+    return p.mul_(weight[..., None])
+
+
+class VocabParallelCE(torch.autograd.Function):
+    """``FusedCE`` on a head split by vocabulary over the ranks of
+    `group`: w (d, V_l) is this rank's columns [r V_l, (r + 1) V_l), h
+    (B, S, d) is replicated over the group, labels (B, S) hold global
+    ids (-1 = ignore).  Each `chunk_s`-position block makes its float32
+    logits over this rank's columns only; the log-sum-exp and the gold
+    logit come from ``_vocab_lse_gold`` (max over the group, sums in
+    rank order, the gold logit from its owner), so the loss is the same
+    bits on every rank and in every rerun.  The backward recomputes each
+    block's local logits from the saved log-sum-exp, builds this rank's
+    columns of softmax - onehot and its slice of dw with no
+    communication, and sums dh = dl @ w_lᵀ over the group in rank order.
+    No atomics.
+
+        VocabParallelCE.apply(h, w, labels, chunk_s, group) -> 0-d loss
+    """
+
+    @staticmethod
+    def forward(ctx, h, w, labels, chunk_s, group):
+        labels = labels.long()
+        wf = w.float()
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        lses = []
+        for hb, lb in _ce_chunks(h, labels, chunk_s):
+            lse, gold, _, _ = _vocab_lse_gold(hb.float() @ wf, lb, group)
+            total = total + torch.where(lb >= 0, lse - gold,
+                                        torch.zeros_like(lse)).sum()
+            lses.append(lse)
+        ctx.save_for_backward(h, w, labels, torch.cat(lses, dim=1))
+        ctx.chunk_s, ctx.group = chunk_s, group
+        return total / _n_valid(labels)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, labels, lse = ctx.saved_tensors
+        wf = w.float()
+        Vl = w.shape[1]
+        scale = g / _n_valid(labels)
+        rank = dist.get_rank(ctx.group)
+        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+        dh = torch.empty(h.shape, dtype=torch.float32, device=h.device)
+        c0 = 0
+        for hb, lb in _ce_chunks(h, labels, ctx.chunk_s):
+            hf = hb.float()
+            c1 = c0 + hb.shape[1]
+            local = lb - rank * Vl
+            mine = (local >= 0) & (local < Vl)
+            dl = _vocab_dlogits(hf @ wf, lse[:, c0:c1],
+                                local.clamp(0, Vl - 1), mine,
+                                (lb >= 0).float() * scale)
+            dh[:, c0:c1] = sharding.sum_in_rank_order(dl @ wf.T, ctx.group)
+            dw.addmm_(hf.reshape(-1, hf.shape[-1]).T,
+                      dl.reshape(-1, Vl))
+            c0 = c1
+            del dl
+        return dh.to(h.dtype), dw.to(w.dtype), None, None, None
+
+
+class _VocabParallelLogitsCE(torch.autograd.Function):
+    """``cross_entropy`` of logits split by vocabulary over `group`
+    (this rank's columns, ``VocabParallelCE``'s layout): the mean
+    float32 loss, the same bits on every rank; the backward gives this
+    rank's columns of (softmax - onehot) / n_valid."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, group):
+        labels = labels.long()
+        lf = logits.float()
+        lse, gold, local, mine = _vocab_lse_gold(lf, labels, group)
+        valid = labels >= 0
+        ctx.save_for_backward(logits, lse, local, mine, valid)
+        n = _n_valid(labels)
+        ctx.n = n
+        return torch.where(valid, lse - gold, torch.zeros_like(lse)).sum() / n
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, local, mine, valid = ctx.saved_tensors
+        dl = _vocab_dlogits(logits.float().clone(), lse, local, mine,
+                            valid.float() * (g / ctx.n))
+        return dl.to(logits.dtype), None, None
+
+
+def vocab_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                        ) -> torch.Tensor:
+    """``cross_entropy`` (no mask) of `logits` that are this rank's
+    columns of a vocabulary split over `model`."""
+    return _VocabParallelLogitsCE.apply(logits, labels,
+                                        sharding.axis_group("model"))

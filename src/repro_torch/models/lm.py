@@ -35,9 +35,16 @@ parameters (``sharding.shard_params``) and its rows of the batch; every
 attention (GQA, MLA, gemma3's windows, whisper's encoder and
 cross-attention, zamba2's shared block with its LoRA), the SSD block,
 the MLP and MoE run in the depth format, on this rank's heads, columns
-or experts; the embedding and the LM head take their weights in full.
-The decode caches hold this rank's rows and, over `model`, what
-``registry.cache_specs`` splits there (``init_cache``).
+or experts.  Where the specs split the vocabulary over `model` (every
+vocabulary that 16 divides), the embedding, the LM head, the logits and
+the loss work on this rank's slice of it and no rank holds the whole
+table: the lookup of ``sharding.vocab_lookup``, logits (..., V / n) as
+the reference's out-specs lay them out (``gather_vocab`` makes whole
+rows, ``greedy`` picks the token), ``layers.VocabParallelCE``.  With
+``cfg.seq_parallel`` and a sequence that the axis divides, the residual
+stream between decoder layers holds this rank's S / n positions
+(``_decoder_layer``).  The decode caches hold this rank's rows and, over
+`model`, what ``registry.cache_specs`` splits there (``init_cache``).
 """
 from __future__ import annotations
 
@@ -59,8 +66,8 @@ from .attention import (MLA, Attention, SeqOverData, _attention_tp,
 from . import sharding
 from .config import ArchConfig
 from .layers import (MLP, cross_entropy, dense_init, dtype_of, embed,
-                     embed_init, fused_ce, init_mlp, lm_logits, mlp, param,
-                     recomputing, rms_norm)
+                     embed_init, fused_ce, init_mlp, mlp, param,
+                     recomputing, rms_norm, vocab_cross_entropy)
 from .moe import MoE, init_moe, moe
 from .ssm import SSM, SSMState, init_ssm, init_ssm_state, ssm_block
 
@@ -238,10 +245,6 @@ class LM(nn.Module):
         self.mtp = (MTP(cfg, dtype, device) if mtp and cfg.mtp else None)
 
     @property
-    def head(self) -> torch.Tensor:
-        return self.lm_head if self.lm_head is not None else self.embed
-
-    @property
     def device(self) -> torch.device:
         return self.embed.device
 
@@ -320,13 +323,27 @@ def _init_ssm_layer(gen: torch.Generator, layer: SSMLayer) -> None:
 def _decoder_layer(p: DecoderLayer, h: torch.Tensor, cfg: ArchConfig,
                    positions: torch.Tensor, window: Optional[int] = None,
                    mrope_positions: Optional[torch.Tensor] = None,
-                   kv_cache=None, cache_pos=None):
+                   kv_cache=None, cache_pos=None, seq_par: bool = False):
     """Pre-norm attention then pre-norm MLP or MoE.  `window` and
     `mrope_positions` reach the GQA attention (window None: the arch
     default; 0: full).  Every layer function takes its weights gathered
-    over `data` where FSDP splits them (``sharding.fsdp_gathered``)."""
+    over `data` where FSDP splits them (``sharding.fsdp_gathered``).
+
+    With `seq_par` (``_seq_parallel``) `h` is this rank's S / n positions
+    of the residual stream (B, S / n, d), and so is the result: the
+    norms and the residual adds run on them (the norms' weights summed
+    over `model` in the backward, ``sharding.replicated``); each block
+    takes the normed positions all-gathered along the sequence
+    (``sharding.gather_from``: its backward keeps this rank's slice of
+    the block's input gradient, which the block sums over `model`) and
+    so sees what it sees without the flag, at absolute `positions`; its
+    output, summed over `model` in rank order, is cut to this rank's
+    positions (``sharding.scatter_to``: its backward all-gathers).  The
+    MoE block routes the same T tokens, so its capacity and drops are
+    those without the flag."""
     p = sharding.fsdp_gathered(p)
-    hn = rms_norm(p.norm1, h, cfg.norm_eps)
+    gather, scatter, norm = _seq_ops(seq_par)
+    hn = gather(rms_norm(norm(p.norm1), h, cfg.norm_eps))
     if isinstance(p.attn, MLA):
         a, new_cache = mla_attention(p.attn, hn, cfg,
                                      positions, kv_cache=kv_cache,
@@ -335,19 +352,53 @@ def _decoder_layer(p: DecoderLayer, h: torch.Tensor, cfg: ArchConfig,
         a, new_cache = attention(p.attn, hn, cfg, positions, window=window,
                                  mrope_positions=mrope_positions,
                                  kv_cache=kv_cache, cache_pos=cache_pos)
-    h = h + a
-    hn = rms_norm(p.norm2, h, cfg.norm_eps)
+    h = h + scatter(a)
+    hn = rms_norm(norm(p.norm2), h, cfg.norm_eps)
     h = _residual_shard(h, cfg)
-    return h + _feed_forward(p, hn, cfg), new_cache
+    return h + scatter(_feed_forward(p, gather(hn), cfg)), new_cache
+
+
+def _seq_parallel(cfg: ArchConfig, S: int) -> bool:
+    """Whether a full-sequence pass of S positions keeps the residual
+    stream between decoder layers split over `model` by positions: with
+    ``cfg.seq_parallel``, a model axis of n > 1 and S % n == 0, as the
+    reference's ``_residual_shard``; replicated otherwise (decode)."""
+    nm = sharding.mesh_axis_size("model")
+    return bool(cfg.seq_parallel and nm > 1 and S % nm == 0)
+
+
+def _identity(t):
+    return t
+
+
+def _seq_ops(seq_par: bool):
+    """(gather, scatter, norm weight) of ``_decoder_layer``: the
+    sequence's all-gather and this rank's slice of it along dim 1, and
+    ``sharding.replicated`` for a norm's weight, with `seq_par`;
+    identities without."""
+    if not seq_par:
+        return _identity, _identity, _identity
+    return (lambda t: sharding.gather_from(t, 1),
+            lambda t: sharding.scatter_to(t, 1), sharding.replicated)
+
+
+def _seq_final(cfg: ArchConfig, w: torch.Tensor, h: torch.Tensor,
+               seq_par: bool) -> torch.Tensor:
+    """The last norm of a stack (its weight `w`) on the stream `h`, then,
+    with `seq_par`, the positions all-gathered: the head takes the whole
+    sequence."""
+    gather, _, norm = _seq_ops(seq_par)
+    return gather(rms_norm(norm(w), h, cfg.norm_eps))
 
 
 def _residual_shard(h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """The reference's residual-stream constraint between blocks:
     sequence-sharded over `model` with ``cfg.seq_parallel`` (when the
-    sequence divides the axis), else replicated over it.  Through
-    ``sharding.maybe_shard``: a DTensor is redistributed; the per-rank
-    program's plain tensors keep their layout (replicated over
-    `model`)."""
+    sequence divides the axis), else replicated over it.  On the
+    per-rank path the layout is the program's own: with the flag
+    ``_decoder_layer`` already holds this rank's positions (`seq_par`),
+    and ``sharding.maybe_shard`` leaves a plain tensor as it is; a
+    DTensor is redistributed."""
     nm = sharding.mesh_axis_size("model")
     if cfg.seq_parallel and h.dim() == 3 and nm > 1 \
             and h.shape[1] % nm == 0:
@@ -414,12 +465,18 @@ def _as_tokens(x, device) -> torch.Tensor:
     return _as_tensor(x, device).long()
 
 
+def _embed_tokens(model: LM, tokens: torch.Tensor) -> torch.Tensor:
+    """The embeddings of `tokens`: from this rank's slice of the table
+    where the vocabulary is split over `model` (``layers.embed``), the
+    table gathered over `data` where FSDP splits it."""
+    return embed(sharding.unshard_data(model.embed), tokens)
+
+
 def _embed_inputs(cfg: ArchConfig, model: LM, batch: Dict) -> torch.Tensor:
     """Token embeddings (B, S, d); for the vlm, `vision_embed` (B, Nv, d),
     cast to the model dtype, written over positions 0 .. Nv-1 (as the
     reference's dynamic_update_slice, which refuses Nv > S)."""
-    h = embed(sharding.full(model.embed),
-              _as_tokens(batch["tokens"], model.device))
+    h = _embed_tokens(model, _as_tokens(batch["tokens"], model.device))
     if cfg.family == "vlm" and batch.get("vision_embed") is not None:
         ve = _as_tensor(batch["vision_embed"], h.device)
         if ve.dim() != 3 or ve.shape[0] != h.shape[0] or \
@@ -464,21 +521,35 @@ def _remat_contexts():
 
 def forward_hidden(cfg: ArchConfig, model: LM, batch: Dict
                    ) -> torch.Tensor:
-    """Full-sequence forward -> final-norm hidden states (B, S, d)."""
+    """Full-sequence forward -> final-norm hidden states (B, S, d).  With
+    ``_seq_parallel``, the decoder layers' stream holds this rank's
+    positions (the embeddings cut to them, the final norm on them, then
+    gathered); zamba2's shared block cuts and gathers its own, so the
+    SSM layers' stream stays whole, as the reference keeps it."""
     h = _embed_inputs(cfg, model, batch)
     h = sharding.maybe_shard(h, ("pod", "data"), None, None)
     B, S, _ = h.shape
     positions = torch.arange(S, device=h.device)[None].expand(B, S)
+    sp = _seq_parallel(cfg, S) and cfg.family not in ("ssm", "hybrid") \
+        and not cfg.enc_dec
+    if sp:
+        h = sharding.scatter_to(h, 1)
     if cfg.family == "hybrid":
         h0 = h      # the step's own embeddings feed every shared block
         ssm_fn = _maybe_remat(_ssm_layer, cfg)
+        shared_sp = _seq_parallel(cfg, S)
         for group in model.groups:
             for layer in group.ssm:
                 h, _ = ssm_fn(layer, h, cfg)
             # the shared block sees h + h0 and its output replaces h; it
             # runs outside remat, as the reference's group_body
+            hs = h + h0
+            if shared_sp:
+                hs = sharding.scatter_to(hs, 1)
             h, _ = _decoder_layer(_lora_apply(model.shared, group.lora),
-                                  h + h0, cfg, positions)
+                                  hs, cfg, positions, seq_par=shared_sp)
+            if shared_sp:
+                h = sharding.gather_from(h, 1)
     elif cfg.family == "ssm":
         ssm_fn = _maybe_remat(_ssm_layer, cfg)
         for layer in model.layers:
@@ -488,10 +559,12 @@ def forward_hidden(cfg: ArchConfig, model: LM, batch: Dict
         layer_fn = _maybe_remat(_decoder_layer, cfg)
         for group in model.groups:
             for layer in group.local:
-                h, _ = layer_fn(layer, h, cfg, positions, window=W)
-            h, _ = layer_fn(group.global_, h, cfg, positions, window=0)
+                h, _ = layer_fn(layer, h, cfg, positions, window=W,
+                                seq_par=sp)
+            h, _ = layer_fn(group.global_, h, cfg, positions, window=0,
+                            seq_par=sp)
         for layer in model.tail:
-            h, _ = layer_fn(layer, h, cfg, positions, window=W)
+            h, _ = layer_fn(layer, h, cfg, positions, window=W, seq_par=sp)
     elif cfg.enc_dec:
         xkv = cross_kv(cfg, model,
                        encode_audio(cfg, model, batch["audio_embed"]))
@@ -503,20 +576,64 @@ def forward_hidden(cfg: ArchConfig, model: LM, batch: Dict
         mropep = _mrope_pos(cfg, positions)
         layer_fn = _maybe_remat(_decoder_layer, cfg)
         for layer in (*model.dense_layers, *model.layers):
-            h, _ = layer_fn(layer, h, cfg, positions, mrope_positions=mropep)
-    return rms_norm(model.final_norm, h, cfg.norm_eps)
+            h, _ = layer_fn(layer, h, cfg, positions, mrope_positions=mropep,
+                            seq_par=sp)
+    return _seq_final(cfg, model.final_norm, h, sp)
+
+
+def _head(cfg: ArchConfig, model: LM) -> Tuple[torch.Tensor, bool]:
+    """The LM head as (d, V) - `lm_head`, or the tied embedding's
+    transpose (a view) - gathered over `data` where FSDP splits it, and
+    whether it is this rank's (d, V / n) columns of a vocabulary split
+    over `model`."""
+    w = sharding.unshard_data(model.embed if cfg.tie_embeddings
+                              else model.lm_head)
+    split = sharding.is_sharded(w)
+    return (w.T if cfg.tie_embeddings else w), split
+
+
+def _logits(cfg: ArchConfig, model: LM, h: torch.Tensor) -> torch.Tensor:
+    """h (..., d) -> logits (..., V), or this rank's (..., V / n) where
+    the vocabulary is split over `model` (`h` entering this rank's
+    columns: its gradient is summed over the axis)."""
+    w, split = _head(cfg, model)
+    return (sharding.copy_to(h) if split else h) @ w
+
+
+def gather_vocab(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
+    """Whole rows (..., V) of logits that are this rank's vocabulary
+    slice (``forward``, ``prefill``, ``decode_step`` under a `model`
+    axis that splits the vocabulary): all-gathered over the axis in rank
+    order, no autograd; `logits` itself where they are whole.  A
+    collective: every rank of the axis calls it."""
+    if logits.shape[-1] == cfg.vocab:
+        return logits
+    return sharding.all_gather_dim(logits.detach(), logits.dim() - 1,
+                                   sharding.axis_group("model"))
+
+
+def greedy(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
+    """The greedy token (int64) of each row of `logits`: ``torch.argmax``
+    of the whole rows, also where they are this rank's vocabulary slice
+    (``sharding.argmax_over``: the max over `model`, then the lowest
+    index among equal maxima, as ``torch.argmax``); the same on every
+    rank of the axis."""
+    if logits.shape[-1] == cfg.vocab:
+        return torch.argmax(logits, dim=-1)
+    return sharding.argmax_over(logits, sharding.axis_group("model"))
 
 
 def forward(cfg: ArchConfig, model: LM, batch: Dict) -> torch.Tensor:
-    """Full-sequence forward -> logits (B, S, V)."""
-    logits = lm_logits(sharding.full(model.head),
-                       forward_hidden(cfg, model, batch))
+    """Full-sequence forward -> logits (B, S, V), or this rank's
+    (B, S, V / n) where the vocabulary is split over `model` (the
+    reference's out-spec, P(data, None, model))."""
+    logits = _logits(cfg, model, forward_hidden(cfg, model, batch))
     return sharding.maybe_shard(logits, ("pod", "data"), None, "model")
 
 
 def prefill(cfg: ArchConfig, model: LM, batch: Dict) -> torch.Tensor:
-    """Prompt processing: full-sequence forward returning last-position
-    logits (B, V)."""
+    """Prompt processing: the full-sequence forward's last-position
+    logits (B, V), or this rank's (B, V / n) as ``forward``."""
     return forward(cfg, model, batch)[:, -1]
 
 
@@ -525,11 +642,18 @@ def prefill(cfg: ArchConfig, model: LM, batch: Dict) -> torch.Tensor:
 # ==========================================================================
 
 
-def _head_matrix(cfg: ArchConfig, model: LM) -> torch.Tensor:
-    """The LM head as (d, V): `lm_head`, or the tied embedding's
-    transpose (a view)."""
-    head = sharding.full(model.head)
-    return head if head.shape[0] == cfg.d_model else head.T
+def _ce(cfg: ArchConfig, model: LM, h: torch.Tensor, labels: torch.Tensor
+        ) -> torch.Tensor:
+    """The mean next-token cross-entropy of hidden states `h` (B, S', d)
+    against `labels` (B, S'): ``fused_ce`` when ``cfg.fused_ce_loss``,
+    else the cross-entropy of the logits, on this rank's vocabulary
+    slice where the head is split."""
+    w, split = _head(cfg, model)
+    if cfg.fused_ce_loss:
+        return fused_ce(h, w, labels, cfg.ce_chunk, vocab_parallel=split)
+    if split:
+        return vocab_cross_entropy(sharding.copy_to(h) @ w, labels)
+    return cross_entropy(h @ w, labels)
 
 
 def loss_fn(cfg: ArchConfig, model: LM, batch: Dict) -> torch.Tensor:
@@ -539,13 +663,8 @@ def loss_fn(cfg: ArchConfig, model: LM, batch: Dict) -> torch.Tensor:
     the logits; plus ``0.3 * _mtp_loss`` when the config and the model
     have the multi-token-prediction block."""
     labels = _as_tokens(batch["labels"], model.device)
-    if cfg.fused_ce_loss:
-        h = forward_hidden(cfg, model, batch)
-        loss = fused_ce(h[:, :-1], _head_matrix(cfg, model), labels[:, 1:],
-                        cfg.ce_chunk)
-    else:
-        loss = cross_entropy(forward(cfg, model, batch)[:, :-1],
-                             labels[:, 1:])
+    loss = _ce(cfg, model, forward_hidden(cfg, model, batch)[:, :-1],
+               labels[:, 1:])
     if cfg.mtp and model.mtp is not None:
         loss = loss + 0.3 * _mtp_loss(cfg, model, batch)
     return loss
@@ -555,23 +674,24 @@ def _mtp_loss(cfg: ArchConfig, model: LM, batch: Dict) -> torch.Tensor:
     """deepseek-v3's multi-token prediction: one extra decoder layer
     predicts token t+2 from [h_t ; emb(tok_{t+1})] (the embeddings of
     the token and of the next one, the last position wrapping round as
-    the reference's roll), through the shared LM head."""
+    the reference's roll), through the shared LM head.  With
+    ``_seq_parallel`` the layer's stream holds this rank's positions, as
+    the stack's."""
     tokens = _as_tokens(batch["tokens"], model.device)
     labels = _as_tokens(batch["labels"], model.device)
     B, S = tokens.shape
-    table = sharding.full(model.embed)
-    h = embed(table, tokens)
-    nxt = embed(table, torch.roll(tokens, -1, dims=1))
+    h = _embed_tokens(model, tokens)
+    nxt = _embed_tokens(model, torch.roll(tokens, -1, dims=1))
     mtp = model.mtp
     hh = torch.cat([h, nxt], dim=-1) @ sharding.full(mtp.proj)
     positions = torch.arange(S, device=hh.device)[None].expand(B, S)
-    hh, _ = _maybe_remat(_decoder_layer, cfg)(mtp.layer, hh, cfg, positions)
-    hh = rms_norm(mtp.norm, hh, cfg.norm_eps)
-    if cfg.fused_ce_loss:
-        return fused_ce(hh[:, :-2], _head_matrix(cfg, model), labels[:, 2:],
-                        cfg.ce_chunk)
-    lg = lm_logits(sharding.full(model.head), hh)
-    return cross_entropy(lg[:, :-2], labels[:, 2:])
+    sp = _seq_parallel(cfg, S)
+    if sp:
+        hh = sharding.scatter_to(hh, 1)
+    hh, _ = _maybe_remat(_decoder_layer, cfg)(mtp.layer, hh, cfg, positions,
+                                              seq_par=sp)
+    hh = _seq_final(cfg, mtp.norm, hh, sp)
+    return _ce(cfg, model, hh[:, :-2], labels[:, 2:])
 
 
 # ==========================================================================
@@ -828,15 +948,16 @@ def _decoder_caches(cfg: ArchConfig, cache: Dict):
 
 def decode_step(cfg: ArchConfig, model: LM, cache: Dict, token, pos: int,
                 aux: Optional[Dict] = None):
-    """token (B,) int; pos an int.  Returns (logits (B, V), cache); the
-    cache is updated in place and returned.  `aux`: whisper needs
+    """token (B,) int; pos an int.  Returns (logits (B, V), or this
+    rank's (B, V / n) as ``forward``, cache); the cache is updated in
+    place and returned.  `aux`: whisper needs
     {"cross_kv": cross_kv(...)} (its "enc_states" are not read here); for
     the vlm, {"vision_embed": (B, Nv, d)} replaces the token's embedding
     with the vision embedding at `pos` while pos < Nv."""
     pos = int(pos)
     token = _as_tokens(token, model.device)
     B = token.shape[0]
-    h = embed(sharding.full(model.embed), token[:, None])
+    h = _embed_tokens(model, token[:, None])
     if cfg.family == "vlm" and aux is not None and "vision_embed" in aux:
         ve = aux["vision_embed"]                    # (B, Nv, d)
         if pos < ve.shape[1]:
@@ -882,4 +1003,4 @@ def decode_step(cfg: ArchConfig, model: LM, cache: Dict, token, pos: int,
             h, _ = _decoder_layer(layer, h, cfg, positions,
                                   kv_cache=layer_cache, cache_pos=pos)
     h = rms_norm(model.final_norm, h, cfg.norm_eps)
-    return lm_logits(sharding.full(model.head), h)[:, 0], cache
+    return _logits(cfg, model, h[:, 0]), cache

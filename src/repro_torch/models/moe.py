@@ -2,10 +2,12 @@
 
 Counterpart of ``repro/models/moe.py``: ``init_moe``, ``_router_probs``,
 the sort dispatch ``_dispatch_sort`` (the JAX package's default,
-``ArchConfig.moe_dispatch = "sort"``), ``moe_dense``, the expert-parallel
-``moe_a2a`` and ``moe``, which chooses between them as the reference's
-``impl="auto"`` does.  The one-hot dispatch, which no configuration
-selects, is not ported (see ``ROADMAP.md``).
+``ArchConfig.moe_dispatch = "sort"``), the one-hot dispatch
+``_dispatch_onehot`` (``moe_dispatch = "onehot"``: the Mesh-TF einsums,
+O(T E cap d), which the reference keeps as its recorded baseline),
+``moe_dense``, the expert-parallel ``moe_a2a`` and ``moe``, which
+chooses between them as the reference's ``impl="auto"`` does.  Both
+dispatches keep the same assignments.
 
 Semantics, as in the JAX package: the float32 router picks the top k
 experts of each token and softmaxes their logits into gates; each expert
@@ -135,6 +137,51 @@ def _dispatch_sort(x2d: torch.Tensor, gates: torch.Tensor,
     return xe, combine, keep_tk.reshape(T, k)
 
 
+def _dispatch_onehot(x2d: torch.Tensor, gates: torch.Tensor,
+                     idx: torch.Tensor, E: int, cap: int
+                     ) -> Tuple[torch.Tensor, Combine, torch.Tensor]:
+    """The one-hot dispatch of ``repro/models/moe.py:_dispatch_onehot``:
+    each assignment's slot within its expert is the count of earlier
+    assignments to that expert (a cumulative sum over the flattened
+    (T k, E) one-hot, token-major, as the sort dispatch orders them), and
+    an expert keeps its first `cap`.  The (T, E, cap) dispatch tensor, in
+    x's dtype, and the float32 combine tensor, the kept gates in it, are
+    built from one-hots of the expert and of the slot, the overflow
+    column cut off; the expert buffers are ``einsum("td,tec->ecd")`` and
+    the combine ``einsum("ecd,tec->td")`` in float32.
+
+    Returns what ``_dispatch_sort`` returns: the (E, cap, d) buffers,
+    the combine function and the kept mask (T, k)."""
+    T, k = idx.shape
+    onehot = torch.nn.functional.one_hot(idx, E)              # (T, k, E)
+    flat = onehot.reshape(T * k, E)
+    pos = (torch.cumsum(flat, dim=0) - flat).reshape(T, k, E)
+    pos = (pos * onehot).sum(-1)                              # (T, k)
+    keep = pos < cap
+    slot = torch.nn.functional.one_hot(
+        torch.where(keep, pos, torch.full_like(pos, cap)), cap + 1)
+    eh = onehot.to(x2d.dtype)[..., None]
+    disp = (eh * slot.to(x2d.dtype)[..., None, :])[..., :cap].sum(1)
+    comb = (onehot.float()[..., None] * slot.float()[..., None, :]
+            * (gates * keep)[..., None, None])[..., :cap].sum(1)
+    xe = torch.einsum("td,tec->ecd", x2d, disp)
+
+    def combine(ye: torch.Tensor) -> torch.Tensor:
+        return torch.einsum("ecd,tec->td", ye.float(), comb)
+
+    return xe, combine, keep
+
+
+def _dispatch(x2d: torch.Tensor, gates: torch.Tensor, idx: torch.Tensor,
+              E: int, cap: int, cfg: ArchConfig
+              ) -> Tuple[torch.Tensor, Combine, torch.Tensor]:
+    """The dispatch ``cfg.moe_dispatch`` names, as the reference's
+    ``_dispatch``: "sort", or the one-hot einsums for any other."""
+    if cfg.moe_dispatch == "sort":
+        return _dispatch_sort(x2d, gates, idx, E, cap)
+    return _dispatch_onehot(x2d, gates, idx, E, cap)
+
+
 def capacity(cfg: ArchConfig, T: int) -> int:
     """Assignments each expert takes from a batch of T tokens."""
     return max(1, int(math.ceil(T * cfg.top_k / cfg.n_experts
@@ -142,22 +189,18 @@ def capacity(cfg: ArchConfig, T: int) -> int:
 
 
 def moe_dense(p: MoE, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Capacity-bounded sort dispatch.  x (B, S, d) -> (B, S, d); adds the
-    dropped assignments to ``p.dropped``, once a forward: not in remat's
-    recomputation of the layer in the backward (``layers.recomputing``).
-    Differentiable by autograd: the router's gradient flows through the
-    kept assignments' top-k gates, as in the reference.  Raises for a
-    ``cfg.moe_dispatch`` other than "sort"."""
-    if cfg.moe_dispatch != "sort":
-        raise NotImplementedError(
-            f"moe_dispatch={cfg.moe_dispatch!r} is not ported; only the sort "
-            f"dispatch is (ROADMAP.md, speed items: one-hot MoE dispatch)")
+    """Capacity-bounded dispatch, by ``cfg.moe_dispatch`` (``_dispatch``).
+    x (B, S, d) -> (B, S, d); adds the dropped assignments to
+    ``p.dropped``, once a forward: not in remat's recomputation of the
+    layer in the backward (``layers.recomputing``).  Differentiable by
+    autograd: the router's gradient flows through the kept assignments'
+    top-k gates, as in the reference."""
     B, S, d = x.shape
     T = B * S
     x2d = x.reshape(T, d)
     gates, idx = _router_probs(p, x2d, cfg)
-    xe, combine, keep = _dispatch_sort(x2d, gates, idx, cfg.n_experts,
-                                       capacity(cfg, T))
+    xe, combine, keep = _dispatch(x2d, gates, idx, cfg.n_experts,
+                                  capacity(cfg, T), cfg)
     if not in_recompute():      # remat runs the layer again in backward
         p.dropped += keep.numel() - keep.sum()
     we = p.experts
@@ -200,7 +243,7 @@ def moe_a2a(p: MoE, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     # gradient is summed over `model`
     gates, idx = _top_k(x2d.float() @ sharding.replicated(p.router), cfg)
     cap = capacity(cfg, T)
-    xe, combine, keep = _dispatch_sort(x2d, gates, idx, E, cap)
+    xe, combine, keep = _dispatch(x2d, gates, idx, E, cap, cfg)
     if not in_recompute():
         p.dropped += keep.numel() - keep.sum()
     # each rank keeps its experts' buffers from every rank:
@@ -259,8 +302,6 @@ def _moe_dense_data(p: MoE, x: torch.Tensor, cfg: ArchConfig
     weights stay replicated over `data`: each rank's gradient holds its
     experts' share of every rank's loss, and the data-parallel sum of
     the gradients adds the shares up."""
-    if cfg.moe_dispatch != "sort":
-        return moe_dense(p, x, cfg)         # raises, naming the dispatch
     nd, rd = sharding.mesh_axis_size("data"), sharding.axis_rank("data")
     B, S, d = x.shape
     E = cfg.n_experts
@@ -268,7 +309,7 @@ def _moe_dense_data(p: MoE, x: torch.Tensor, cfg: ArchConfig
     T = xg.shape[0] * S
     x2d = xg.reshape(T, d)
     gates, idx = _router_probs(p, x2d, cfg)
-    xe, combine, keep = _dispatch_sort(x2d, gates, idx, E, capacity(cfg, T))
+    xe, combine, keep = _dispatch(x2d, gates, idx, E, capacity(cfg, T), cfg)
     if not in_recompute():
         p.dropped += keep.numel() - keep.sum()
     split = E % nd == 0

@@ -18,9 +18,10 @@ tensor parallelism over the ``model`` axis and data parallelism over the
     per block, with the H100's rates;
   * the SPMD runtime: autograd-aware collectives over one mesh axis
     (``copy_to``, ``reduce_from``, ``gather_from``, ``scatter_to``,
-    ``all_to_all``) and the parameter views the layers take (``local``,
-    ``full``, ``gathered``), after ``shard_params`` has cut each
-    parameter to this rank's shard;
+    ``all_to_all``), the vocabulary split over ``model``
+    (``vocab_lookup``, ``sum_of_one``, ``argmax_over``) and the parameter
+    views the layers take (``local``, ``full``, ``gathered``), after
+    ``shard_params`` has cut each parameter to this rank's shard;
   * FSDP over ``data`` (``cfg.fsdp``): a parameter whose spec names
     ``data`` keeps only this rank's slice along that dimension too, and
     each layer takes its weights gathered over ``data`` at its use
@@ -45,14 +46,21 @@ w_in/w_gate and rows of w_out (Megatron's column/row pairing: one sum
 over ``model`` a block), MoE on this rank's experts through
 ``all_to_all`` (``moe.moe_a2a``) or, for the dense dispatch over
 ``data``, on its share of the experts (``moe._moe_dense_data``).  The
-embedding and the LM head take their weights in full (``full``), and
-the dense dispatch takes its experts in full (``gathered``) where the
-model axis does not split them.  The math is the reference's in every
-case; the formats change where bytes move, not what is computed.
+embedding and the LM head, where the specs split the vocabulary over
+``model``, work on this rank's slice of it: the lookup of the tokens it
+holds (``vocab_lookup``), logits over its columns, the loss's
+log-sum-exp across the ranks (``layers.VocabParallelCE``); a vocabulary
+the axis does not divide stays whole on every rank.  With
+``cfg.seq_parallel`` the residual stream between decoder layers holds
+this rank's positions (``lm._decoder_layer``).  The dense dispatch takes
+its experts in full (``gathered``) where the model axis does not split
+them.  The math is the reference's in every case; the formats change
+where bytes move, not what is computed.
 
 Every sum across ranks is taken in rank order (an all-gather, then a
 sum over ranks 0..n-1), on any backend, so a rerun is bit-equal and
-every rank holds the same bits.
+every rank holds the same bits; a sum where one rank holds each element
+(``sum_of_one``) is one all-reduce, exact in any order.
 """
 from __future__ import annotations
 
@@ -405,16 +413,25 @@ def sum_in_rank_order(x: torch.Tensor, group,
                       ) -> torch.Tensor:
     """The sum over the ranks of `group` of their `x`, added in rank order
     0, 1, ..., n-1 in `acc_dtype` (x's own by default) and returned in
-    x's dtype: the same bits on every rank and in every rerun."""
+    x's dtype: the same bits on every rank and in every rerun.  A
+    reduce-scatter, then an all-gather: each rank takes its 1 / n of
+    every rank's `x` (``_a2a``), adds those parts in rank order, and the
+    sums are all-gathered; so a rank holds about three times `x` at
+    once, not n times, and sends 2 (n - 1) / n of it."""
     n = dist.get_world_size(group)
     if n == 1:
         return x
-    parts = _gather0(x.reshape(1, -1), group)
+    flat = x.reshape(-1)
+    m = -(-flat.numel() // n)
+    if n * m != flat.numel():
+        flat = torch.nn.functional.pad(flat, (0, n * m - flat.numel()))
+    parts = _a2a(flat.view(n, m), group)        # row j: rank j's part
     acc_dtype = acc_dtype or x.dtype
     total = parts[0].to(acc_dtype)
     for i in range(1, n):
         total = total + parts[i].to(acc_dtype)
-    return total.to(x.dtype).reshape(x.shape)
+    total = _gather0(total.to(x.dtype), group)
+    return total[:x.numel()].reshape(x.shape)
 
 
 def max_over(x: torch.Tensor, group) -> torch.Tensor:
@@ -428,6 +445,41 @@ def max_over(x: torch.Tensor, group) -> torch.Tensor:
     if c is not None:
         c.collective("all-reduce", x, n)
     return x
+
+
+def sum_of_one(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the ranks of `group` of their `x` where, at each
+    element, at most one rank holds a value other than zero (a lookup in
+    a table split by rows, a gold logit owned by one vocabulary slice):
+    one all-reduce, exact in any order, so every rank holds the same bits
+    as a sum in rank order would give.  No autograd."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    x = x.contiguous().clone()
+    dist.all_reduce(x, group=group)
+    c = _cost.active()
+    if c is not None:
+        c.collective("all-reduce", x, n)
+    return x
+
+
+def argmax_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The index along the last dimension of the largest element of the
+    rows that `x`, this rank's slice of them (rank r holds columns
+    [r V_l, (r + 1) V_l)), makes with the other ranks' slices: the max
+    over the group, then the lowest index among the equal maxima, as
+    ``torch.argmax`` of the whole rows picks.  int64, the same on every
+    rank."""
+    n = dist.get_world_size(group)
+    i = torch.argmax(x, dim=-1)
+    if n == 1:
+        return i
+    m = x.gather(-1, i[..., None])[..., 0]
+    top = max_over(m, group)
+    big = torch.full_like(i, n * x.shape[-1])
+    cand = torch.where(m == top, i + dist.get_rank(group) * x.shape[-1], big)
+    return -max_over(-cand, group)
 
 
 def _local_slice(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -594,6 +646,34 @@ def all_to_all(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
     if mesh_axis_size(axis) == 1:
         return x
     return _AllToAll.apply(x, axis_group(axis))
+
+
+class _SumOfOne(torch.autograd.Function):
+    """``sum_of_one`` forward; identity backward: where partials of which
+    one rank holds each element (the embedding of a vocabulary split
+    over the group) become replicated."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return sum_of_one(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def vocab_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]`` where `table` is this rank's rows of an embedding
+    split by vocabulary over `model` (rank r: rows [r V_l, (r + 1) V_l)):
+    each rank looks up the tokens it holds, zeros elsewhere, and the ranks'
+    lookups are summed (``sum_of_one``: exact, the same bits as the whole
+    table's lookup).  The backward fills only this rank's rows."""
+    Vl = table.shape[0]
+    local = tokens - axis_rank("model") * Vl
+    mine = (local >= 0) & (local < Vl)
+    rows = table[local.clamp(0, Vl - 1)]
+    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return _SumOfOne.apply(rows, axis_group("model"))
 
 
 def all_sum(x: torch.Tensor, axis: str = "model") -> torch.Tensor:

@@ -625,8 +625,10 @@ def _families_world(rank, world, ref_path, out_dir):
                                           _audio(cfg, FAM_STEPS))
                     aux = {"cross_kv": lm.cross_kv(cfg, model, enc)}
                 cache = lm.init_cache(cfg, BATCH, FAM_DEC, device="cpu")
-                logits = [lm.decode_step(cfg, model, cache,
-                                         r["tokens"][:, t], t, aux)[0].numpy()
+                # whole rows (this rank's vocabulary slice where the
+                # model axis splits it)
+                logits = [lm.gather_vocab(cfg, lm.decode_step(
+                    cfg, model, cache, r["tokens"][:, t], t, aux)[0]).numpy()
                           for t in range(FAM_DEC)]
                 shapes = {k: tuple(v.shape) for k, v in
                           _flat_cache(cache)}

@@ -178,8 +178,10 @@ def _fsdp_world(rank, world, nd, nm, ref_path, out_dir):
             sharding.map_with_path(
                 lambda p, t: split.append(isinstance(t, SeqOverData)),
                 cache)
-            logits = [lm.decode_step(cfg, model, cache, r["tokens"][:, t],
-                                     t)[0].numpy()
+            # the whole rows of each step's logits (this rank's
+            # vocabulary slice where the model axis splits it)
+            logits = [lm.gather_vocab(cfg, lm.decode_step(
+                cfg, model, cache, r["tokens"][:, t], t)[0]).numpy()
                       for t in range(DEC_STEPS)]
             copied = {}
             for how in COPIES:
@@ -188,8 +190,8 @@ def _fsdp_world(rank, world, nd, nm, ref_path, out_dir):
                 for t in range(DEC_STEPS):
                     if t == DEC_STEPS // 2:
                         cache = _copy_cache(how, cache)
-                    copied[how].append(lm.decode_step(
-                        cfg, model, cache, r["tokens"][:, t], t)[0].numpy())
+                    copied[how].append(lm.gather_vocab(cfg, lm.decode_step(
+                        cfg, model, cache, r["tokens"][:, t], t)[0]).numpy())
             res[("decode", arch)] = dict(logits=logits, split=split,
                                          copied=copied)
     with use_mesh(mesh):

@@ -8,6 +8,8 @@ atol/rtol 2e-4 (the expert products and the combine sum in other
 orders); the router's choices, the kept / dropped assignments and the
 dispatched expert buffers must be equal.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -136,9 +138,19 @@ def test_sort_combine_matches_jax_and_repeats(arch, capacity_factor):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_moe_dense_refuses_the_onehot_dispatch(arch):
-    """Only the sort dispatch is ported: the one-hot one raises, naming
-    the ROADMAP."""
-    _, cfg_t, _, p_t = _moe_pair(arch, moe_dispatch="onehot")
-    x = torch.from_numpy(_x(cfg_t))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmoe.moe_dense(p_t, x, cfg_t)
+    """The one-hot dispatch, once refused, is ported: ``moe_dense`` with
+    ``moe_dispatch="onehot"`` runs it, at a capacity that drops
+    assignments, within the float32 tolerance of the reference's one-hot
+    ``moe_dense``, and counts the same drops as the sort dispatch."""
+    cfg_j, cfg_t, p_j, p_t = _moe_pair(arch, moe_dispatch="onehot",
+                                       capacity_factor=0.25)
+    x = _x(cfg_t)
+    want = jmoe.moe_dense(p_j, jnp.asarray(x), cfg_j)
+    p_t.dropped.zero_()
+    got = tmoe.moe_dense(p_t, torch.from_numpy(x), cfg_t)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+    onehot_dropped = int(p_t.dropped)
+    p_t.dropped.zero_()
+    tmoe.moe_dense(p_t, torch.from_numpy(x),
+                   dataclasses.replace(cfg_t, moe_dispatch="sort"))
+    assert onehot_dropped == int(p_t.dropped) > 0
