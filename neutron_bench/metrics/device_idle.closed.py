@@ -1,0 +1,12 @@
+"""Share of the traced window in which no kernel, copy or set ran on the
+device (torch.profiler's device intervals, their union against the
+window), in %."""
+
+UNIT = "%"
+
+
+def read(run):
+    tr = run.trace
+    if tr is None or not tr.device:
+        return None
+    return 100.0 * (1.0 - tr.busy_s() / tr.window_s())
