@@ -43,6 +43,7 @@ from repro_torch.core.executor import (ExecSemantics, ExecutionError,
 from repro_torch.core.ir import Graph, graph_precision
 from repro_torch.core.npu import NPUConfig
 from repro_torch.core.pipeline import CompileResult, CompilerOptions
+from repro_torch.obs import trace as _trace
 
 from . import artifact as _artifact
 
@@ -403,10 +404,15 @@ class CompiledModel:
         each output batched, ``(len(requests), *shape)`` on the model's
         device.  The serving session copies these to the host once per
         batch."""
+        tracer = _trace.active()
+        if tracer is not None:
+            phase = tracer.phase("stage.stack")
         feeds = self._single_samples(requests)
         self._require_semantics()
         stacked = {t.name: _stack([f[t.name] for f in feeds])
                    for t in self.graph.inputs}
+        if tracer is not None:
+            phase.end()
         return self._run_plan_batch(stacked, len(feeds), owner=owner)
 
     def verify(self, inputs: Inputs) -> ExecutionReport:

@@ -93,16 +93,24 @@ from .compiled import CompiledModel, Inputs, Outputs, _host
 _CLIENT_ERRORS = (ValueError, TypeError, KeyError)
 
 
-def _on_host(run, device: torch.device) -> Outputs:
+def _on_host(run, device: torch.device, tracer=None) -> Outputs:
     """The outputs of ``run()`` (device tensors) on the host: one
     device-to-host copy per output on the current stream, then a
     synchronize of that stream, where an asynchronous CUDA error of the
     launches before it surfaces.  The stream is synchronized when
-    ``run`` raises too, so that the next batch finds it drained."""
+    ``run`` raises too, so that the next batch finds it drained.  With
+    ``tracer`` armed, the copies are its ``copy_back`` phase (they wait
+    for the stream's last kernels first)."""
     if device.type != "cuda":
         return run()
     try:
-        return {k: v.to("cpu") for k, v in run().items()}
+        out = run()
+        if tracer is not None:
+            phase = tracer.phase("copy_back")
+        out = {k: v.to("cpu") for k, v in out.items()}
+        if tracer is not None:
+            phase.end()
+        return out
     finally:
         torch.cuda.current_stream(device).synchronize()
 
@@ -113,7 +121,7 @@ def _served(model: CompiledModel, feeds, owner=None) -> List[Outputs]:
     the device, one copy of each output back, then each request's row
     as a view."""
     host = _on_host(lambda: model.run_batch(feeds, owner=owner),
-                    model.device)
+                    model.device, _trace.active())
     return [{k: v[i] for k, v in host.items()} for i in range(len(feeds))]
 
 
@@ -518,31 +526,39 @@ class Session:
                      deadline_ms: Optional[float]) -> Ticket:
         now = _chaos.now()
         ticket = Ticket(self, name, deadline)
-        with _trace.maybe_span("submit", "serving",
-                               trace_id=ticket.trace_id, model=name,
-                               deadline_ms=deadline_ms):
-            if deadline is not None and deadline <= now:
-                self._count(name, "deadline_misses")
-                ticket._fail(DeadlineExceeded(name, 0.0))
-                return ticket
-            if self._pool is not None:
-                # the pool counts shed/deadline misses itself; stats()
-                # merges
-                self._pool.submit(name, inputs, ticket)
-                return ticket
-            q = self._queue.setdefault(name, [])
-            if len(q) >= self.max_queue:
-                self._count(name, "shed")
-                _trace.instant("shed", "serving",
-                               trace_id=ticket.trace_id,
-                               args={"model": name, "depth": len(q)})
-                st = self._stats.get(name) or {}
-                est = st.get("latency_ms", 10.0) or 10.0
-                raise Overloaded(name, len(q), max(
-                    1.0, est * (len(q) / max(1, self.max_batch))))
-            q.append((inputs, ticket))
-            self._queue_depth += 1
+        tracer = _trace.active()
+        if tracer is None:
+            return self._enqueue(name, inputs, ticket, now)
+        t0 = time.monotonic()
+        try:
+            return self._enqueue(name, inputs, ticket, now)
+        finally:
+            tracer.complete("submit", "serving", t0,
+                            trace_id=ticket.trace_id,
+                            args={"model": name, "deadline_ms": deadline_ms})
+
+    def _enqueue(self, name: str, inputs: Inputs, ticket: Ticket,
+                 now: float) -> Ticket:
+        if ticket.deadline is not None and ticket.deadline <= now:
+            self._count(name, "deadline_misses")
+            ticket._fail(DeadlineExceeded(name, 0.0))
             return ticket
+        if self._pool is not None:
+            # the pool counts shed/deadline misses itself; stats() merges
+            self._pool.submit(name, inputs, ticket)
+            return ticket
+        q = self._queue.setdefault(name, [])
+        if len(q) >= self.max_queue:
+            self._count(name, "shed")
+            _trace.instant("shed", "serving", trace_id=ticket.trace_id,
+                           args={"model": name, "depth": len(q)})
+            st = self._stats.get(name) or {}
+            est = st.get("latency_ms", 10.0) or 10.0
+            raise Overloaded(name, len(q), max(
+                1.0, est * (len(q) / max(1, self.max_batch))))
+        q.append((inputs, ticket))
+        self._queue_depth += 1
+        return ticket
 
     def _resolve(self, ticket: Ticket, timeout: Optional[float]) -> None:
         """Block until a ticket terminates: waits on the worker pool, or
@@ -709,10 +725,13 @@ class Session:
         trace_ids = [t.trace_id for _, t in entries]
         outs = None
         err: Optional[BaseException] = None
+        moved: Optional[BaseException] = None   # back to the pool
         engine = "plan"
         tracer = _trace.active()
         t0 = time.monotonic()
         if tracer is not None:
+            tracer.set_batch(_trace.new_batch_id())
+            phase = tracer.phase("batch", t0)
             # queue wait: submit (on the caller's thread) -> execution
             # start, as async b/e pairs keyed by trace id so the
             # cross-thread interval never distorts thread nesting
@@ -728,10 +747,8 @@ class Session:
             try:
                 outs = self._plan_run(name, model, feeds, worker,
                                       trace_ids)
-            except WorkerCrashed as e:
-                return self._crash_redispatch(name, entries, e)
-            except FrameCorrupt as e:
-                return self._frame_redispatch(name, entries, e)
+            except (WorkerCrashed, FrameCorrupt) as e:
+                moved = e
             except _CLIENT_ERRORS as e:
                 err = e
             except Exception:
@@ -741,12 +758,16 @@ class Session:
                 try:
                     outs = self._plan_run(name, model, feeds, worker,
                                           trace_ids)
-                except WorkerCrashed as e2:
-                    return self._crash_redispatch(name, entries, e2)
-                except FrameCorrupt as e2:
-                    return self._frame_redispatch(name, entries, e2)
+                except (WorkerCrashed, FrameCorrupt) as e2:
+                    moved = e2
                 except Exception as e2:
                     err = e2
+            if moved is not None:
+                if tracer is not None:
+                    tracer.set_batch(None)
+                if isinstance(moved, WorkerCrashed):
+                    return self._crash_redispatch(name, entries, moved)
+                return self._frame_redispatch(name, entries, moved)
             if outs is not None:
                 br.record_success()
             elif not isinstance(err, _CLIENT_ERRORS):
@@ -778,10 +799,8 @@ class Session:
         dt = time.monotonic() - t0
         self._m_service.observe(dt * 1e3, model=name)
         if tracer is not None:
-            tracer.complete("batch", "serving", t0, t0 + dt,
-                            args={"model": name, "n": len(entries),
-                                  "engine": engine,
-                                  "ok": err is None})
+            phase.end(t0 + dt, model=name, n=len(entries), engine=engine,
+                      ok=err is None)
         with self._stats_lock:
             st = self._model_stats(name)
             st["batches"] += 1
@@ -790,30 +809,37 @@ class Session:
             st["requests"] += len(entries)
             st["run_s"] += dt
             st["engine"] = engine
+        done_t = time.monotonic()
+        if tracer is not None:
+            # settlement: after `done_t`, where the `serve` spans end
+            phase = tracer.phase("settle")
         if err is not None:
             for _, ticket in entries:
                 ticket._fail(err)
-            return err
-        c = _chaos.active()
-        if c is not None and c.maybe_corrupt_output(name, self.tag):
-            # silent corruption: serve *wrong bytes* with no error —
-            # the fault class only the fleet's interp-oracle audit
-            # sampler can catch (and quarantine the replica for)
-            outs = [_chaos.flip_outputs(o) for o in outs]
-        hist = self._hist(name)
-        done_t = time.monotonic()
-        for (_, ticket), out in zip(entries, outs):
-            if ticket._fulfill(out):
-                hist.record((done_t - ticket.submitted_at) * 1e3)
-                if tracer is not None:
-                    # one span per request over its execution window,
-                    # carrying the trace id — the cross-thread hop the
-                    # exporter stitches flow arrows through
-                    tracer.complete("serve", "serving", t0, done_t,
-                                    trace_id=ticket.trace_id,
-                                    args={"model": name,
-                                          "engine": engine})
-        return None
+        else:
+            c = _chaos.active()
+            if c is not None and c.maybe_corrupt_output(name, self.tag):
+                # silent corruption: serve *wrong bytes* with no error —
+                # the fault class only the fleet's interp-oracle audit
+                # sampler can catch (and quarantine the replica for)
+                outs = [_chaos.flip_outputs(o) for o in outs]
+            hist = self._hist(name)
+            for (_, ticket), out in zip(entries, outs):
+                if ticket._fulfill(out):
+                    hist.record((done_t - ticket.submitted_at) * 1e3)
+                    if tracer is not None:
+                        # one span per request over its execution
+                        # window, carrying the trace id — the
+                        # cross-thread hop the exporter stitches flow
+                        # arrows through
+                        tracer.complete("serve", "serving", t0, done_t,
+                                        trace_id=ticket.trace_id,
+                                        args={"model": name,
+                                              "engine": engine})
+        if tracer is not None:
+            phase.end()
+            tracer.set_batch(None)
+        return err
 
     def flush(self, name: Optional[str] = None, timeout: float = 60.0
               ) -> int:

@@ -246,6 +246,7 @@ class ExecPlan:
             raise PlanError(
                 f"{self.name}: batch {n} outside plan capacity "
                 f"[1, {self.capacity}]")
+        tracer = _trace.active()
         for t in self.graph.inputs:
             arr = feed[t.name]
             arr = (arr if isinstance(arr, torch.Tensor)
@@ -256,9 +257,17 @@ class ExecPlan:
                 raise PlanError(
                     f"{self.name}: input {t.name} has shape "
                     f"{tuple(arr.shape)}, expected {(n,) + t.shape}")
+            if tracer is not None:
+                phase = tracer.phase("stage.copy_in")
+                nbytes = arr.nbytes
             arr = arr.to(self.device, torch.float32)
+            if tracer is not None:
+                phase.end(bytes=nbytes)
+                phase = tracer.phase("stage.encode")
             self._views[self.ids[t.name]][:n].copy_(
                 self.semantics.encode_input(t.name, arr))
+            if tracer is not None:
+                phase.end()
         return n, squeeze
 
     def run(self, feed: Dict[str, object], n: Optional[int] = None,
@@ -281,7 +290,7 @@ class ExecPlan:
         ``trace_id``."""
         n, squeeze = self._encode(feed, n)
         bufs = self._views
-        tracer = _trace.active()
+        phases = tracer = _trace.active()
         if tracer is not None and not tracer.plan_steps:
             tracer = None
         st = None
@@ -311,6 +320,8 @@ class ExecPlan:
                 f"{self.name}: lowered kernel "
                 f"{st.label if st is not None else '?'} failed: "
                 f"{type(e).__name__}: {e}") from e
+        if phases is not None:
+            phase = phases.phase("decode")
         outs: Dict[str, torch.Tensor] = {}
         for t in self.graph.outputs:
             raw = bufs[self.ids[t.name]][:n]
@@ -318,6 +329,8 @@ class ExecPlan:
             if out is raw:          # the float32 decode is the identity
                 out = raw.clone()
             outs[t.name] = out[0] if squeeze else out
+        if phases is not None:
+            phase.end()
         return outs
 
     def _run_device_timed(self, bufs, n: int, tracer, trace_id,

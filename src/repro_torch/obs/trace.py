@@ -23,9 +23,10 @@ Recording uses ``time.monotonic()`` (the serving runtime's latency
 clock), *not* the chaos-skewable deadline clock: traces measure what
 actually happened, fault injection included.
 
-Copy of the JAX package's ``obs/trace.py`` (pure Python; the port imports
-nothing of that package and keeps its own copy).  The tests hold
-it equal to the original.
+Started as a copy of the JAX package's ``obs/trace.py`` (pure Python;
+the port imports nothing of that package).  It has since parted from the
+original: the phases of a served batch (:class:`Phase`), each carrying the
+batch's id.  No test holds the two files equal.
 """
 from __future__ import annotations
 
@@ -53,6 +54,40 @@ def new_trace_id() -> int:
     return next(_ids)
 
 
+_batch_ids = itertools.count(1)
+
+
+def new_batch_id() -> int:
+    """Mint a process-unique batch id: a serving session takes one for
+    each batch it executes while tracing is armed, and every span of that
+    batch carries it as its ``batch`` argument, so a reader groups a
+    batch's spans without relying on time containment."""
+    return next(_batch_ids)
+
+
+class Phase:
+    """One phase of a served batch, from its start to :meth:`end`: a
+    span of category ``serving`` carrying the batch id its thread serves
+    (:meth:`Tracer.set_batch`) and the counts given to :meth:`end`.  A
+    phase whose work raises is never ended, and records nothing."""
+
+    __slots__ = ("_tracer", "_name", "_t0")
+
+    def __init__(self, tracer: "Tracer", name: str,
+                 t0: Optional[float] = None):
+        self._tracer = tracer
+        self._name = name
+        self._t0 = time.monotonic() if t0 is None else t0
+
+    def end(self, t1: Optional[float] = None, **args) -> None:
+        """Record the span [start, ``t1``] (``t1`` defaults to now) with
+        ``args`` and the thread's batch id."""
+        t1 = time.monotonic() if t1 is None else t1
+        args["batch"] = getattr(self._tracer._local, "batch", None)
+        self._tracer.complete(self._name, "serving", self._t0, t1,
+                              args=args)
+
+
 class Tracer:
     """One armed span ring buffer.
 
@@ -67,6 +102,7 @@ class Tracer:
         self.plan_steps = bool(plan_steps)
         self.epoch = time.monotonic()
         self._buf: "deque[Event]" = deque(maxlen=self.capacity)
+        self._local = threading.local()
 
     # -- recording (hot) ----------------------------------------------------
     @staticmethod
@@ -91,6 +127,16 @@ class Tracer:
         th = threading.current_thread()
         self._buf.append((name, cat, time.monotonic(), None,
                           th.ident or 0, th.name, trace_id, args))
+
+    def phase(self, name: str, t0: Optional[float] = None) -> Phase:
+        """Start a :class:`Phase` of the batch this thread serves (at
+        ``t0``, default now)."""
+        return Phase(self, name, t0)
+
+    def set_batch(self, batch_id: Optional[int]) -> None:
+        """The batch this thread now serves (None: none): every phase it
+        ends carries the id."""
+        self._local.batch = batch_id
 
     @contextmanager
     def span(self, name: str, cat: str = "",

@@ -839,11 +839,6 @@ class ServerPool:
                     ticket._fail(e if isinstance(e, Exception)
                                  else ServingError(repr(e)))
             dt = time.monotonic() - t0
-            tr = _trace.active()
-            if tr is not None:
-                tr.complete("worker", "serving", t0, t0 + dt,
-                            args={"model": name, "worker": wid,
-                                  "n": len(entries)})
             self._batch_ms.observe(dt * 1e3, model=name)
             with self._cv:
                 self._inflight.pop(wid, None)

@@ -924,6 +924,42 @@ def test_session_on_the_card_serves_int8_and_float32(dev):
         sess.close()
 
 
+def test_session_batch_phases_on_the_card(dev):
+    """With the tracer armed, a batch of 4 on a one-worker pool records
+    ``copy_back`` (the device-to-host copies, after the stream's last
+    kernels) after ``decode`` inside its ``batch`` span, every phase with
+    the batch's id; ``stage.copy_in`` counts the images' bytes."""
+    import numpy as np
+    import repro_torch.api as tapi
+    from repro_torch.obs import trace
+
+    sess = tapi.Session(workers=1, max_batch=4, linger_ms=5000.0)
+    tr = trace.enable()
+    try:
+        sess.add(_session_models(dev, "int8"), name="int8")
+        xs = np.random.default_rng(0).normal(
+            size=(4, 16, 16, 8)).astype(np.float32)
+        tr.clear()
+        for t in [sess.submit("int8", x) for x in xs]:
+            t.result(timeout=60)
+    finally:
+        trace.disable()
+        sess.close()
+    spans = {e[0]: e for e in tr.events() if e[1] == "serving"
+             and e[0] != "serve"}
+    batch = spans["batch"]
+    for name in ("stage.stack", "stage.copy_in", "stage.encode", "decode",
+                 "copy_back"):
+        e = spans[name]
+        assert batch[2] <= e[2] <= e[3] <= batch[3], name
+        assert e[7]["batch"] == batch[7]["batch"] is not None
+    assert spans["decode"][3] <= spans["copy_back"][2]
+    assert spans["settle"][2] >= batch[3]
+    assert "drain" not in spans
+    assert spans["stage.copy_in"][7] == {"bytes": xs.nbytes,
+                                         "batch": batch[7]["batch"]}
+
+
 def test_session_sync_launch_error_fails_only_its_batch(dev):
     """A launch that the launch function refuses at once
     (``cudaErrorInvalidValue``, a synchronous error), on one worker's

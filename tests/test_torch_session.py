@@ -999,7 +999,7 @@ def test_pooled_round_trip_trace_and_metrics():
     assert validate_chrome_trace(doc) == []
     evs = doc["traceEvents"]
     names = {d.get("name") for d in evs}
-    for want in ("submit", "queue_wait", "batch", "worker", "serve"):
+    for want in ("submit", "queue_wait", "batch", "settle", "serve"):
         assert want in names, f"missing {want!r} span"
     assert any(d.get("cat") == "plan" for d in evs)
 
@@ -1017,6 +1017,128 @@ def test_pooled_round_trip_trace_and_metrics():
     assert "repro_pool_batch_ms" in metrics_text
     assert "repro_worker_alive" in metrics_text
     assert "repro_pool_workers 2" in metrics_text
+
+
+# --------------------------------------------------------------------------
+# a served batch's host phases (stage, decode, settle; the copy back
+# exists only on the card, test_torch_cuda.py)
+# --------------------------------------------------------------------------
+
+PHASES = ("stage.stack", "stage.copy_in", "stage.encode", "decode")
+
+
+def _serve_batches(n_batches=1, n=5):
+    """``n_batches`` batches of ``n`` requests through a one-worker pool
+    (``max_batch=n``, so each batch leaves when full); returns the
+    images."""
+    sess = api.Session(max_batch=n, workers=1, linger_ms=5000.0,
+                       device="cpu")
+    _add(sess, 0, "m0")
+    xs = _inputs(sess["m0"].graph, n)
+    try:
+        for _ in range(n_batches):
+            tickets = [sess.submit("m0", x) for x in xs]
+            for t in tickets:
+                t.result(timeout=30)
+    finally:
+        sess.close()
+    return xs
+
+
+@pytest.fixture
+def phase_trace():
+    tr = trace.enable()
+    xs = _serve_batches()
+    trace.disable()
+    return tr, xs
+
+
+def test_batch_phases_in_order_inside_the_batch(phase_trace):
+    tr, _ = phase_trace
+    evs = [e for e in tr.events() if e[1] in ("serving", "plan")
+           and e[0] not in ("submit", "serve")]
+    (batch,) = [e for e in evs if e[0] == "batch"]
+    (settle,) = [e for e in evs if e[0] == "settle"]
+    inside = sorted((e for e in evs if batch[2] <= e[2] and e[3] <= batch[3]
+                     and e is not batch), key=lambda e: e[2])
+    names = [e[0] for e in inside]
+    steps = [i for i, e in enumerate(inside) if e[1] == "plan"]
+    assert steps == list(range(3, 3 + len(steps))) and steps
+    assert names[:3] == list(PHASES[:3])
+    assert names[steps[-1] + 1:] == list(PHASES[3:])
+    for a, b in zip(inside, inside[1:]):
+        assert a[3] <= b[2]
+    assert batch[3] <= settle[2] and settle[4] == batch[4]
+    assert {e[4] for e in inside} == {batch[4]}
+
+
+def test_batch_phases_share_the_batch_id(phase_trace):
+    """One batch id on every phase, and no counter that no metric reads:
+    ``stage.copy_in`` counts the images' bytes (``copy_in_gb_s``)."""
+    tr, xs = phase_trace
+    spans = {e[0]: e for e in tr.events() if e[1] == "serving"
+             and e[0] in PHASES + ("batch", "settle")}
+    assert set(spans) == set(PHASES) | {"batch", "settle"}
+    ids = {e[7]["batch"] for e in spans.values()}
+    assert len(ids) == 1 and None not in ids
+    (bid,) = ids
+    assert spans["stage.copy_in"][7] == {"bytes": 5 * xs[0].nbytes,
+                                         "batch": bid}
+    for name in ("stage.stack", "stage.encode", "decode", "settle"):
+        assert spans[name][7] == {"batch": bid}, name
+    assert spans["batch"][7]["n"] == 5
+
+
+def test_batch_phases_export_a_valid_chrome_trace(phase_trace):
+    tr, _ = phase_trace
+    doc = tr.chrome_trace()
+    assert validate_chrome_trace(doc) == []
+    names = {d["name"] for d in doc["traceEvents"] if d.get("ph") == "X"}
+    assert set(PHASES) | {"batch", "settle"} <= names
+    assert "worker" not in names
+
+
+def test_untraced_batch_calls_no_tracer_and_no_profiler(monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("tracing ran with the tracer off")
+
+    monkeypatch.setattr(trace.Tracer, "complete", boom)
+    monkeypatch.setattr(trace.Tracer, "instant", boom)
+    monkeypatch.setattr(torch.profiler, "record_function", boom)
+    assert trace.active() is None
+    _serve_batches()
+
+
+def test_failed_batch_records_no_phase_of_the_work_that_raised():
+    """A batch the model refuses while stacking it (batched arrays where
+    single samples belong) records its ``batch`` span (``ok`` false) and
+    ``settle``, and no phase of the work that raised; the next batch on
+    the same worker carries an id of its own on every phase."""
+    sess = api.Session(max_batch=2, workers=1, linger_ms=5000.0,
+                       device="cpu")
+    _add(sess, 0, "m0")
+    xs = _inputs(sess["m0"].graph, 2)
+    tr = trace.enable()
+    try:
+        for t in [sess.submit("m0", x[None]) for x in xs]:
+            with pytest.raises(ValueError, match="single-sample"):
+                t.result(timeout=30)
+        for t in [sess.submit("m0", x) for x in xs]:
+            t.result(timeout=30)
+    finally:
+        trace.disable()
+        sess.close()
+    evs = [e for e in tr.events() if e[1] == "serving"
+           and e[0] not in ("submit", "serve")]
+    bad, good = [e for e in evs if e[0] == "batch"]
+    assert bad[7]["ok"] is False and good[7]["ok"] is True
+    assert bad[7]["batch"] != good[7]["batch"]
+    by_batch = {}
+    for e in evs:
+        by_batch.setdefault(e[7]["batch"], []).append(e[0])
+    assert set(by_batch) == {bad[7]["batch"], good[7]["batch"]}
+    assert by_batch[bad[7]["batch"]] == ["batch", "settle"]
+    assert by_batch[good[7]["batch"]] == list(PHASES) + ["batch", "settle"]
 
 
 # --------------------------------------------------------------------------
