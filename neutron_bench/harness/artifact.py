@@ -5,13 +5,16 @@ program's PTQ on the benchmark's calibration images, compiled by
 
 The artifact is cached under ``neutron_bench/.cache/artifacts/``, keyed
 by the configuration, the weight type, the device the weights were drawn
-on and a hash of the program's sources, so the first run of a cell in a
-checkout compiles and every later one loads.  The cache keeps at most
-``CACHE_BYTES``, dropping the least recently used artifacts first.
+on, a hash of the program's sources and one of the harness's sources that
+draw and bind its weights (the reference network among them), so the
+first run of a cell in a checkout compiles and every later one loads.
+The cache keeps at most ``CACHE_BYTES``, dropping the least recently used
+artifacts first.
 """
 from __future__ import annotations
 
 import hashlib
+import inspect
 import json
 import os
 import time
@@ -37,16 +40,29 @@ def program_hash() -> str:
     return h.hexdigest()
 
 
-def key(cfg: Dict, weight_dtype: str, device: torch.device) -> str:
+def weights_hash(forward) -> str:
+    """sha256 over the sources that draw and bind the weights: this file,
+    ``data.py``, ``reference/qnet.py`` and the file ``forward`` is in."""
+    from neutron_bench.reference import qnet
+    h = hashlib.sha256()
+    for f in (__file__, data.__file__, qnet.__file__,
+              inspect.getsourcefile(forward)):
+        h.update(Path(f).read_bytes())
+    return h.hexdigest()
+
+
+def key(cfg: Dict, forward, weight_dtype: str, device: torch.device) -> str:
     h = hashlib.sha256()
     h.update(json.dumps(cfg, sort_keys=True).encode())
-    h.update(f"{weight_dtype}|{device.type}|{program_hash()}".encode())
+    h.update(f"{weight_dtype}|{device.type}|{program_hash()}|"
+             f"{weights_hash(forward)}".encode())
     return h.hexdigest()[:20]
 
 
-def path_for(cfg: Dict, weight_dtype: str, device: torch.device) -> Path:
+def path_for(cfg: Dict, forward, weight_dtype: str,
+             device: torch.device) -> Path:
     return env.ARTIFACTS / (f"{cfg['name']}-{weight_dtype}-"
-                            f"{key(cfg, weight_dtype, device)}.rpa")
+                            f"{key(cfg, forward, weight_dtype, device)}.rpa")
 
 
 def graph_of(cfg: Dict):
@@ -88,7 +104,7 @@ def ensure(cfg: Dict, forward, device: torch.device,
            weight_dtype: str = "int8") -> Dict:
     """The artifact's path, compiled and saved if the cache lacks it.
     Returns {"path", "compiled", "compile_s"}."""
-    path = path_for(cfg, weight_dtype, device)
+    path = path_for(cfg, forward, weight_dtype, device)
     if path.exists():
         os.utime(path)
         return {"path": path, "compiled": False, "compile_s": 0.0}

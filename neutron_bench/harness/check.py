@@ -7,8 +7,9 @@ plain reference (``reference/<config>.py`` through ``reference/qnet.py``)
 derives the qparams again from the benchmark's weights and calibration
 images and runs the int8 network over each sampled request's image, in
 blocks.  The number compared is the widest gap between a served output
-and the reference's, in steps of the reference's output scale
-(``logit_gap_steps``); its limit is the configuration's.
+head and the reference's, each head's in steps of that head's own
+reference output scale (``logit_gap_steps``); its limit is the
+configuration's.
 """
 from __future__ import annotations
 
@@ -39,18 +40,31 @@ def reference_for(cfg: Dict, forward, device: torch.device,
                      artifact.calib_images(cfg, device), weight_bits)
 
 
-def logit_gaps(ref: Reference, images: np.ndarray, outputs: List,
+def logit_gaps(ref: Reference, images: np.ndarray, outputs: List[List],
                device: torch.device) -> np.ndarray:
-    """Per output: the widest |served - reference| in steps of the
-    reference's output scale.  ``outputs``: one (N,) float array each,
-    ``images`` the images they were served for."""
-    step = ref.out_qparams[0]
+    """Per request: the widest |served - reference| over its output heads,
+    each head's in steps of its own reference output scale.  ``outputs``:
+    one list a request of its served heads in the network's output order,
+    each an (H, W, C) float array; ``images`` the images they were served
+    for.  Raises ValueError where a request's heads differ from the
+    reference's in number or shape: no head is ever left out."""
+    shapes = ref.out_shapes
+    for i, heads in enumerate(outputs):
+        got = [tuple(np.shape(h)) for h in heads]
+        if got != shapes:
+            raise ValueError(f"request {i} of the check: served heads "
+                             f"{got}, the reference's {shapes}")
+    steps = [qp[0] for qp in ref.out_qparams]
     gaps = []
     for i in range(0, len(images), BLOCK):
         imgs = torch.from_numpy(np.ascontiguousarray(
             images[i:i + BLOCK])).to(device)
-        want = ref.logits(imgs).cpu().numpy()
-        got = np.stack([np.asarray(o, np.float32).reshape(-1)
-                        for o in outputs[i:i + BLOCK]])
-        gaps.extend(np.abs(got - want).max(axis=1) / step)
+        block = outputs[i:i + BLOCK]
+        gap = np.zeros(len(block))
+        for k, (want, step) in enumerate(zip(ref.logits(imgs), steps)):
+            got = np.stack([np.asarray(o[k], np.float32).reshape(-1)
+                            for o in block])
+            gap = np.maximum(gap, np.abs(got - want.cpu().numpy()).max(
+                axis=1) / step)
+        gaps.extend(gap)
     return np.asarray(gaps, float)

@@ -10,9 +10,13 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-#: the weight variance a layer's fan-in is scaled by (He et al. 2015 for
-#: rectified layers, 1 for the linear ones)
-GAIN = {"relu": 2.0, "relu6": 2.0, "none": 1.0}
+#: the weight variance a layer's fan-in is scaled by: He et al. 2015's
+#: 1 / E[f(z)^2] for a unit normal z, which keeps a layer's output at unit
+#: variance (ReLU's E[f(z)^2] is 1/2; relu6 clips too rarely to differ;
+#: 1 for the linear ones)
+GAIN = {"relu": 2.0, "relu6": 2.0, "none": 1.0,
+        # E[silu(z)^2] = 0.355776 (quadrature of z^2 sigmoid(z)^2 phi(z))
+        "silu": 1 / 0.355776}
 #: standard deviation of the folded biases
 BIAS_STD = 0.05
 

@@ -33,4 +33,4 @@ def forward(net, images):
                 h = net.add(x, h)
             x, c_in = h, c
     x = net.conv(x, 1280, act="relu6")
-    return net.fc(net.gap(x), 1000)
+    return [net.fc(net.gap(x), 1000)]

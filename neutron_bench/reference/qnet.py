@@ -3,13 +3,16 @@ quantization that gives its integers.
 
 A network is one function, ``forward(net, x)``, written against the few
 layer calls of :class:`Net` (``conv``, ``dwconv``, ``fc``, ``add``,
-``maxpool``, ``gap``).  :class:`Net` runs it three ways:
+``maxpool``, ``gap``, ``concat``, ``split``, ``resize``), that returns the
+list of its outputs in the network's output order (a list of one for a
+classifier).  :class:`Net` runs it three ways:
 
 * ``spec``: on the meta device, to list the layers with their weight
   shapes (outC, kh, kw, inC; a depthwise conv (C, kh, kw, 1), an fc
   (N, 1, 1, K)) in call order;
 * ``float``: float32 (TF32 off), recording the range of every tensor,
-  the input included, in call order: the calibration;
+  the input included, in call order (each part of a split in turn): the
+  calibration;
 * ``int8``: the integers of the quantized network.
 
 The quantization is the deployment the configurations state: every
@@ -19,7 +22,11 @@ biases int32 at the scale ``s_x * s_w``.  Integer sums are exact (float64
 holds them), and each float32 step rounds where a float32 deployment
 rounds: ``float32(acc) * (s_x * s_w)``, the activation, ``round(y / s) +
 z`` clipped to the int8 range (half to even), and ``(q - z) * s`` where a
-value is dequantized (add, max pool's requantization, the output).
+value is dequantized (add, concat, split, resize, max pool's
+requantization, the outputs).  SiLU is ``x * sigmoid(x)`` in float32 from
+its definition; the deployment evaluates its own float32 formula, so, as
+with any activation that is not piecewise linear, a stored code may differ
+by one step where a value lies at a rounding boundary.
 Padding is TensorFlow's ``SAME`` (the smaller half before), as the
 networks are deployed.
 
@@ -54,6 +61,8 @@ def activation(x: torch.Tensor, act: str) -> torch.Tensor:
         return torch.clamp_min(x, 0)
     if act == "relu6":
         return torch.clamp(x, 0, 6)
+    if act == "silu":
+        return x * torch.sigmoid(x)
     raise ValueError(f"activation {act!r}")
 
 
@@ -116,10 +125,17 @@ class QLayer:
     sc: torch.Tensor           # (outC,) float32
 
 
+def _flat(t: torch.Tensor) -> torch.Tensor:
+    """(n, C, H, W) -> (n, H * W * C), in the (H, W, C) order of the
+    program's tensors."""
+    return t.permute(0, 2, 3, 1).reshape(t.shape[0], -1)
+
+
 class Net:
     """Runs ``forward(net, x)`` in the mode given (see the module's
     docstring).  ``x``: (n, H, W, C) float32 images; ``forward`` returns
-    the output tensor of the mode (float32 logits, int codes)."""
+    the list of its output tensors in the mode (float32 logits, int codes
+    with their qparams)."""
 
     def __init__(self, mode: str, params: Optional[Dict] = None,
                  qparams: Optional[List[Tuple[float, int]]] = None,
@@ -231,6 +247,33 @@ class Net:
             y = dequantize(y.to(torch.int32), xqp)
         return self._out(y)
 
+    def concat(self, xs):
+        """Channel concatenation: in the int domain each input dequantized
+        with its own qparams, then one quantization with the concat's."""
+        if self.mode == "int8":
+            y = torch.cat([dequantize(*x) for x in xs], dim=1)
+        else:
+            y = torch.cat(list(xs), dim=1)
+        return self._out(y)
+
+    def split(self, x, sections: int) -> list:
+        """``sections`` equal channel parts, each a new tensor with its
+        own qparams, recorded in order (int domain: dequantized, then each
+        part quantized with its own)."""
+        y = dequantize(*x) if self.mode == "int8" else x
+        c = y.shape[1]
+        if c % sections:
+            raise ValueError(f"split of {c} channels into {sections}")
+        return [self._out(p) for p in torch.split(y, c // sections, dim=1)]
+
+    def resize(self, x, factor: int):
+        """Nearest upsampling by an integer factor: each pixel repeated
+        ``factor`` x ``factor`` times (int domain: dequantized, repeated,
+        quantized with the output's qparams)."""
+        y = dequantize(*x) if self.mode == "int8" else x
+        y = y.repeat_interleave(factor, dim=2)
+        return self._out(y.repeat_interleave(factor, dim=3))
+
     def gap(self, x):
         """Global average pool: in the int domain the exact sum of ``q -
         z``, times ``s / (H W)`` rounded to float32."""
@@ -291,15 +334,9 @@ def quantize_layers(specs: List[Layer], params: Dict,
     return out
 
 
-def input_indices(forward: Callable, resolution: int) -> Dict[str, int]:
-    """Layer name -> index (in call order) of the tensor it reads."""
-    net = _InputTracker()
-    forward(net, torch.empty((1, resolution, resolution, 3), device="meta"))
-    return net.input_of
-
-
 class _InputTracker(Net):
-    """Spec mode that also notes which tensor each layer reads."""
+    """Spec mode that also notes which tensor each layer reads (by index
+    in call order, :meth:`index`)."""
 
     def __init__(self):
         super().__init__("spec")
@@ -310,8 +347,11 @@ class _InputTracker(Net):
         self._ids[id(t)] = self._ti
         return super()._out(t)
 
+    def index(self, t) -> int:
+        return self._ids[id(t)]
+
     def _weighted(self, x, kind, out_c, k, s, act):
-        self.input_of[f"L{self._li}"] = self._ids[id(x)]
+        self.input_of[f"L{self._li}"] = self.index(x)
         return super()._weighted(x, kind, out_c, k, s, act)
 
 
@@ -323,28 +363,43 @@ class Reference:
     def __init__(self, forward: Callable, resolution: int, params: Dict,
                  calib: torch.Tensor, weight_bits: int = 8):
         self.forward = forward
-        self.specs = layer_specs(forward, resolution)
+        spec = _InputTracker()
+        outs = forward(spec, torch.empty((1, resolution, resolution, 3),
+                                         device="meta"))
+        if not isinstance(outs, list):
+            raise TypeError("forward returns the list of its outputs, "
+                            f"not {type(outs).__name__}")
+        self.specs = spec.layers
+        #: layer name -> index (in call order) of the tensor it reads
+        self.input_of = spec.input_of
+        #: index (in call order) of each output tensor, in output order
+        self.out_index = [spec.index(t) for t in outs]
+        #: (H, W, C) of each output
+        self.out_shapes = [(int(t.shape[2]), int(t.shape[3]),
+                            int(t.shape[1])) for t in outs]
         self.qparams = calibrate(forward, params, calib)
-        self.qlayers = quantize_layers(
-            self.specs, params, self.qparams,
-            input_indices(forward, resolution), weight_bits)
+        self.qlayers = quantize_layers(self.specs, params, self.qparams,
+                                       self.input_of, weight_bits)
 
     @property
-    def out_qparams(self) -> Tuple[float, int]:
-        return self.qparams[-1]
+    def out_qparams(self) -> List[Tuple[float, int]]:
+        """(scale, zero point) of each output, in output order."""
+        return [self.qparams[i] for i in self.out_index]
 
     @torch.no_grad()
-    def logits(self, images: torch.Tensor) -> torch.Tensor:
-        """Decoded float32 outputs (n, N) of the int8 network."""
+    def logits(self, images: torch.Tensor) -> List[torch.Tensor]:
+        """Decoded float32 outputs of the int8 network: one (n, N_k) per
+        output, in output order, each in (H, W, C) order."""
         _no_tf32()
         net = Net("int8", qparams=self.qparams, qlayers=self.qlayers)
-        q, qp = self.forward(net, images)
-        return dequantize(q, qp).reshape(q.shape[0], -1)
+        return [_flat(dequantize(q, qp))
+                for q, qp in self.forward(net, images)]
 
     @torch.no_grad()
     def float_logits(self, params: Dict, images: torch.Tensor
-                     ) -> torch.Tensor:
-        """The float32 network's outputs (n, N), for tests."""
+                     ) -> List[torch.Tensor]:
+        """The float32 network's outputs, one (n, N_k) per output as
+        :meth:`logits` gives them, for tests."""
         _no_tf32()
         net = Net("float", params=params)
-        return self.forward(net, images).reshape(images.shape[0], -1)
+        return [_flat(t) for t in self.forward(net, images)]

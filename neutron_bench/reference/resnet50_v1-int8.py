@@ -25,4 +25,4 @@ def forward(net, images):
             h = net.conv(h, 4 * c, k=1)
             short = net.conv(x, 4 * c, k=1, s=s) if i == 0 else x
             x = net.add(h, short, act="relu")
-    return net.fc(net.gap(x), 1000)
+    return [net.fc(net.gap(x), 1000)]

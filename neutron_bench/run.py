@@ -225,8 +225,10 @@ def main(argv=None, *, require_cuda=True, device=None, workload=None,
 
     # -- correctness, after the program's state is freed -------------------
     have = np.asarray(sorted(rq.outputs), int)
+    info["kept"] = len(have)
     picked = check.sample(args.seed, have, int(wl.get("check_sample", 256)))
-    outs = [rq.outputs[i][server.model.graph.outputs[0].name].numpy()
+    names = [t.name for t in server.model.graph.outputs]
+    outs = [[rq.outputs[i][n].numpy() for n in names if n in rq.outputs[i]]
             for i in picked]
     imgs = images[[rq.image[i] for i in picked]]
     server.close()
@@ -236,7 +238,12 @@ def main(argv=None, *, require_cuda=True, device=None, workload=None,
         torch.cuda.empty_cache()
     t = time.monotonic()
     ref = check.reference_for(cfg, forward, dev)
-    gaps = check.logit_gaps(ref, imgs, outs, dev)
+    try:
+        gaps = check.logit_gaps(ref, imgs, outs, dev)
+    except ValueError as e:                 # a head missing or misshapen
+        info["check_error"] = str(e)
+        print(f"neutron_bench: {e}", file=sys.stderr)
+        gaps = np.zeros(0)
     info["check_s"] = time.monotonic() - t
     info["checked"] = len(gaps)
     gap = float(gaps.max()) if len(gaps) else float("inf")
